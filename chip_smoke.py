@@ -1,0 +1,444 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--json PATH]
+
+Builds the port's CUDA kernels from ``two_stage_object_detection_tpu_torch/
+csrc`` (one nvcc per source, in parallel), holds each kernel against its
+plain PyTorch version at the shapes of the FPN-ResNet50 predict path, times
+both, then serves requests through the port's ``Predictor`` at the flagship
+configuration (600x600, ResNet-50 FPN, 81 classes, 3000 -> 300 proposals,
+bfloat16, seeded random weights) and checks that the path went through both
+kernels.  Every check raises on failure, so any failed phase exits nonzero.
+
+Output: progress lines; the card's ``nvidia-smi`` name and power limit; one
+JSON line ``{"kernels": [...]}`` with each kernel's launches, error, times
+and bound; and last, ``{"ok": true, "device": {...}}``.  With ``--json``,
+the measured numbers also go to that file.  Without a CUDA device,
+or outside the repository, it exits nonzero and prints no result.
+
+Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth and
+# non-tensor-core float32 rate.  Bounds are stated against these.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+IOU_FLOPS = 14            # max/min x4, sub x2, clamp x2, mul, add, sub, add, div, cmp
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ------------------------------------------------------------ kernel 1
+def nms_inputs(rng, b: int, k: int, dev):
+    """Score-sorted rows (stable, ties by lower index) with score ties,
+    near-threshold pairs (IoU ~ 0.7) and masked (-1e9) tail rows."""
+    xy = rng.rand(b, k, 2) * 560.0
+    wh = rng.rand(b, k, 2) * 200.0 + 16.0
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    w = boxes[:, 0:k:4, 2] - boxes[:, 0:k:4, 0]
+    d = w * (0.3 / 1.7) * (1.0 + rng.uniform(-1e-6, 1e-6, w.shape))
+    partner = boxes[:, 0:k:4].copy()
+    partner[..., 0] += d
+    partner[..., 2] += d
+    boxes[:, 1:k:4] = partner
+    scores = (rng.randint(0, 200, size=(b, k)) / 200.0).astype(np.float32)
+    scores[:, k - k // 20:] = -1e9
+    order = np.argsort(-scores, axis=1, kind="stable")
+    boxes = np.take_along_axis(boxes, order[..., None], 1)
+    scores = np.take_along_axis(scores, order, 1)
+    return torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+
+
+def nms_bound_ms(boxes, out_boxes, valid, n_post: int):
+    """Bytes: inputs once, outputs once.  Operations: the IoUs greedy NMS
+    needs on this data -- each kept row i against the K - 1 - i rows after
+    it -- plus one area per row."""
+    b, k, _ = boxes.shape
+    nbytes = b * k * (16 + 4) + b * n_post * (16 + 4 + 1)
+    # row index of each kept box in its image
+    match = (out_boxes[:, :, None, :] == boxes[:, None, :, :]).all(-1)
+    row = match.to(torch.uint8).argmax(-1)
+    ious = int(((k - 1 - row) * valid).sum())
+    ops = ious * IOU_FLOPS + b * k * 3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_nms(rng, dev):
+    from two_stage_object_detection_tpu_torch.ops.proposals import (
+        greedy_nms, greedy_nms_rows_reference)
+    report = {}
+    for k, n_post in ((3000, 300), (12000, 600)):
+        boxes, scores = nms_inputs(rng, 16, k, dev)
+        got = greedy_nms(boxes, scores, n_post=n_post, iou_threshold=0.7)
+        want = greedy_nms_rows_reference(boxes, scores, n_post=n_post,
+                                         iou_threshold=0.7)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("boxes", "scores", "valid"), got, want):
+            require(torch.equal(g, w), f"nms K={k}: {name} differ from the "
+                    "plain version (must be bitwise equal)")
+        n_valid = int(got[2].sum())
+        log(f"kernel greedy_nms B=16 K={k} n_post={n_post}: bitwise equal "
+            f"to plain, {n_valid} kept")
+        require(n_valid > 0, "nms kept nothing")
+        report[k] = (boxes, scores, got, n_post,
+                     float((got[0] - want[0]).abs().max()))
+    # time at the predict shape
+    boxes, scores, got, n_post, err = report[3000]
+    ms = cuda_time_ms(lambda: greedy_nms(boxes, scores, n_post=n_post,
+                                         iou_threshold=0.7), 50)
+    plain_ms = cuda_time_ms(lambda: greedy_nms_rows_reference(
+        boxes, scores, n_post=n_post, iou_threshold=0.7), 3, warmup=1)
+    bound_ms, bound_by = nms_bound_ms(boxes, got[0], got[2], n_post)
+    log(f"kernel greedy_nms B=16 K=3000: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
+    return dict(name="greedy_nms", route="cuda",
+                source="two_stage_object_detection_tpu_torch/csrc/nms.cu",
+                replaces="two_stage_object_detection_tpu/ops/pallas_proposals.py:230",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+# ------------------------------------------------------------ kernel 2
+LEVELS_HW = ((150, 150), (75, 75), (38, 38), (19, 19))
+IMG = 600
+
+
+def align_inputs(rng, dev, dtype, b=16, r=300, c=256):
+    """P2..P5 of a 600x600 image; rois of all sizes, some hanging over the
+    image edge; levels as the FPN head assigns them, except for a tenth of
+    elongated rois (aspect 8-20) left on their eq.-1 level, where the
+    window does not cover them and the edge clamp engages."""
+    from two_stage_object_detection_tpu_torch.nets.fpn import (
+        fpn_level_assign, span_aware_levels)
+    g = torch.Generator(device="cpu").manual_seed(int(rng.randint(1 << 30)))
+    pyr = [torch.randn((b, h, w, c), generator=g).to(dev, dtype)
+           for h, w in LEVELS_HW]
+    side = rng.choice([24.0, 64.0, 160.0, 400.0], size=(b, r)) * rng.uniform(
+        0.7, 1.4, size=(b, r))
+    ar = rng.uniform(0.5, 2.0, size=(b, r))
+    ar[:, : r // 10] = rng.uniform(8.0, 20.0, size=(b, r // 10))
+    x1 = rng.rand(b, r) * IMG * 0.9 - IMG * 0.05
+    y1 = rng.rand(b, r) * IMG * 0.9 - IMG * 0.05
+    rois = np.stack([x1, y1, x1 + side * np.sqrt(ar), y1 + side / np.sqrt(ar)],
+                    -1).astype(np.float32)
+    rois = torch.from_numpy(rois).to(dev)
+    scales = tuple((h / IMG, w / IMG) for h, w in LEVELS_HW)
+    eq1 = fpn_level_assign(rois, 2, 5) - 2
+    levels = span_aware_levels(rois, eq1, scales, 30.0)
+    # the elongated tenth keeps its eq.-1 level: windows that do not cover
+    levels[:, : r // 10] = eq1[:, : r // 10]
+    return pyr, rois, levels.to(torch.int32).contiguous(), scales
+
+
+def touched_bytes(pyr, rois, levels, scales, win=32, p=7, s=2):
+    """Bytes of the distinct pyramid pixels the rois' bilinear taps read."""
+    from two_stage_object_detection_tpu_torch.ops import roi_pool
+    dev = rois.device
+    sizes = torch.tensor(LEVELS_HW, dtype=torch.float32, device=dev)
+    sc = roi_pool._norm_scales(scales, len(LEVELS_HW)).to(dev)
+    lv = levels.long()
+    cy, cx = roi_pool._roi_samples(rois, lv, sizes, sc, p, s, False)
+    w_pad = max(max(w for _, w in LEVELS_HW), win)
+    block_h = torch.tensor([max(h, win) for h, _ in LEVELS_HW], device=dev)
+    oy = torch.minimum(torch.clamp(torch.floor(cy[..., 0]).long(), min=0),
+                       block_h[lv] - win)
+    ox = torch.clamp(torch.floor(cx[..., 0]).long(), 0, w_pad - win)
+
+    def taps(c, o):
+        loc = torch.clamp(c - o[..., None].float(), 0.0, win - 1.0)
+        i0 = torch.floor(loc).long()
+        return torch.cat([i0, torch.clamp(i0 + 1, max=win - 1)], -1) + o[..., None]
+
+    ty, tx = taps(cy, oy), taps(cx, ox)                  # [B, R, 2*P*S]
+    total = 0
+    bidx = torch.arange(rois.shape[0], device=dev)[:, None, None, None]
+    for li, (h, w) in enumerate(LEVELS_HW):
+        m = lv == li
+        occ = torch.zeros((rois.shape[0], h, w), dtype=torch.bool, device=dev)
+        yy = ty[..., :, None].expand(-1, -1, -1, tx.shape[-1])
+        xx = tx[..., None, :].expand(-1, -1, ty.shape[-1], -1)
+        ok = m[..., None, None] & (yy < h) & (xx < w)
+        bb = bidx.expand_as(yy)
+        occ[bb[ok], yy[ok], xx[ok]] = True
+        total += int(occ.sum())
+    return total * pyr[0].shape[-1] * pyr[0].element_size()
+
+
+def check_align(rng, dev):
+    from two_stage_object_detection_tpu_torch.ops.windowed_align import (
+        windowed_roi_align_batched)
+    # float32: the kernel equals the plain version to summation order
+    pyr, rois, levels, scales = align_inputs(rng, dev, torch.float32)
+    got = windowed_roi_align_batched(pyr, rois, levels, scales)
+    want = windowed_roi_align_batched(pyr, rois, levels, scales, use_kernel=False)
+    err32 = float((got - want).abs().max())
+    log(f"kernel windowed_align f32 B=16 R=300 C=256: max |diff| {err32:.3e} "
+        "(tolerance 1e-5)")
+    require(err32 <= 1e-5, f"windowed_align f32 differs by {err32}")
+    del pyr, got, want
+    # bfloat16: the kernel accumulates in f32 and rounds once, so it is
+    # within one bf16 rounding (2^-8 relative) of the plain version run in
+    # f32 on the same bf16 features
+    pyr, rois, levels, scales = align_inputs(rng, dev, torch.bfloat16)
+    got = windowed_roi_align_batched(pyr, rois, levels, scales)
+    want = windowed_roi_align_batched([p.float() for p in pyr], rois, levels,
+                                      scales, use_kernel=False)
+    diff = (got.float() - want).abs()
+    tol = 2.0 ** -8 * want.abs() + 1e-5
+    err = float(diff.max())
+    log(f"kernel windowed_align bf16: max |diff| {err:.3e}, worst diff/tol "
+        f"{float((diff / tol).max()):.3f} (tolerance 2^-8*|ref| + 1e-5)")
+    require(bool((diff <= tol).all()), "windowed_align bf16 outside tolerance")
+    del want, diff, tol
+
+    ms = cuda_time_ms(lambda: windowed_roi_align_batched(pyr, rois, levels,
+                                                         scales), 20)
+    plain_ms = cuda_time_ms(lambda: windowed_roi_align_batched(
+        pyr, rois, levels, scales, use_kernel=False), 3, warmup=1)
+    n_roi, c = rois.shape[0] * rois.shape[1], pyr[0].shape[-1]
+    nbytes = (touched_bytes(pyr, rois, levels, scales) + n_roi * (16 + 4)
+              + n_roi * 49 * c * pyr[0].element_size())
+    ops = n_roi * c * (49 * 16 * 3 + 49)      # 16 taps x (w*w, *v, +) per bin
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"kernel windowed_align bf16 B=16 R=300 C=256: {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+    return dict(name="windowed_align", route="cuda",
+                source="two_stage_object_detection_tpu_torch/csrc/windowed_align.cu",
+                replaces="two_stage_object_detection_tpu/ops/pallas_windowed_align.py:52",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+# ------------------------------------------------------------ main path
+def check_outputs(out, n: int, cfg):
+    d = cfg.max_detections
+    shapes = {"boxes": (n, d, 4), "scores": (n, d), "labels": (n, d),
+              "valid": (n, d)}
+    for name, shape in shapes.items():
+        require(out[name].shape == shape, f"{name} shape {out[name].shape}")
+    for name in ("boxes", "scores"):
+        require(bool(np.isfinite(out[name]).all()), f"{name} not finite")
+    v = out["valid"]
+    require(bool((out["scores"][v] >= np.float32(cfg.score_thresh)).all()),
+            "a valid detection scores below score_thresh")
+    require(bool(((out["labels"][v] >= 1) & (out["labels"][v] <= cfg.num_classes)).all()),
+            "a valid detection has a label outside 1..num_classes")
+    require(bool((out["boxes"][~v] == 0).all() and (out["scores"][~v] == 0).all()),
+            "invalid slots are not zeroed")
+    return int(v.sum())
+
+
+def serve(cfg, rng):
+    """The main path: the flagship Predictor answering 1-, 3- and 16-image
+    requests on the f32 and u8 wires."""
+    from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
+    from two_stage_object_detection_tpu_torch.ops.proposals import greedy_nms
+    from two_stage_object_detection_tpu_torch.ops.windowed_align import (
+        windowed_roi_align_batched)
+    from two_stage_object_detection_tpu_torch.serving import Predictor
+
+    t0 = time.perf_counter()
+    model = FasterRCNN(cfg, seed=0)
+    log(f"flagship model built in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params)")
+    h, w = cfg.input_size
+    images = rng.rand(16, h, w, 3).astype(np.float32)
+    servers = {wire: Predictor(cfg, model, batch_sizes=(1, 8, 16), wire=wire)
+               for wire in ("f32", "u8")}
+    # warm cuDNN's algorithm choice for every bucket outside the counted run
+    for b in (1, 8, 16):
+        model.predict(torch.from_numpy(images[:b]).to(model.device))
+    torch.cuda.synchronize()
+
+    greedy_nms.launches = 0
+    windowed_roi_align_batched.launches = 0
+    detections = {}
+    for wire, server in servers.items():
+        for n in (1, 3, 16):
+            req = images[:n] if wire == "f32" else np.round(
+                images[:n] * 255).astype(np.uint8)
+            out = server(req)
+            detections[f"{wire}_{n}"] = check_outputs(out, n, cfg)
+    launches = {"greedy_nms": greedy_nms.launches,
+                "windowed_align": windowed_roi_align_batched.launches}
+    log(f"Predictor answered 1/3/16-image requests on f32 and u8 wires; valid "
+        f"detections {detections}; kernel launches {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"the main path never launched {name}")
+
+    x16 = torch.from_numpy(images).to(model.device)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(lambda: model.predict(x16), 10)
+    peak = torch.cuda.max_memory_allocated()
+    req = np.round(images * 255).astype(np.uint8)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        servers["u8"](req)
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    perf = {"predict_b16_ms": ms, "predict_b16_img_per_s": 16e3 / ms,
+            "predictor_u8_b16_ms": host_ms,
+            "predictor_u8_b16_img_per_s": 16e3 / host_ms,
+            "peak_mem_gb": peak / 1e9, "stages_ms": stage_times(model, x16)}
+    log(f"flagship predict b=16: {ms:.2f} ms/batch = {16e3 / ms:.1f} img/s on "
+        f"the device (CUDA events); Predictor u8 end to end {host_ms:.2f} ms = "
+        f"{16e3 / host_ms:.1f} img/s; peak memory {peak / 1e9:.2f} GB")
+    log("flagship predict b=16 by stage, each timed alone (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in perf["stages_ms"].items()))
+    return model, launches, detections, perf
+
+
+@torch.inference_mode()
+def stage_times(model, x):
+    """Device time of each stage of the b=16 predict, each stage run alone
+    on the previous stage's outputs; ``post_process`` is the rest of
+    ``detect`` (softmax, per-class decode, top-k, class-offset NMS)."""
+    img = tuple(x.shape[1:3])
+    feats = model.features(x)
+    rpn = model.rpn_head(feats)
+    rois = model.proposals(*rpn, img)[0]
+    t = {"backbone_neck": cuda_time_ms(lambda: model.features(x), 10),
+         "rpn_head": cuda_time_ms(lambda: model.rpn_head(feats), 10),
+         "proposals": cuda_time_ms(lambda: model.proposals(*rpn, img), 10),
+         "roi_head": cuda_time_ms(lambda: model.roi_head(feats, rois, img), 10)}
+    detect = cuda_time_ms(lambda: model.detect(feats, img), 10)
+    t["post_process"] = detect - t["rpn_head"] - t["proposals"] - t["roi_head"]
+    return t
+
+
+def f32_parity(cfg, rng):
+    """The same predict in float32 with TF32 off, through the kernels and
+    with pallas="off": equal proposals, close detections."""
+    from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
+    torch.backends.cudnn.deterministic = True
+    c32 = cfg.replace(compute_dtype="float32", score_thresh=0.0)
+    on = FasterRCNN(c32, seed=1)
+    off = FasterRCNN(c32.replace(pallas="off"), seed=1)
+    h, w = cfg.input_size
+    x = torch.from_numpy(rng.rand(2, h, w, 3).astype(np.float32)).to(on.device)
+    with torch.inference_mode():
+        feats = on.features(x)
+        rpn = on.rpn_head(feats)
+        p_on = on.proposals(*rpn, (h, w))
+        p_off = off.proposals(*rpn, (h, w))
+        for name, a, b in zip(("rois", "scores", "valid"), p_on, p_off):
+            require(torch.equal(a, b), f"f32 proposals: {name} differ")
+        head_on = on.roi_head(feats, p_on[0], (h, w))
+        head_off = off.roi_head(feats, p_off[0], (h, w))
+        d_on, d_off = on.detect(feats, (h, w)), off.detect(feats, (h, w))
+    head_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-6))
+                   for a, b in zip(head_on, head_off))
+    # detections: slots agree when valid, label agree and score/box are
+    # within 1e-4 / 1e-2 px; near-tied candidates may swap, so 95% suffice
+    vb, vs, vl, vv = (t.cpu().numpy() for t in d_on)
+    wb, ws, wl, wv = (t.cpu().numpy() for t in d_off)
+    same = ((vv == wv) & (vl == wl) & (np.abs(vs - ws) <= 1e-4)
+            & (np.abs(vb - wb).max(-1) <= 1e-2))
+    frac = float(same[wv | vv].mean()) if (wv | vv).any() else 1.0
+    log(f"f32 (TF32 off) predict: proposals equal ({int(p_on[2].sum())} "
+        f"valid); head outputs max rel diff {head_err:.2e} (tolerance 1e-4); "
+        f"{int(vv.sum())}/{int(wv.sum())} detections, {frac:.3f} of slots "
+        "agree (tolerance 0.95)")
+    require(head_err <= 1e-4, "f32 head outputs differ beyond 1e-4")
+    require(int(vv.sum()) > 0, "no f32 detections to compare")
+    require(frac >= 0.95, "f32 detections differ")
+    torch.backends.cudnn.deterministic = False
+    return {"head_rel_err": head_err, "det_agree": frac}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json", help="also write the measured numbers here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from two_stage_object_detection_tpu_torch.config import Config
+    from two_stage_object_detection_tpu_torch.ops import _cuda
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    reports = _cuda.build_all()
+    log(f"built {sorted(reports) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    kernels = [check_nms(rng, dev), check_align(rng, dev)]
+
+    cfg = Config(fpn=True, backbone="resnet50", loc_normalize=True)
+    model, launches, detections, perf = serve(cfg, rng)
+    del model
+    torch.cuda.empty_cache()
+    parity = f32_parity(cfg, rng)
+
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    line = {"kernels": [{key: k[key] for key in keys} for k in kernels]}
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump({"card": smi, "torch": torch.__version__,
+                       "cuda": torch.version.cuda, **line, "predict": perf,
+                       "detections": detections, "f32_parity": parity}, f,
+                      indent=1)
+    log(smi)
+    log(json.dumps(line))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

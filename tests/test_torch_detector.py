@@ -1,0 +1,103 @@
+"""PyTorch port, the whole slice: FPN-ResNet50 ``predict`` against the JAX
+package's ``FasterRCNN.predict`` with the same weights (JAX init carried
+across by ``load_jax_variables``), and the ``Predictor`` serving surface.
+float32 on the CPU, where the port runs the plain versions of its kernels.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax.core import unfreeze
+
+from two_stage_object_detection_tpu.config import Config as JConfig
+from two_stage_object_detection_tpu.nets.detector import FasterRCNN as JFasterRCNN
+from two_stage_object_detection_tpu_torch.config import Config
+from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
+from two_stage_object_detection_tpu_torch.serving import FIELDS, Predictor
+
+# truncated proposal route: 6 * 64 <= 1,023 anchors at 64x64
+KW = dict(fpn=True, backbone="resnet50", loc_normalize=True, input_size=(64, 64),
+          fpn_channels=32, fpn_fc_dim=64, num_classes=3, n_test_pre_nms=64,
+          n_test_post_nms=16, max_detections=8, compute_dtype="float32",
+          score_thresh=0.0)
+
+
+@pytest.fixture(scope="module")
+def carried():
+    jm = JFasterRCNN(JConfig(**KW))
+    v = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+    params = jax.tree.map(np.array, unfreeze(v["params"]))
+    stats = jax.tree.map(np.array, unfreeze(v["batch_stats"]))
+    pred = Predictor.from_jax_variables(Config(**KW), params, stats,
+                                        device="cpu", batch_sizes=(1, 2))
+    return jm, v, pred
+
+
+def test_predict_matches_jax(carried):
+    """Equal ``valid`` and ``labels``; scores <= 1e-4 absolute; boxes
+    within 1e-4 + 1e-4 * |box| px.  The boxes get a relative term: they
+    decode RPN deltas that agree to ~5e-6 after 50 float32 conv layers
+    accumulated in another order, and the decode scales that error by the
+    anchor side (32..512 px) -- measured 3.4e-4 px on 64 px images."""
+    jm, v, pred = carried
+    x = np.random.RandomState(3).rand(2, 64, 64, 3).astype(np.float32)
+    want = jax.jit(lambda v, x: jm.apply(v, x, method="predict"))(v, x)
+    got = pred.model.predict(torch.from_numpy(x))
+    wb, ws, wl, wv = (np.asarray(a) for a in want)
+    gb, gs, gl, gv = (t.numpy() for t in got)
+    assert gv.sum() > 0, "no detections to compare"
+    np.testing.assert_array_equal(gv, wv)
+    np.testing.assert_array_equal(gl, wl)
+    np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gb, wb, rtol=1e-4, atol=1e-4)
+    assert gb.shape == (2, 8, 4) and gl.dtype == np.int32
+
+
+@pytest.mark.parametrize("wire", ["f32", "u8"])
+def test_predictor_buckets_match_direct_predict(carried, wire):
+    """Buckets (1, 2) answer 1- and 3-image requests (3 = 1 + 2) with the
+    arrays of a direct ``predict`` on those images: equal valid/labels,
+    scores <= 1e-5, boxes <= 1e-5 + 1e-5 * |box| px (another batch size
+    may pick another conv algorithm, and the decode scales delta noise by
+    the anchor side, as in ``test_predict_matches_jax``)."""
+    _, _, pred = carried
+    server = Predictor(pred.cfg, pred.model, batch_sizes=(1, 2), wire=wire)
+    assert sorted(server._plan(3)) == [1, 2]
+    x = np.random.RandomState(4).rand(3, 64, 64, 3).astype(np.float32)
+    if wire == "u8":
+        req = np.round(x * 255).astype(np.uint8)
+        x = req.astype(np.float32) / 255.0
+    else:
+        req = x
+    for n in (1, 3):
+        out = server(req[:n])
+        direct = [t.numpy() for t in pred.model.predict(torch.from_numpy(x[:n]))]
+        assert set(out) == set(FIELDS)
+        for name, d in zip(FIELDS, direct):
+            assert out[name].shape == d.shape
+            if name in ("labels", "valid"):
+                np.testing.assert_array_equal(out[name], d)
+            else:
+                np.testing.assert_allclose(out[name], d, atol=1e-5,
+                                           rtol=1e-5 if name == "boxes" else 0)
+
+
+def test_predictor_rejects_bad_requests(carried):
+    _, _, pred = carried
+    with pytest.raises(ValueError, match="uint8"):
+        Predictor(pred.cfg, pred.model, wire="u8")(np.zeros((1, 64, 64, 3)))
+    with pytest.raises(ValueError, match="float"):
+        pred(np.zeros((1, 64, 64, 3), np.uint8))
+    with pytest.raises(ValueError, match="static"):
+        pred(np.zeros((1, 32, 32, 3), np.float32))
+    with pytest.raises(ValueError, match="yuv420"):
+        Predictor(pred.cfg, pred.model, wire="yuv420")
+
+
+def test_unported_routes_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FasterRCNN(Config(**{**KW, "fpn": False}), device="cpu")
+    with pytest.raises(NotImplementedError, match="HarDNet"):
+        FasterRCNN(Config(**{**KW, "backbone": "hardnet39"}), device="cpu")

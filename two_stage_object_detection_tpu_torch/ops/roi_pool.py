@@ -1,0 +1,176 @@
+"""Windowed multi-level RoIAlign (the FPN part), plain PyTorch.
+
+The counterpart of the FPN functions of the JAX package's
+``ops/roi_pool.py``: each roi pools a ``[window, window]`` slice of its
+assigned pyramid level with 2-D bilinear RoIAlign (``P x P`` bins,
+``s x s`` samples per bin).  This is the plain version of kernel 2
+(``ops/windowed_align.py``), and it keeps the JAX sample rules, which are
+not torchvision's RoIAlign boundary rules:
+
+* sample coordinates clip to ``[0, size - 1]`` on the level;
+* the window origin is ``clip(floor(first sample), 0, block - win)``, where
+  a level block is the level padded with zeros to at least ``win`` rows,
+  and to the widest level's width (at least ``win``) in columns;
+* window-local coordinates clip again to ``[0, win - 1]`` and the upper tap
+  is ``i1 = min(i0 + 1, win - 1)``.
+
+Every function takes any number of leading batch axes.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
+
+
+def _norm_scales(scales, n_levels: int) -> torch.Tensor:
+    """``[L, 2]`` (sy, sx) float32 from scalar-or-pair per-level scales."""
+    return torch.tensor([(float(s), float(s)) if not isinstance(s, (tuple, list))
+                         else (float(s[0]), float(s[1]))
+                         for s in scales[:n_levels]], dtype=torch.float32)
+
+
+def _sample_grid(p: int, s: int, device) -> torch.Tensor:
+    """``[P*S]`` sample offsets in bins: ``q + (k + 0.5) / s``."""
+    return (torch.arange(p, device=device)[:, None]
+            + div_exact(torch.arange(s, device=device)[None, :] + 0.5, s)
+            ).reshape(-1)
+
+
+def _align_weights_local(c_global: torch.Tensor, origin: torch.Tensor,
+                         p: int, s: int, win: int) -> torch.Tensor:
+    """Window-relative RoIAlign weights ``[..., P, win]`` from the clipped
+    level coordinates ``c_global [..., P*S]`` and window origins ``[...]``."""
+    c = torch.clamp(c_global - origin[..., None].to(torch.float32),
+                    0.0, win - 1.0)
+    i0 = torch.floor(c).to(torch.int64)
+    i1 = torch.clamp(i0 + 1, max=win - 1)
+    f = c - i0
+    w = (F.one_hot(i0, win).to(torch.float32) * (1.0 - f)[..., None]
+         + F.one_hot(i1, win).to(torch.float32) * f[..., None])
+    return div_exact(w.reshape(*w.shape[:-2], p, s, win).sum(dim=-2), s)
+
+
+def _roi_samples(rois, levels, sizes, sc, p: int, s: int, aligned: bool):
+    """Clipped level-space sample coordinates ``(cy, cx)``, each
+    ``[..., R, P*S]``, of rois on their assigned levels."""
+    off = 0.5 if aligned else 0.0
+    sy, sx = sc[levels, 0], sc[levels, 1]
+    r4 = rois.to(torch.float32) * torch.stack([sx, sy, sx, sy], dim=-1) - off
+    h_l, w_l = sizes[levels, 0], sizes[levels, 1]
+    roi_w = torch.clamp(r4[..., 2] - r4[..., 0], min=1.0)
+    roi_h = torch.clamp(r4[..., 3] - r4[..., 1], min=1.0)
+    grid = _sample_grid(p, s, rois.device)
+    bin_h, bin_w = div_exact(roi_h, p), div_exact(roi_w, p)
+    cy = torch.minimum(torch.clamp(r4[..., 1:2] + grid * bin_h[..., None],
+                                   min=0.0), (h_l - 1.0)[..., None])
+    cx = torch.minimum(torch.clamp(r4[..., 0:1] + grid * bin_w[..., None],
+                                   min=0.0), (w_l - 1.0)[..., None])
+    return cy, cx
+
+
+def _windowed_prologue(pyramid, rois: torch.Tensor, levels: torch.Tensor,
+                       scales, p: int, s: int, win: int, aligned: bool):
+    """Level atlas, window origins and window-relative weights.
+
+    ``pyramid``: per-level ``[..., H_l, W_l, C]``; ``rois [..., R, 4]``;
+    ``levels [..., R]`` (0 = finest).  The JAX prologue with ``x_quant=1``.
+
+    Returns ``(atlas [..., sum_hb, w_pad, C], starts_y [..., R], ox [..., R],
+    wy [..., R, P, win], wx [..., R, P, win])``.
+    """
+    dev = rois.device
+    w_pad = max(max(int(f.shape[-2]) for f in pyramid), win)
+    blocks, row_off, block_h = [], [], []
+    off = 0
+    for f in pyramid:
+        h_l, w_l = int(f.shape[-3]), int(f.shape[-2])
+        hb = max(h_l, win)
+        blocks.append(F.pad(f, (0, 0, 0, w_pad - w_l, 0, hb - h_l)))
+        row_off.append(off)
+        block_h.append(hb)
+        off += hb
+    atlas = torch.cat(blocks, dim=-3)                     # [..., sum_hb, w_pad, C]
+
+    sizes = torch.tensor([[f.shape[-3], f.shape[-2]] for f in pyramid],
+                         dtype=torch.float32, device=dev)
+    sc = _norm_scales(scales, len(pyramid)).to(dev)
+    levels = levels.to(torch.int64)
+    cy, cx = _roi_samples(rois, levels, sizes, sc, p, s, aligned)
+    block_h_t = torch.tensor(block_h, dtype=torch.int64, device=dev)
+    row_off_t = torch.tensor(row_off, dtype=torch.int64, device=dev)
+    oy = torch.minimum(torch.clamp(torch.floor(cy[..., 0]).to(torch.int64), min=0),
+                       block_h_t[levels] - win)
+    ox = torch.clamp(torch.floor(cx[..., 0]).to(torch.int64), 0, w_pad - win)
+    wy = _align_weights_local(cy, oy, p, s, win)
+    wx = _align_weights_local(cx, ox, p, s, win)
+    return atlas, row_off_t[levels] + oy, ox, wy, wx
+
+
+def multilevel_roi_align(pyramid, rois: torch.Tensor, levels: torch.Tensor,
+                         scales, output_size: int = 7, sampling_ratio: int = 2,
+                         window: int = 32, aligned: bool = False) -> torch.Tensor:
+    """FPN multi-level RoIAlign via per-roi windows.
+
+    Args:
+      pyramid: per-level ``[..., H_l, W_l, C]`` features (P2..P5).
+      rois: ``[..., R, 4]`` xyxy in image coordinates.
+      levels: ``[..., R]`` integer index into ``pyramid`` (0 = finest).
+      scales: per-level image->feature scale, scalars or ``(sy, sx)`` pairs.
+
+    Returns ``[..., R, P, P, C]`` in the features' dtype: stage 1 contracts
+    the window rows, stage 2 the window columns, both in that dtype.
+    """
+    p, s, win = output_size, sampling_ratio, window
+    dt = pyramid[0].dtype
+    atlas, starts_y, ox, wy, wx = _windowed_prologue(
+        pyramid, rois, levels, scales, p, s, win, aligned)
+    lead, r = rois.shape[:-2], rois.shape[-2]
+    atlas = atlas.reshape(-1, *atlas.shape[-3:])          # [B, sum_hb, w_pad, C]
+    ar = torch.arange(win, device=rois.device)
+    ys = (starts_y.reshape(-1, r)[..., None] + ar)[..., :, None]   # [B, R, win, 1]
+    xs = (ox.reshape(-1, r)[..., None] + ar)[..., None, :]         # [B, R, 1, win]
+    bidx = torch.arange(atlas.shape[0], device=rois.device)[:, None, None, None]
+    windows = atlas[bidx, ys, xs]                          # [B, R, win, win, C]
+    wy = wy.reshape(-1, r, p, win)
+    wx = wx.reshape(-1, r, p, win)
+    s1 = torch.einsum("brph,brhwc->brpwc", wy.to(dt), windows)
+    out = torch.einsum("brqw,brpwc->brpqc", wx.to(dt), s1)
+    return out.reshape(*lead, r, p, p, -1)
+
+
+def window_coverage(rois: torch.Tensor, levels: torch.Tensor, sizes, scales,
+                    output_size: int = 7, sampling_ratio: int = 2,
+                    window: int = 32, aligned: bool = False) -> torch.Tensor:
+    """Per roi: does the window hold every bilinear tap of the roi?
+
+    True where the windowed result equals a dense RoIAlign on the level;
+    False where the edge clamp engages.  ``sizes``: ``[L, 2]`` level (H, W).
+    """
+    p, s, win = output_size, sampling_ratio, window
+    dev = rois.device
+    sizes = torch.as_tensor(sizes, dtype=torch.float32, device=dev)
+    sc = _norm_scales(scales, sizes.shape[0]).to(dev)
+    levels = levels.to(torch.int64)
+    off = 0.5 if aligned else 0.0
+    sy, sx = sc[levels, 0], sc[levels, 1]
+    r4 = rois.to(torch.float32) * torch.stack([sx, sy, sx, sy], dim=-1) - off
+    h_l, w_l = sizes[levels, 0], sizes[levels, 1]
+    block_h = torch.clamp(h_l, min=float(win))
+    block_w = torch.clamp(w_l, min=float(win))
+    bin_w = div_exact(torch.clamp(r4[..., 2] - r4[..., 0], min=1.0), p)
+    bin_h = div_exact(torch.clamp(r4[..., 3] - r4[..., 1], min=1.0), p)
+    grid_last = (p - 1) + (s - 0.5) / s
+
+    def clip(v, hi):
+        return torch.minimum(torch.clamp(v, min=0.0), hi)
+
+    y0 = clip(r4[..., 1] + 0.5 / s * bin_h, h_l - 1.0)
+    x0 = clip(r4[..., 0] + 0.5 / s * bin_w, w_l - 1.0)
+    y1 = clip(r4[..., 1] + grid_last * bin_h, h_l - 1.0)
+    x1 = clip(r4[..., 0] + grid_last * bin_w, w_l - 1.0)
+    oy = clip(torch.floor(y0), block_h - win)
+    ox = clip(torch.floor(x0), block_w - win)
+    return (torch.ceil(y1) <= oy + (win - 1)) & (torch.ceil(x1) <= ox + (win - 1))

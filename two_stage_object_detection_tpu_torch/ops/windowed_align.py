@@ -1,0 +1,78 @@
+"""Batched windowed multi-level RoIAlign with the hand-written kernel.
+
+The counterpart of the JAX package's ``ops/pallas_windowed_align.py``: the
+same signature as its ``windowed_roi_align_batched``, launching kernel 2
+(``csrc/windowed_align.cu``) on CUDA tensors.  The plain version is
+:func:`~..ops.roi_pool.multilevel_roi_align` over the batch; it runs on the
+CPU, or on any device with ``use_kernel=False``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from two_stage_object_detection_tpu_torch.ops import _cuda
+from two_stage_object_detection_tpu_torch.ops.roi_pool import (
+    _norm_scales, multilevel_roi_align)
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def windowed_roi_align_batched(pyramid, rois: torch.Tensor,
+                               levels: torch.Tensor, scales,
+                               output_size: int = 7, sampling_ratio: int = 2,
+                               window: int = 32, aligned: bool = False,
+                               use_kernel: bool = True) -> torch.Tensor:
+    """Kernel 2: windowed multi-level RoIAlign over a batch.
+
+    Args:
+      pyramid: per-level ``[B, H_l, W_l, C]`` features, f32 or bf16.
+      rois: ``[B, R, 4]`` xyxy in image coordinates, f32.
+      levels: ``[B, R]`` int32 index into ``pyramid`` (0 = finest), each in
+        ``[0, len(pyramid))`` (the kernel does not check it).
+      scales/output_size/sampling_ratio/window/aligned: as
+        :func:`~..ops.roi_pool.multilevel_roi_align`.
+
+    Returns ``[B, R, P, P, C]`` in the features' dtype.
+    """
+    if not (use_kernel and rois.is_cuda):
+        return multilevel_roi_align(tuple(pyramid), rois, levels, scales,
+                                    output_size, sampling_ratio, window, aligned)
+    p, s = output_size, sampling_ratio
+    b, r, _ = rois.shape
+    c = pyramid[0].shape[-1]
+    dt = pyramid[0].dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"windowed_align kernel takes f32 or bf16, got {dt}")
+    for i, f in enumerate(pyramid):
+        _cuda.require(f, f"pyramid[{i}]", dt, (b, f.shape[1], f.shape[2], c))
+    _cuda.require(rois, "rois", torch.float32, (b, r, 4))
+    _cuda.require(levels, "levels", torch.int32, (b, r))
+    n = len(pyramid)
+    sc = _norm_scales(scales, n)
+    out = torch.empty((b, r, p, p, c), dtype=dt, device=rois.device)
+    feats = (ctypes.c_void_p * n)(*[f.data_ptr() for f in pyramid])
+    hw = (ctypes.c_int * (2 * n))(*[d for f in pyramid for d in f.shape[1:3]])
+    scl = (ctypes.c_float * (2 * n))(*sc.reshape(-1).tolist())
+    fn = _align_fn()
+    with torch.cuda.device(rois.device):
+        status = fn(feats, hw, scl, n, rois.data_ptr(), levels.data_ptr(),
+                    out.data_ptr(), b, r, c, p, s, window, int(aligned),
+                    _DTYPES[dt], _cuda.stream_handle(rois))
+    _cuda.check(status, "windowed_align_launch")
+    windowed_roi_align_batched.launches += 1
+    return out
+
+
+windowed_roi_align_batched.launches = 0
+
+
+def _align_fn():
+    fn = _cuda.library("windowed_align").windowed_align_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
