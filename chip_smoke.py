@@ -5,11 +5,22 @@
 
 Builds the port's CUDA kernels from ``two_stage_object_detection_tpu_torch/
 csrc`` (one nvcc per source, in parallel), holds each kernel against its
-plain PyTorch version at the shapes of the FPN-ResNet50 predict path, times
-both, then serves requests through the port's ``Predictor`` at the flagship
-configuration (600x600, ResNet-50 FPN, 81 classes, 3000 -> 300 proposals,
-bfloat16, seeded random weights) and checks that the path went through both
-kernels.  Every check raises on failure, so any failed phase exits nonzero.
+plain PyTorch version at the shapes of the predict path that runs it, and
+times both.  Then it serves requests through the port's ``Predictor`` on
+two paths, each at full width (600x600, 81 classes, 100 detections,
+bfloat16, seeded random weights), with every launch counter set to 0 just
+before and read just after:
+
+* the FPN flagship (ResNet-50 FPN, 3000 -> 300 proposals): kernels 1 and 2;
+* the default ``Config()`` (HarDNet-39, single scale, 12,996 anchors,
+  whole-table 300 proposals): kernels 3 and 5.
+
+Kernel 4, kernel 3's one-image launch, is off both paths (as the JAX
+package's ``_fused_kernel`` is off its predict path): it is checked and
+timed here, and its launch count on the paths is 0.
+
+It checks f32 predict with the kernels against ``pallas="off"`` on both
+paths.  Every check raises on failure, so any failed phase exits nonzero.
 
 Output: progress lines; the card's ``nvidia-smi`` name and power limit; one
 JSON line ``{"kernels": [...]}`` with each kernel's launches, error, times
@@ -37,6 +48,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 IOU_FLOPS = 14            # max/min x4, sub x2, clamp x2, mul, add, sub, add, div, cmp
+DECODE_FLOPS = 26         # anchor w/h/centre 6, deltas 4, exp 2, box 4, clip 8, sides 2
 
 
 def log(*a):
@@ -248,6 +260,204 @@ def check_align(rng, dev):
                 bound_by=bound_by, library_ms=None)
 
 
+# ------------------------------------------------------------ kernels 3/4
+def fused_inputs(rng, b: int, dev, cfg):
+    """The anchors of ``cfg`` (12,996 for ``Config()``, 16,368 for an FPN
+    input of 256x256), rows 3k+1 given
+    the anchor of row 3k: row 3k decodes to it exactly and 3k+1 to it
+    shifted along x at IoU ~ 0.7 (+-1e-5); coarse scores (ties); every 8th
+    row shrunk under the 16 px minimum."""
+    from two_stage_object_detection_tpu_torch.ops.anchors import (
+        make_anchors, make_fpn_anchors)
+    anchors = make_fpn_anchors(cfg) if cfg.fpn else make_anchors(cfg)
+    n = anchors.shape[0]
+    anchors[1::3] = anchors[0::3][: len(anchors[1::3])]
+    locs = rng.randn(b, n, 4) * 0.2
+    locs[:, 0::3] = 0.0
+    locs[:, 1::3] = 0.0
+    m = locs[:, 1::3].shape[1]
+    locs[:, 1::3, 0] = 0.3 / 1.7 * (1.0 + rng.uniform(-1e-5, 1e-5, (b, m)))
+    locs[:, 2::8, 2:] = -4.0
+    fg = rng.randint(0, 200, size=(b, n)) / 200.0
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
+                 for a in (locs, fg, anchors))
+
+
+def alive_ious(locs, fg, anchors, img, n_post: int, min_size: float,
+               thr: float) -> int:
+    """IoUs that greedy NMS needs on this data: at each valid step, the
+    winner against every row still alive (masked and suppressed rows need
+    none)."""
+    from two_stage_object_detection_tpu_torch.ops.proposals import (
+        _decode_masked)
+    boxes, s = _decode_masked(locs, fg, anchors, img, min_size)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1) * (y2 - y1)
+    rows = torch.arange(boxes.shape[0], device=boxes.device)
+    total = torch.zeros((), dtype=torch.int64, device=boxes.device)
+    for _ in range(n_post):
+        alive = s > -5e8
+        i = torch.argmax(s, dim=1)
+        ok = alive[rows, i]
+        total += (alive.sum(1) * ok).sum()
+        sel = boxes[rows, i]
+        inter = (torch.clamp(torch.minimum(x2, sel[:, 2:3])
+                             - torch.maximum(x1, sel[:, 0:1]), min=0.0)
+                 * torch.clamp(torch.minimum(y2, sel[:, 3:4])
+                               - torch.maximum(y1, sel[:, 1:2]), min=0.0))
+        iou = inter / (area + area[rows, i][:, None] - inter + 1e-8)
+        sup = iou > thr
+        sup[rows, i] = True
+        s = torch.where(sup, -1e9, s)
+    return int(total)
+
+
+def fused_bound_ms(locs, fg, anchors, img, n_post: int):
+    b, n, _ = locs.shape
+    nbytes = b * n * (16 + 4) + n * 16 + b * n_post * (16 + 4 + 1)
+    ops = (alive_ious(locs, fg, anchors, img, n_post, 16.0, 0.7) * IOU_FLOPS
+           + b * n * DECODE_FLOPS)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_fused(rng, dev):
+    """Kernel 3 at B=16 (predict n_post 300, train n_post 600) and kernel 4
+    (B=1), bit for bit against the plain version; then kernel 3 with its
+    boxes in the scratch buffer, on the 16,368 anchors of an FPN input of
+    256x256 (the whole-table route, as 6 * 3000 > 16,368), checked and
+    timed but not a row of the kernels line."""
+    from two_stage_object_detection_tpu_torch.config import Config
+    from two_stage_object_detection_tpu_torch.ops.proposals import (
+        fused_proposals, fused_proposals_batched,
+        fused_proposals_rows_reference)
+    kw = dict(nms_iou=0.7, min_size=16.0)
+    single = Config()
+    fpn256 = Config(fpn=True, backbone="resnet50", input_size=(256, 256))
+    rows = []
+    for cfg, b, n_post in ((single, 16, 300), (single, 16, 600),
+                           (single, 1, 300), (fpn256, 16, 300)):
+        img = cfg.input_size
+        locs, fg, anchors = fused_inputs(rng, b, dev, cfg)
+        if b == 1:
+            run = lambda: [t[None] for t in fused_proposals(      # noqa: E731
+                locs[0], fg[0], anchors, img, n_post_nms=n_post, **kw)]
+        else:
+            run = lambda: fused_proposals_batched(                 # noqa: E731
+                locs, fg, anchors, img, n_post_nms=n_post, **kw)
+        plain = lambda: fused_proposals_rows_reference(            # noqa: E731
+            locs, fg, anchors, img, n_post_nms=n_post, **kw)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        n_diff = sum(int((g != w).sum()) for g, w in zip(got, want))
+        err = float((got[0] - want[0]).abs().max())
+        n_valid = int(got[2].sum())
+        name = "fused_proposals" if b == 1 else "fused_proposals_batched"
+        log(f"kernel {name} B={b} N={locs.shape[1]} n_post={n_post}: "
+            f"{n_diff} elements differ from plain, {n_valid} kept, "
+            f"max |box diff| {err:.3e}")
+        require(n_diff == 0, f"{name} n_post={n_post}: outputs differ from "
+                "the plain version (must be bitwise equal)")
+        require(n_valid > 0, f"{name} kept nothing")
+        if n_post == 600:
+            continue                      # the train shape: checked, not timed
+        ms = cuda_time_ms(run, 20)
+        plain_ms = cuda_time_ms(plain, 3, warmup=1)
+        bound_ms, bound_by = fused_bound_ms(locs, fg, anchors, img, n_post)
+        log(f"kernel {name} B={b} N={locs.shape[1]} n_post={n_post}: "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by})")
+        if cfg is fpn256:
+            continue
+        line = 43 if b == 1 else 191
+        rows.append(dict(
+            name=name, route="cuda",
+            source="two_stage_object_detection_tpu_torch/csrc/proposals.cu",
+            replaces=f"two_stage_object_detection_tpu/ops/pallas_proposals.py:{line}",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None))
+    return rows
+
+
+# ------------------------------------------------------------ kernel 5
+def roi_pool_inputs(rng, dev, b=16, r=300, c=512, hw=38, img=600.0):
+    """A bf16 38x38x512 map per image with coarse values (ties inside
+    bins) and a constant patch; 300 rois of 16..600 px clipped to the image
+    as proposals are, except a tenth left over its edge (empty bins),
+    scaled to the map as the RoI head scales them."""
+    g = torch.Generator(device="cpu").manual_seed(int(rng.randint(1 << 30)))
+    feats = torch.randint(-64, 64, (b, hw, hw, c), generator=g) / 16.0
+    feats[:, 5:15, 5:15] = 1.5
+    feats = feats.to(dev, torch.bfloat16)
+    side = rng.uniform(16.0, 600.0, size=(b, r, 2))
+    xy = rng.rand(b, r, 2) * img * 1.1 - img * 0.05 - side / 2
+    rois = np.concatenate([xy, xy + side], -1).astype(np.float32)
+    rois[:, r // 10:] = np.clip(rois[:, r // 10:], 0.0, img)
+    scale = torch.tensor([hw / img] * 4, dtype=torch.float32)
+    return feats, (torch.from_numpy(rois) * scale).to(dev)
+
+
+def roi_pool_bound_ms(feats, rois, p: int = 7):
+    """Bytes: the map and rois read once, the f32 values and int32 indices
+    written once.  Operations: one compare per pixel of each bin per
+    channel."""
+    from two_stage_object_detection_tpu_torch.ops.roi_pool import (
+        _bin_edges_pool)
+    b, h, w, c = feats.shape
+    r = rois.shape[1]
+    q = torch.round(rois).to(torch.int64)
+    xs, xe = _bin_edges_pool(q[..., 0], q[..., 2], p)
+    ys, ye = _bin_edges_pool(q[..., 1], q[..., 3], p)
+    bw = (xe.clamp(0, w) - xs.clamp(0, w)).clamp(min=0)
+    bh = (ye.clamp(0, h) - ys.clamp(0, h)).clamp(min=0)
+    ops = int((bh[..., :, None] * bw[..., None, :]).sum()) * c
+    nbytes = (feats.numel() * feats.element_size() + rois.numel() * 4
+              + b * r * p * p * c * 8)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def check_roi_pool(rng, dev):
+    """Kernel 5 at B=16, R=300, C=512, 38x38, P=7 from bf16 maps: values
+    and argmax equal to the plain version (run one image at a time)."""
+    from two_stage_object_detection_tpu_torch.ops.roi_pool import (
+        roi_pool_argmax)
+    from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
+        roi_pool_max)
+    feats, rois = roi_pool_inputs(rng, dev)
+    got = roi_pool_max(feats, rois)
+
+    def plain():
+        return [roi_pool_argmax(feats[i:i + 1], rois[i:i + 1])
+                for i in range(feats.shape[0])]
+
+    want = plain()
+    torch.cuda.synchronize()
+    n_diff = sum(int((got[0][i] != v[0]).sum() + (got[1][i] != a[0]).sum())
+                 for i, (v, a) in enumerate(want))
+    err = max(float((got[0][i] - v[0]).abs().max())
+              for i, (v, _) in enumerate(want))
+    n_empty = int((got[1] < 0).sum())
+    log(f"kernel roi_pool_max bf16 B=16 R=300 C=512 38x38 P=7: {n_diff} "
+        f"elements differ from plain (values and argmax), {n_empty} empty "
+        "cells")
+    require(n_diff == 0, "roi_pool_max differs from the plain version "
+            "(values and argmax must be equal)")
+    del want
+    ms = cuda_time_ms(lambda: roi_pool_max(feats, rois), 20)
+    plain_ms = cuda_time_ms(plain, 2, warmup=1)
+    bound_ms, bound_by, nbytes = roi_pool_bound_ms(feats, rois)
+    log(f"kernel roi_pool_max B=16 R=300 C=512: {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB)")
+    return dict(name="roi_pool_max", route="cuda",
+                source="two_stage_object_detection_tpu_torch/csrc/roi_pool.cu",
+                replaces="two_stage_object_detection_tpu/ops/pallas_roi.py:38",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
 # ------------------------------------------------------------ main path
 def check_outputs(out, n: int, cfg):
     d = cfg.max_detections
@@ -267,18 +477,31 @@ def check_outputs(out, n: int, cfg):
     return int(v.sum())
 
 
-def serve(cfg, rng):
-    """The main path: the flagship Predictor answering 1-, 3- and 16-image
-    requests on the f32 and u8 wires."""
-    from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
-    from two_stage_object_detection_tpu_torch.ops.proposals import greedy_nms
+def counters():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from two_stage_object_detection_tpu_torch.ops.proposals import (
+        fused_proposals, fused_proposals_batched, greedy_nms)
+    from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
+        roi_pool_max)
     from two_stage_object_detection_tpu_torch.ops.windowed_align import (
         windowed_roi_align_batched)
+    return {"greedy_nms": greedy_nms,
+            "windowed_align": windowed_roi_align_batched,
+            "fused_proposals_batched": fused_proposals_batched,
+            "fused_proposals": fused_proposals, "roi_pool_max": roi_pool_max}
+
+
+def serve(cfg, rng, label: str, expect):
+    """A main path: a Predictor on ``cfg`` answering 1-, 3- and 16-image
+    requests on the f32 and u8 wires, with every launch counter set to 0
+    just before and read just after; each kernel in ``expect`` must have
+    launched."""
+    from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
     from two_stage_object_detection_tpu_torch.serving import Predictor
 
     t0 = time.perf_counter()
     model = FasterRCNN(cfg, seed=0)
-    log(f"flagship model built in {time.perf_counter() - t0:.1f} s "
+    log(f"{label} model built in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params)")
     h, w = cfg.input_size
     images = rng.rand(16, h, w, 3).astype(np.float32)
@@ -289,8 +512,9 @@ def serve(cfg, rng):
         model.predict(torch.from_numpy(images[:b]).to(model.device))
     torch.cuda.synchronize()
 
-    greedy_nms.launches = 0
-    windowed_roi_align_batched.launches = 0
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
     detections = {}
     for wire, server in servers.items():
         for n in (1, 3, 16):
@@ -298,14 +522,22 @@ def serve(cfg, rng):
                 images[:n] * 255).astype(np.uint8)
             out = server(req)
             detections[f"{wire}_{n}"] = check_outputs(out, n, cfg)
-    launches = {"greedy_nms": greedy_nms.launches,
-                "windowed_align": windowed_roi_align_batched.launches}
-    log(f"Predictor answered 1/3/16-image requests on f32 and u8 wires; valid "
-        f"detections {detections}; kernel launches {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"the main path never launched {name}")
-
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"{label} Predictor answered 1/3/16-image requests on f32 and u8 "
+        f"wires; valid detections {detections}; kernel launches {launches}")
+    for name in expect:
+        require(launches[name] > 0, f"the {label} path never launched {name}")
+    # with random heads every class may score under score_thresh: the
+    # proposals, at least, must be there
     x16 = torch.from_numpy(images).to(model.device)
+    with torch.inference_mode():
+        feats = model.features(x16)
+        n_prop = int(model.proposals(*model.rpn_head(feats), (h, w))[2].sum())
+    del feats
+    log(f"{label} b=16: {n_prop} valid proposals of "
+        f"{16 * cfg.n_test_post_nms}")
+    require(n_prop > 0, f"the {label} path made no valid proposal")
+
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_time_ms(lambda: model.predict(x16), 10)
     peak = torch.cuda.max_memory_allocated()
@@ -318,12 +550,12 @@ def serve(cfg, rng):
             "predictor_u8_b16_ms": host_ms,
             "predictor_u8_b16_img_per_s": 16e3 / host_ms,
             "peak_mem_gb": peak / 1e9, "stages_ms": stage_times(model, x16)}
-    log(f"flagship predict b=16: {ms:.2f} ms/batch = {16e3 / ms:.1f} img/s on "
+    log(f"{label} predict b=16: {ms:.2f} ms/batch = {16e3 / ms:.1f} img/s on "
         f"the device (CUDA events); Predictor u8 end to end {host_ms:.2f} ms = "
         f"{16e3 / host_ms:.1f} img/s; peak memory {peak / 1e9:.2f} GB")
-    log("flagship predict b=16 by stage, each timed alone (ms): "
+    log(f"{label} predict b=16 by stage, each timed alone (ms): "
         + ", ".join(f"{k} {v:.2f}" for k, v in perf["stages_ms"].items()))
-    return model, launches, detections, perf
+    return launches, detections, perf
 
 
 @torch.inference_mode()
@@ -344,9 +576,9 @@ def stage_times(model, x):
     return t
 
 
-def f32_parity(cfg, rng):
+def f32_parity(cfg, rng, label: str):
     """The same predict in float32 with TF32 off, through the kernels and
-    with pallas="off": equal proposals, close detections."""
+    with pallas="off", at b=2: equal proposals, close detections."""
     from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
     torch.backends.cudnn.deterministic = True
     c32 = cfg.replace(compute_dtype="float32", score_thresh=0.0)
@@ -373,7 +605,7 @@ def f32_parity(cfg, rng):
     same = ((vv == wv) & (vl == wl) & (np.abs(vs - ws) <= 1e-4)
             & (np.abs(vb - wb).max(-1) <= 1e-2))
     frac = float(same[wv | vv].mean()) if (wv | vv).any() else 1.0
-    log(f"f32 (TF32 off) predict: proposals equal ({int(p_on[2].sum())} "
+    log(f"{label} f32 (TF32 off) predict: proposals equal ({int(p_on[2].sum())} "
         f"valid); head outputs max rel diff {head_err:.2e} (tolerance 1e-4); "
         f"{int(vv.sum())}/{int(wv.sum())} detections, {frac:.3f} of slots "
         "agree (tolerance 0.95)")
@@ -398,7 +630,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+        f"CUDA {torch.version.cuda}; card: {smi}")
     t0 = time.perf_counter()
     reports = _cuda.build_all()
     log(f"built {sorted(reports) or 'nothing (cached)'} in "
@@ -412,13 +644,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
-    kernels = [check_nms(rng, dev), check_align(rng, dev)]
-
-    cfg = Config(fpn=True, backbone="resnet50", loc_normalize=True)
-    model, launches, detections, perf = serve(cfg, rng)
-    del model
+    kernels = [check_nms(rng, dev), check_align(rng, dev),
+               *check_fused(rng, dev), check_roi_pool(rng, dev)]
     torch.cuda.empty_cache()
-    parity = f32_parity(cfg, rng)
+
+    paths = {"flagship": (Config(fpn=True, backbone="resnet50",
+                                 loc_normalize=True),
+                          ("greedy_nms", "windowed_align")),
+             "single-scale": (Config(), ("fused_proposals_batched",
+                                         "roi_pool_max"))}
+    launches, detections, perf, parity = {}, {}, {}, {}
+    for label, (cfg, expect) in paths.items():
+        counts, detections[label], perf[label] = serve(cfg, rng, label, expect)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        torch.cuda.empty_cache()
+        parity[label] = f32_parity(cfg, rng, label)
+        torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

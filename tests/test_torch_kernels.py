@@ -1,4 +1,5 @@
-"""PyTorch port, the CUDA kernels against their plain PyTorch versions.
+"""PyTorch port, the CUDA kernels (1, 2, 3/4, 5) against their plain
+PyTorch versions.
 
 These need an NVIDIA GPU and ``nvcc`` (the kernels build from
 ``two_stage_object_detection_tpu_torch/csrc`` at first use); without a GPU
@@ -16,8 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from two_stage_object_detection_tpu_torch.config import Config
+from two_stage_object_detection_tpu_torch.ops.anchors import make_fpn_anchors
 from two_stage_object_detection_tpu_torch.ops.proposals import (
-    greedy_nms, greedy_nms_rows_reference)
+    MAX_FUSED_ROWS, MAX_FUSED_SMEM_ROWS, fused_proposals,
+    fused_proposals_batched, fused_proposals_rows_reference, greedy_nms,
+    greedy_nms_rows_reference, proposals_batched)
+from two_stage_object_detection_tpu_torch.ops.roi_pool import roi_pool_argmax
+from two_stage_object_detection_tpu_torch.ops.roi_pool_max import roi_pool_max
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     windowed_roi_align_batched)
 
@@ -88,3 +95,121 @@ def test_windowed_align_kernel_matches_plain(rng, dev, dtype, c):
     diff = (got.float() - want).abs()
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 * want.abs() + 1e-5
     assert bool((diff <= tol).all()), float(diff.max())
+
+
+def _proposal_data(rng, b, n, img=600.0):
+    """Anchors of 16..200 px, some over the edge; rows 3k/3k+1 share an
+    anchor and decode to a pair at IoU ~ 0.7; coarse scores (ties); every
+    8th row shrunk under the min size."""
+    xy = rng.rand(n, 2) * img * 0.95
+    anchors = np.concatenate([xy, xy + rng.rand(n, 2) * 184 + 16], -1)
+    anchors[1::3] = anchors[0::3][: len(anchors[1::3])]
+    locs = rng.randn(b, n, 4) * 0.3
+    locs[:, 0::3] = 0.0
+    locs[:, 1::3] = 0.0
+    m = locs[:, 1::3].shape[1]
+    locs[:, 1::3, 0] = 0.3 / 1.7 * (1.0 + rng.uniform(-1e-5, 1e-5, (b, m)))
+    locs[:, 2::8, 2:] = -4.0
+    fg = rng.randint(0, 50, size=(b, n)) / 50.0
+    return tuple(torch.from_numpy(a.astype(np.float32))
+                 for a in (locs, fg, anchors))
+
+
+@pytest.mark.parametrize("b,n,n_post", [(1, 1, 1), (2, 600, 64),
+                                        (3, 5000, 300),
+                                        (2, MAX_FUSED_SMEM_ROWS, 40),
+                                        (2, MAX_FUSED_SMEM_ROWS + 1, 40),
+                                        (2, MAX_FUSED_ROWS, 40)])
+def test_fused_proposals_kernel_bitwise_equals_plain(rng, dev, b, n, n_post):
+    """Kernel 3 == its plain version, bit for bit (torch.equal), with the
+    boxes in shared memory and, above its rows, in the scratch buffer."""
+    locs, fg, anchors = (t.to(dev) for t in _proposal_data(rng, b, n))
+    kw = dict(nms_iou=0.7, n_post_nms=n_post, min_size=16.0)
+    before = fused_proposals_batched.launches
+    got = fused_proposals_batched(locs, fg, anchors, (600, 600), **kw)
+    want = fused_proposals_rows_reference(locs, fg, anchors, (600, 600), **kw)
+    torch.cuda.synchronize()
+    assert fused_proposals_batched.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_fused_proposals_one_image_kernel(rng, dev):
+    """Kernel 4 (the B=1 launch) == the plain version, bit for bit."""
+    locs, fg, anchors = (t.to(dev) for t in _proposal_data(rng, 1, 2000))
+    kw = dict(nms_iou=0.7, n_post_nms=100, min_size=16.0)
+    before = fused_proposals.launches
+    got = fused_proposals(locs[0], fg[0], anchors, (600, 600), **kw)
+    want = fused_proposals_rows_reference(locs, fg, anchors, (600, 600), **kw)
+    torch.cuda.synchronize()
+    assert fused_proposals.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[0])
+
+
+def test_fpn_256_predict_proposals_take_kernel_3(rng, dev):
+    """The flagship recipe at 256x256: 16,368 anchors, under 6 * 3000, so
+    predict takes the whole-table route, with more rows than shared memory
+    holds.  Equal to the plain route, bit for bit."""
+    cfg = Config(fpn=True, backbone="resnet50", loc_normalize=True,
+                 input_size=(256, 256))
+    anchors = torch.from_numpy(make_fpn_anchors(cfg)).to(dev)
+    n = anchors.shape[0]
+    assert MAX_FUSED_SMEM_ROWS < n < 6 * cfg.n_test_pre_nms
+    locs = torch.from_numpy((rng.randn(2, n, 4) * 0.2).astype(np.float32))
+    fg = torch.from_numpy((rng.randint(0, 50, size=(2, n)) / 50.0)
+                          .astype(np.float32))
+    kw = dict(nms_iou=cfg.rpn_nms_iou, n_post_nms=cfg.n_test_post_nms,
+              min_size=cfg.proposal_min_size, n_pre_nms=cfg.n_test_pre_nms)
+    locs, fg = locs.to(dev), fg.to(dev)
+    before = fused_proposals_batched.launches
+    got = proposals_batched(locs, fg, anchors, (256, 256), **kw)
+    want = proposals_batched(locs, fg, anchors, (256, 256), use_kernel=False,
+                             **kw)
+    torch.cuda.synchronize()
+    assert fused_proposals_batched.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2].sum()) > 0
+
+
+def test_fused_proposals_kernel_raises_above_its_row_cap(rng, dev):
+    locs, fg, anchors = (t.to(dev) for t in
+                         _proposal_data(rng, 1, MAX_FUSED_ROWS + 1))
+    with pytest.raises(ValueError, match="anchors per image"):
+        fused_proposals_batched(locs, fg, anchors, (600, 600), nms_iou=0.7,
+                                n_post_nms=8, min_size=16.0)
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 8), (torch.float32, 300),
+                                     (torch.bfloat16, 4), (torch.bfloat16, 512)])
+def test_roi_pool_kernel_equals_plain(rng, dev, dtype, c):
+    """Kernel 5 == its plain version: pooled values and argmax equal
+    (max is exact; bf16 maps are pooled in f32)."""
+    feats = torch.from_numpy((rng.randint(-8, 8, size=(2, 12, 10, c)) / 4.0)
+                             .astype(np.float32))
+    feats[:, 2:7, 1:6] = 0.75                          # a tied patch
+    xy = rng.rand(2, 30, 2) * np.array([160, 192]) * 1.1 - 16
+    rois = np.concatenate([xy, xy + rng.rand(2, 30, 2) * 120 + 2], -1)
+    rois[:, 0] = [-400, -300, -200, -100]              # off the map
+    rois[:, 1] = [-40, 16, 24, 80]                     # empty first bins
+    rois = torch.from_numpy(rois.astype(np.float32)).to(dev)
+    feats = feats.to(dev, dtype)
+    before = roi_pool_max.launches
+    got = roi_pool_max(feats, rois, 7, 1.0 / 16)
+    want = roi_pool_argmax(feats, rois, 7, 1.0 / 16)
+    torch.cuda.synchronize()
+    assert roi_pool_max.launches == before + 1
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1][:, 0] == -1).all() and (got[1][:, 1] == -1).any()
+
+
+def test_roi_pool_kernel_rejects_bad_input(dev):
+    rois = torch.zeros((1, 2, 4), device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        roi_pool_max(torch.zeros((1, 4, 4, 6), device=dev), rois)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        roi_pool_max(torch.zeros((1, 4, 4, 8), device=dev, dtype=torch.float16),
+                     rois)

@@ -30,6 +30,16 @@ _RESNETS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes on one CPU; torch's own thread
+    pool in each would oversubscribe it many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree.map(lambda a: np.array(a, np.float32), unfreeze(tree))
 
@@ -83,8 +93,12 @@ def test_one_prelu_per_block_and_grouped_conv():
     assert isinstance(blk, Bottleneck)
     assert sum(1 for n, _ in blk.named_children() if "relu" in n) == 1
     assert blk.conv2.groups == 32 and tuple(blk.conv2.weight.shape) == (128, 4, 3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_backbone("hardnet39")
+    # HarDNet is ported (tests/test_torch_hardnet.py); what the registry
+    # refuses is a reference-layout HarDNet under an FPN, and unknown names
+    with pytest.raises(ValueError, match="cannot feed an FPN"):
+        build_backbone("hardnet39", pyramid=True)
+    with pytest.raises(ValueError, match="unknown backbone"):
+        build_backbone("vgg16")
 
 
 def test_weight_map_rejects_unknown_missing_and_misshapen(rng):

@@ -44,6 +44,16 @@ jr = importlib.import_module("two_stage_object_detection_tpu.ops.roi_pool")
 T = torch.from_numpy
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes on one CPU; torch's own thread
+    pool in each would oversubscribe it many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _boxes(rng, *lead, size=100.0):
     xy = rng.rand(*lead, 2) * size
     wh = rng.rand(*lead, 2) * size / 2 + 1.0

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from two_stage_object_detection_tpu_torch.models.hardnet import (
+    HarDNetFeatureExtraction)
 from two_stage_object_detection_tpu_torch.models.resnet import (
     ResNetFeatureExtraction)
 
@@ -20,15 +22,24 @@ _RESNETS = {
 def build_backbone(name: str, dtype=torch.float32, pyramid: bool = False):
     """Build a feature extractor by name, as the JAX package's registry does.
 
-    ``pyramid=True`` gives the FPN taps (C2..C5) and a per-tap channel
-    tuple; otherwise the stride-16 trunk (no layer4).  HarDNet is not
-    ported yet.
+    ``hardnet39/68/85`` are the reference layout, ``hardnet39s/68s/85s`` the
+    strided variants.  ``pyramid=True`` gives the FPN taps (C2..C5) and a
+    per-tap channel tuple (resnets and the strided hardnets only);
+    otherwise the stride-16 map (no resnet layer4).
     """
     name = name.lower()
     if name.startswith("hardnet"):
-        raise NotImplementedError(
-            f"backbone {name!r}: HarDNet is not ported to PyTorch yet "
-            "(ROADMAP.md, 'Modules to port', the single-scale/HarDNet path)")
+        spec = name.replace("hardnet", "")
+        strided = spec.endswith("s")
+        arch = int(spec.rstrip("s"))
+        if pyramid and not strided:
+            raise ValueError(
+                f"backbone {name!r} cannot feed an FPN: the reference layout "
+                f"keeps all blocks at one spatial size (stride-1 quirk) — "
+                f"use hardnet{arch}s or a resnet backbone")
+        mod = HarDNetFeatureExtraction(arch=arch, dtype=dtype, strided=strided,
+                                       pyramid=pyramid)
+        return mod, mod.out_channels
     if name not in _RESNETS:
         raise ValueError(f"unknown backbone {name!r}; expected hardnet39/68/85 "
                          f"or {sorted(_RESNETS)}")

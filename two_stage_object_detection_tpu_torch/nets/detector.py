@@ -1,14 +1,22 @@
-"""FasterRCNN: the end-to-end detector (FPN branch, predict path).
+"""FasterRCNN: the end-to-end detector (predict path).
 
-The counterpart of the JAX package's ``nets/detector.py`` for
-``Config(fpn=True)``: ResNet trunk -> FPN neck -> shared RPN head over the
-anchor pyramid -> proposals (kernel 1) -> windowed RoIAlign (kernel 2) and
-the 2-FC box head -> per-class decode, score threshold and one class-offset
-NMS.  ``predict`` takes ``[B, H, W, 3]`` float images in [0, 1] and returns
-``(boxes [B, D, 4], scores [B, D], labels [B, D] (1-based), valid [B, D])``
-with ``D = cfg.max_detections``, invalid slots zeroed.
+The counterpart of the JAX package's ``nets/detector.py``, both branches:
 
-The single-scale branch and ``train_forward`` are not ported yet.
+* ``Config(fpn=True)``: ResNet (or strided HarDNet) trunk -> FPN neck ->
+  shared RPN head over the anchor pyramid -> proposals (kernel 1, or
+  kernel 3 on small inputs) -> windowed RoIAlign (kernel 2) and the 2-FC
+  box head;
+* ``Config(fpn=False)`` (the default ``Config()``: HarDNet-39): stride-16
+  map -> 1x1 RPN head over ``make_anchors`` -> whole-table proposals
+  (kernel 3) -> RoIPool max (kernel 5), a global mean and two dense heads.
+
+Both end in the same per-class decode, score threshold and one
+class-offset NMS (:meth:`FasterRCNN.detect`).  ``predict`` takes
+``[B, H, W, 3]`` float images in [0, 1] and returns ``(boxes [B, D, 4],
+scores [B, D], labels [B, D] (1-based), valid [B, D])`` with
+``D = cfg.max_detections``, invalid slots zeroed.
+
+``train_forward`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +30,10 @@ from two_stage_object_detection_tpu_torch.models.layers import init_weights
 from two_stage_object_detection_tpu_torch.models.registry import build_backbone
 from two_stage_object_detection_tpu_torch.nets.fpn import (
     FPNNeck, FPNRoIHead, FPNRPNHead)
-from two_stage_object_detection_tpu_torch.ops.anchors import make_fpn_anchors
+from two_stage_object_detection_tpu_torch.nets.roi_head import RoIHead
+from two_stage_object_detection_tpu_torch.nets.rpn import RPNHead
+from two_stage_object_detection_tpu_torch.ops.anchors import (
+    make_anchors, make_fpn_anchors)
 from two_stage_object_detection_tpu_torch.ops.geometry import (
     clip_boxes, loc2bbox)
 from two_stage_object_detection_tpu_torch.ops.nms import nms, topk_stable
@@ -30,10 +41,10 @@ from two_stage_object_detection_tpu_torch.ops.proposals import proposals_batched
 
 
 class FasterRCNN(nn.Module):
-    """Two-stage FPN detector.
+    """Two-stage detector over a stride-16 map or an FPN pyramid.
 
     Args:
-      cfg: the recipe; ``cfg.fpn`` must be True.
+      cfg: the recipe (``cfg.fpn`` picks the branch).
       device: where the model lives; ``None`` takes ``cfg.device``.  A CUDA
         device with no GPU present raises.
       seed: initialisation seed (parameters are drawn on the CPU from a
@@ -42,33 +53,38 @@ class FasterRCNN(nn.Module):
 
     def __init__(self, cfg: Config, device=None, seed: int = 0):
         super().__init__()
-        if not cfg.fpn:
-            raise NotImplementedError(
-                "the single-scale detector (fpn=False) is not ported yet "
-                "(ROADMAP.md, 'Modules to port')")
         self.cfg = cfg
         dev = resolve_device(cfg.device if device is None else device)
         dtype = compute_dtype(cfg)
         self.extractor, feat_channels = build_backbone(cfg.backbone, dtype,
-                                                       pyramid=True)
-        self.neck = FPNNeck(feat_channels, cfg.fpn_channels, dtype)
-        self.rpn_head = FPNRPNHead(len(cfg.anchor_ratios), cfg.fpn_channels,
-                                   dtype)
-        self.roi_head = FPNRoIHead(
-            n_class=cfg.num_classes + 1, channels=cfg.fpn_channels,
-            roi_size=cfg.roi_size, min_level=cfg.fpn_min_level,
-            n_pool_levels=cfg.fpn_max_level - cfg.fpn_min_level,
-            canonical_level=cfg.fpn_canonical_level,
-            canonical_size=cfg.fpn_canonical_size, fc_dim=cfg.fpn_fc_dim,
-            window=cfg.fpn_roi_window, use_kernel=use_kernels(cfg),
-            span_aware=cfg.fpn_span_aware, dtype=dtype)
-        self.register_buffer("anchors", torch.from_numpy(make_fpn_anchors(cfg)),
+                                                       pyramid=cfg.fpn)
+        n_class = cfg.num_classes + 1
+        if cfg.fpn:
+            self.neck = FPNNeck(feat_channels, cfg.fpn_channels, dtype)
+            self.rpn_head = FPNRPNHead(len(cfg.anchor_ratios),
+                                       cfg.fpn_channels, dtype)
+            self.roi_head = FPNRoIHead(
+                n_class=n_class, channels=cfg.fpn_channels,
+                roi_size=cfg.roi_size, min_level=cfg.fpn_min_level,
+                n_pool_levels=cfg.fpn_max_level - cfg.fpn_min_level,
+                canonical_level=cfg.fpn_canonical_level,
+                canonical_size=cfg.fpn_canonical_size, fc_dim=cfg.fpn_fc_dim,
+                window=cfg.fpn_roi_window, use_kernel=use_kernels(cfg),
+                span_aware=cfg.fpn_span_aware, dtype=dtype)
+            anchors = make_fpn_anchors(cfg)
+        else:
+            self.rpn_head = RPNHead(cfg.n_anchors_per_cell, feat_channels,
+                                    dtype)
+            self.roi_head = RoIHead(n_class, feat_channels, cfg.roi_size,
+                                    cfg.roi_pool_mode, use_kernels(cfg), dtype)
+            anchors = make_anchors(cfg)
+        self.register_buffer("anchors", torch.from_numpy(anchors),
                              persistent=False)
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(dev)
         if dev.type == "cuda":
             # NCHW logical, NHWC in memory: cuDNN's fast layout, and the
-            # pyramid's NHWC views for kernel 2 are free
+            # NHWC views of the maps for kernels 2 and 5 are free
             self.to(memory_format=torch.channels_last)
         self.eval()
 
@@ -78,8 +94,10 @@ class FasterRCNN(nn.Module):
 
     # ----------------------------------------------------------------- parts
     def features(self, images: torch.Tensor):
-        """Backbone + FPN neck on ``[B, H, W, 3]`` images -> (P2..P6), NCHW."""
-        return self.neck(self.extractor(images.permute(0, 3, 1, 2)))
+        """Backbone (+ FPN neck) on ``[B, H, W, 3]`` images: the stride-16
+        map, or (P2..P6) with ``cfg.fpn``; NCHW."""
+        taps = self.extractor(images.permute(0, 3, 1, 2))
+        return self.neck(taps) if self.cfg.fpn else taps
 
     def _check_anchor_contract(self, n_locs: int):
         n_anchors = self.anchors.shape[0]

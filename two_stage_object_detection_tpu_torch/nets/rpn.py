@@ -1,18 +1,42 @@
-"""Static-shape RPN proposal generation (plain PyTorch, batched).
+"""Single-scale RPN head and static-shape proposal generation (batched).
 
-The counterpart of the JAX package's ``nets/rpn.py:create_proposals``
-(``vmap``-ed there over images; a batch axis here).  ``RPNHead`` belongs to
-the single-scale path, which is not ported yet.
+The counterparts of the JAX package's ``nets/rpn.py``: ``RPNHead`` (two
+1x1 convs, no shared 3x3 conv) and ``create_proposals`` (``vmap``-ed there
+over images; a batch axis here).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn as nn
 
+from two_stage_object_detection_tpu_torch.models.layers import Conv
 from two_stage_object_detection_tpu_torch.ops.geometry import (
     clip_boxes, loc2bbox)
 from two_stage_object_detection_tpu_torch.ops.nms import (
     NEG_INF, nms_padded, topk_stable)
+
+
+class RPNHead(nn.Module):
+    """1x1 ``loc`` / ``score`` convs over the NCHW feature map.
+
+    Returns ``rpn_locs [B, H*W*A, 4]`` and ``rpn_scores [B, H*W*A, 2]``,
+    f32, flattened in NHWC order ``(y*W + x)*A + a``: the order of
+    :func:`~..ops.anchors.make_anchors` (row-major grid, anchors innermost).
+    """
+
+    def __init__(self, n_anchors: int = 9, channels: int = 512,
+                 dtype=torch.float32):
+        super().__init__()
+        self.loc = Conv(channels, n_anchors * 4, 1, compute_dtype=dtype)
+        self.score = Conv(channels, n_anchors * 2, 1, compute_dtype=dtype)
+
+    def forward(self, feats: torch.Tensor):
+        b = feats.shape[0]
+        # NCHW -> NHWC before flattening, so anchors stay innermost
+        locs = self.loc(feats).permute(0, 2, 3, 1).reshape(b, -1, 4)
+        scores = self.score(feats).permute(0, 2, 3, 1).reshape(b, -1, 2)
+        return locs.float(), scores.float()
 
 
 def create_proposals(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,

@@ -1,14 +1,22 @@
-"""Batched RPN proposal generation with the hand-written greedy-NMS kernel.
+"""Batched RPN proposal generation with the hand-written kernels.
 
-The counterpart of the JAX package's ``ops/pallas_proposals.py``:
-decode, clip and min-size masking run over the whole anchor table in plain
-PyTorch, an exact top-``n_pre_nms`` cut (a stable sort: ties go to the lower
-index, as ``lax.top_k`` sends them) keeps the ``K`` best, and the greedy
-NMS over the ``[B, K]`` survivors runs in ``csrc/nms.cu``
-(:func:`greedy_nms`).  The cut applies where it shrinks the table at least
-6x, as in the JAX package (``6 * n_pre_nms <= N``); otherwise the same
-kernel runs over all ``N`` boxes sorted by score, which is what the JAX
-package's fused whole-table kernel computes.
+The counterpart of the JAX package's ``ops/pallas_proposals.py``, with its
+two routes (:func:`proposals_batched` picks one as
+``fused_proposals_batched`` does):
+
+* **truncated** (``6 * n_pre_nms <= N``, the FPN predict and train shapes):
+  decode, clip and min-size masking run over the whole anchor table in
+  plain PyTorch, an exact top-``n_pre_nms`` cut (a stable sort: ties go to
+  the lower index, as ``lax.top_k`` sends them) keeps the ``K`` best, and
+  the greedy NMS over the ``[B, K]`` survivors runs in kernel 1
+  (``csrc/nms.cu``, :func:`greedy_nms`);
+* **whole table** (otherwise, the single-scale path and small FPN inputs):
+  decode, clip, min-size mask and greedy NMS over all ``N`` anchors run in
+  one launch of kernel 3 (``csrc/proposals.cu``,
+  :func:`fused_proposals_batched`), no sort: each step takes the best
+  alive score, lowest index on ties.  Its per-image form, kernel 4
+  (:func:`fused_proposals`), is the same kernel launched with ``B = 1``;
+  like the JAX package's ``_fused_kernel`` it is not on the predict path.
 """
 
 from __future__ import annotations
@@ -24,6 +32,11 @@ from two_stage_object_detection_tpu_torch.ops.nms import NEG_INF, topk_stable
 
 # the scan kernel keeps one 8-byte mask word per row in shared memory
 MAX_KERNEL_ROWS = 28000
+# kernel 3 keeps every row's box (16 bytes) in one block's shared memory up
+# to MAX_FUSED_SMEM_ROWS rows, and in a global scratch buffer above that, up
+# to MAX_FUSED_ROWS (kSmemMaxRows and kMaxRows of csrc/proposals.cu)
+MAX_FUSED_SMEM_ROWS = 14336
+MAX_FUSED_ROWS = 32768
 
 
 def greedy_nms_rows_reference(boxes: torch.Tensor, scores: torch.Tensor, *,
@@ -114,26 +127,148 @@ def _nms_fn():
     return fn
 
 
+def _decode_masked(rpn_locs, rpn_fg_scores, anchors, img_size, min_size):
+    """Decode + clip, and scores with rows under ``min_size`` set to NEG."""
+    roi = clip_boxes(loc2bbox(anchors, rpn_locs.float()), img_size)
+    wh = roi[..., 2:4] - roi[..., 0:2]
+    ok = (wh[..., 0] >= min_size) & (wh[..., 1] >= min_size)
+    return roi, torch.where(ok, rpn_fg_scores.float(), NEG_INF)
+
+
+def fused_proposals_rows_reference(rpn_locs: torch.Tensor,
+                                   rpn_fg_scores: torch.Tensor,
+                                   anchors: torch.Tensor, img_size, *,
+                                   nms_iou: float, n_post_nms: int,
+                                   min_size: float):
+    """Plain PyTorch version of kernels 3 and 4 (the JAX ``_batched_kernel``).
+
+    Decodes every row as the kernel does (``cx = dx*aw + acx``,
+    ``w = exp(dw)*aw``, clip to ``[0, W]`` / ``[0, H]``, scores of rows with
+    a side under ``min_size`` set to NEG), then runs ``n_post_nms``
+    argmax/suppress steps over all ``N`` rows: the steps of
+    :func:`greedy_nms_rows_reference`, without a sort.
+
+    ``rpn_locs [B, N, 4]``, ``rpn_fg_scores [B, N]``, ``anchors [N, 4]`` ->
+    ``(rois [B, n_post, 4], scores [B, n_post], valid [B, n_post])``.
+    """
+    roi, masked = _decode_masked(rpn_locs, rpn_fg_scores, anchors, img_size,
+                                 min_size)
+    return greedy_nms_rows_reference(roi, masked, n_post=n_post_nms,
+                                     iou_threshold=nms_iou)
+
+
+def fused_proposals_batched(rpn_locs: torch.Tensor,
+                            rpn_fg_scores: torch.Tensor, anchors: torch.Tensor,
+                            img_size, *, nms_iou: float, n_post_nms: int,
+                            min_size: float, use_kernel: bool = True):
+    """Kernel 3: whole-table decode + clip + min-size mask + greedy NMS.
+
+    Shapes as :func:`fused_proposals_rows_reference`.  On a CUDA tensor
+    with ``use_kernel`` this launches ``csrc/proposals.cu`` (or raises, for
+    instance above ``MAX_FUSED_ROWS`` anchors); on the CPU, or with
+    ``use_kernel=False``, it runs the plain version.  Same outputs either
+    way, bit for bit.
+    """
+    if not (use_kernel and rpn_locs.is_cuda):
+        return fused_proposals_rows_reference(
+            rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou=nms_iou,
+            n_post_nms=n_post_nms, min_size=min_size)
+    out = _fused_launch(rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou,
+                        n_post_nms, min_size)
+    fused_proposals_batched.launches += 1
+    return out
+
+
+fused_proposals_batched.launches = 0
+
+
+def fused_proposals(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,
+                    anchors: torch.Tensor, img_size, *, nms_iou: float,
+                    n_post_nms: int, min_size: float, use_kernel: bool = True):
+    """Kernel 4: :func:`fused_proposals_batched` for one image, the same
+    kernel launched with ``B = 1``.
+
+    ``rpn_locs [N, 4]``, ``rpn_fg_scores [N]``, ``anchors [N, 4]`` ->
+    ``(rois [n_post, 4], scores [n_post], valid [n_post])``.
+    """
+    locs, fg = rpn_locs[None], rpn_fg_scores[None]
+    if not (use_kernel and rpn_locs.is_cuda):
+        out = fused_proposals_rows_reference(
+            locs, fg, anchors, img_size, nms_iou=nms_iou,
+            n_post_nms=n_post_nms, min_size=min_size)
+    else:
+        out = _fused_launch(locs, fg, anchors, img_size, nms_iou, n_post_nms,
+                            min_size)
+        fused_proposals.launches += 1
+    return tuple(t[0] for t in out)
+
+
+fused_proposals.launches = 0
+
+
+def _fused_launch(rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou,
+                  n_post, min_size):
+    b, n, _ = rpn_locs.shape
+    if not 0 < n <= MAX_FUSED_ROWS:
+        raise ValueError(
+            f"the fused proposal kernel takes 1..{MAX_FUSED_ROWS} anchors per "
+            f"image (one block holds every score in registers), got {n}")
+    locs = rpn_locs.float().contiguous()
+    scores = rpn_fg_scores.float().contiguous()
+    anchors = anchors.float().contiguous()
+    _cuda.require(locs, "rpn_locs", torch.float32, (b, n, 4))
+    _cuda.require(scores, "rpn_fg_scores", torch.float32, (b, n))
+    _cuda.require(anchors, "anchors", torch.float32, (n, 4))
+    dev = locs.device
+    out_boxes = torch.empty((b, n_post, 4), dtype=torch.float32, device=dev)
+    out_scores = torch.empty((b, n_post), dtype=torch.float32, device=dev)
+    out_valid = torch.empty((b, n_post), dtype=torch.bool, device=dev)
+    scratch = (torch.empty((b, n, 4), dtype=torch.float32, device=dev)
+               if n > MAX_FUSED_SMEM_ROWS else None)
+    fn = _fused_fn()
+    img_h, img_w = img_size
+    with torch.cuda.device(dev):
+        status = fn(locs.data_ptr(), scores.data_ptr(), anchors.data_ptr(), b,
+                    n, n_post, nms_iou, min_size, float(img_h), float(img_w),
+                    out_boxes.data_ptr(), out_scores.data_ptr(),
+                    out_valid.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(),
+                    _cuda.stream_handle(locs))
+    _cuda.check(status, "proposals_launch")
+    return out_boxes, out_scores, out_valid
+
+
+def _fused_fn():
+    fn = _cuda.library("proposals").proposals_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def proposals_batched(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,
                       anchors: torch.Tensor, img_size, *, nms_iou: float,
                       n_post_nms: int, min_size: float, n_pre_nms=None,
                       use_kernel: bool = True):
-    """Whole-batch decode + clip + min-size mask + top-K + greedy NMS.
+    """Proposals for a batch, on the route the JAX package takes.
 
     Args:
       rpn_locs: ``[B, N, 4]``.  rpn_fg_scores: ``[B, N]``.
       anchors: ``[N, 4]``.  img_size: ``(H, W)``.
-      n_pre_nms: exact pre-NMS cut, engaged when ``6 * n_pre_nms <= N``.
+      n_pre_nms: exact pre-NMS cut, engaged when ``6 * n_pre_nms <= N``
+        (kernel 1); otherwise the whole table goes through kernel 3.
 
     Returns ``(rois [B, n_post, 4], scores [B, n_post], valid [B, n_post])``.
     """
     n = rpn_locs.shape[1]
-    roi = clip_boxes(loc2bbox(anchors, rpn_locs.float()), img_size)
-    wh = roi[..., 2:4] - roi[..., 0:2]
-    ok = (wh[..., 0] >= min_size) & (wh[..., 1] >= min_size)
-    masked = torch.where(ok, rpn_fg_scores.float(), NEG_INF)
-    k = n_pre_nms if n_pre_nms is not None and 6 * n_pre_nms <= n else n
-    top_scores, top_idx = topk_stable(masked, k)
+    kw = dict(nms_iou=nms_iou, n_post_nms=n_post_nms, min_size=min_size,
+              use_kernel=use_kernel)
+    if n_pre_nms is None or 6 * n_pre_nms > n:
+        return fused_proposals_batched(rpn_locs, rpn_fg_scores, anchors,
+                                       img_size, **kw)
+    roi, masked = _decode_masked(rpn_locs, rpn_fg_scores, anchors, img_size,
+                                 min_size)
+    top_scores, top_idx = topk_stable(masked, n_pre_nms)
     top_boxes = torch.gather(roi, 1, top_idx[..., None].expand(-1, -1, 4))
     return greedy_nms(top_boxes.contiguous(), top_scores.contiguous(),
                       n_post=n_post_nms, iou_threshold=nms_iou,

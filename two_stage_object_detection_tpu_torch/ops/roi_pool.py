@@ -1,11 +1,24 @@
-"""Windowed multi-level RoIAlign (the FPN part), plain PyTorch.
+"""RoI pooling, plain PyTorch: single-level RoIPool max and the FPN's
+windowed multi-level RoIAlign.
 
-The counterpart of the FPN functions of the JAX package's
-``ops/roi_pool.py``: each roi pools a ``[window, window]`` slice of its
-assigned pyramid level with 2-D bilinear RoIAlign (``P x P`` bins,
-``s x s`` samples per bin).  This is the plain version of kernel 2
-(``ops/windowed_align.py``), and it keeps the JAX sample rules, which are
-not torchvision's RoIAlign boundary rules:
+The counterpart of the JAX package's ``ops/roi_pool.py``.
+
+**RoIPool max** (:func:`roi_pool`, :func:`roi_pool_argmax`) has torchvision
+RoIPool semantics: rois scaled and rounded half to even, exact integer bin
+edges (``start = p*size // P + lo``, ``end = ceil((p+1)*size / P) + lo``,
+``size = max(hi - lo, 1)``), clamped to the map; an empty bin gives 0.
+:func:`roi_pool_argmax` is the plain version of kernel 5
+(``ops/roi_pool_max.py``): it also gives the flat index ``y*W + x`` of the
+first maximum of each bin in row-major order (-1 for an empty bin).  It
+gathers one column offset of every bin at a time, so it holds
+``[..., R, P, H, C]`` slabs and never the ``[R, P, H, W, C]`` broadcast of
+the JAX masked max.
+
+**Windowed multi-level RoIAlign** (the FPN part): each roi pools a
+``[window, window]`` slice of its assigned pyramid level with 2-D bilinear
+RoIAlign (``P x P`` bins, ``s x s`` samples per bin).  This is the plain
+version of kernel 2 (``ops/windowed_align.py``), and it keeps the JAX sample
+rules, which are not torchvision's RoIAlign boundary rules:
 
 * sample coordinates clip to ``[0, size - 1]`` on the level;
 * the window origin is ``clip(floor(first sample), 0, block - win)``, where
@@ -23,6 +36,82 @@ import torch
 import torch.nn.functional as F
 
 from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
+
+
+def _bin_edges_pool(lo: torch.Tensor, hi: torch.Tensor, pooled: int):
+    """torchvision RoIPool bin ranges along one axis, in exact integers.
+
+    ``lo``/``hi``: ``[...]`` rounded roi start/end (int64).  Returns
+    ``(start, end)``, each ``[..., pooled]`` int64, start inclusive, end
+    exclusive, not clamped.
+    """
+    size = torch.clamp(hi - lo, min=1)[..., None]
+    p = torch.arange(pooled, dtype=torch.int64, device=lo.device)
+    start = torch.div(p * size, pooled, rounding_mode="floor") + lo[..., None]
+    end = (torch.div((p + 1) * size + pooled - 1, pooled, rounding_mode="floor")
+           + lo[..., None])
+    return start, end
+
+
+def roi_pool_argmax(features: torch.Tensor, rois: torch.Tensor,
+                    output_size: int = 7, spatial_scale: float = 1.0):
+    """RoIPool max with the first row-major argmax: kernel 5's plain version.
+
+    Args:
+      features: ``[..., H, W, C]`` map, any float dtype (pooled in f32,
+        which is exact for bf16 and f32 inputs).
+      rois: ``[..., R, 4]`` xyxy, multiplied by ``spatial_scale`` to reach
+        map coordinates.
+
+    Returns ``(pooled [..., R, P, P, C] f32, argmax [..., R, P, P, C] int32)``.
+    """
+    lead = rois.shape[:-2]
+    h, w, c = features.shape[-3:]
+    r, p = rois.shape[-2], output_size
+    f = features.reshape(-1, h, w, c)
+    q = torch.round(rois.to(torch.float32).reshape(-1, r, 4)
+                    * spatial_scale).to(torch.int64)
+    xs, xe = _bin_edges_pool(q[..., 0], q[..., 2], p)          # [B, R, P]
+    ys, ye = _bin_edges_pool(q[..., 1], q[..., 3], p)
+    xs, xe = xs.clamp(0, w), xe.clamp(0, w)
+    ys, ye = ys.clamp(0, h), ye.clamp(0, h)
+    b = f.shape[0]
+    bidx = torch.arange(b, device=f.device)[:, None, None]
+    ridx = torch.arange(r, device=f.device)[None, :, None]
+
+    # stage 1, per column bin: max over its columns of every row, and the
+    # first column reaching it -> [B, R, Pw, H, C]
+    v1 = torch.zeros((b, r, p, h, c), dtype=torch.float32, device=f.device)
+    x1 = torch.full((b, r, p, h, c), -1, dtype=torch.int32, device=f.device)
+    for dx in range(int((xe - xs).max().clamp(min=0)) if xs.numel() else 0):
+        x = xs + dx
+        col = f[bidx, :, x.clamp(max=w - 1)].to(torch.float32)  # [B,R,Pw,H,C]
+        better = (x < xe)[..., None, None] & ((col > v1) | (x1 < 0))
+        v1 = torch.where(better, col, v1)
+        x1 = torch.where(better, x.to(torch.int32)[..., None, None], x1)
+
+    # stage 2, per row bin: max over its rows of the stage-1 maxima, and the
+    # first row reaching it -> [B, R, Ph, Pw, C]
+    v2 = torch.zeros((b, r, p, p, c), dtype=torch.float32, device=f.device)
+    i2 = torch.full((b, r, p, p, c), -1, dtype=torch.int32, device=f.device)
+    for dy in range(int((ye - ys).max().clamp(min=0)) if ys.numel() else 0):
+        y = ys + dy
+        yc = y.clamp(max=h - 1)
+        row = v1[bidx, ridx, :, yc]                            # [B,R,Ph,Pw,C]
+        col = x1[bidx, ridx, :, yc]
+        better = ((y < ye)[..., None, None] & (col >= 0)
+                  & ((row > v2) | (i2 < 0)))
+        v2 = torch.where(better, row, v2)
+        i2 = torch.where(better, (yc * w).to(torch.int32)[..., None, None] + col,
+                         i2)
+    return (v2.reshape(*lead, r, p, p, c), i2.reshape(*lead, r, p, p, c))
+
+
+def roi_pool(features: torch.Tensor, rois: torch.Tensor, output_size: int = 7,
+             spatial_scale: float = 1.0) -> torch.Tensor:
+    """RoIPool max, torchvision semantics: ``[..., H, W, C]`` map and
+    ``[..., R, 4]`` rois -> ``[..., R, P, P, C]`` f32 (empty bins 0)."""
+    return roi_pool_argmax(features, rois, output_size, spatial_scale)[0]
 
 
 def _norm_scales(scales, n_levels: int) -> torch.Tensor:
