@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from ``two_stage_object_detection_tpu_torch/
 csrc`` (one nvcc per source, in parallel), holds each kernel against its
-plain PyTorch version at the shapes of the predict path that runs it, and
-times both.  Then it serves requests through the port's ``Predictor`` on
+plain PyTorch version at the shapes of the path that runs it, and times
+both.  Then it serves requests through the port's ``Predictor`` on
 two paths, each at full width (600x600, 81 classes, 100 detections,
 bfloat16, seeded random weights), with every launch counter set to 0 just
 before and read just after:
@@ -20,7 +20,25 @@ package's ``_fused_kernel`` is off its predict path): it is checked and
 timed here, and its launch count on the paths is 0.
 
 It checks f32 predict with the kernels against ``pallas="off"`` on both
-paths.  Every check raises on failure, so any failed phase exits nonzero.
+paths.
+
+Then it trains, on three paths at full width: the flagship (kernels 1
+and 2 under the hybrid RoIAlign), the single scale with ``roi_bwd="pallas"``
+(kernels 3, 5 and 6) and the single scale with ``pallas_roi=True`` (kernels
+3 and 5 and kernel 5's scatter backward).  Each is a ``create_train_state``
+and four ``train_step`` micro-steps at batch 16 with ``grad_accum_steps=2``,
+counters set to 0 just before.  Every loss must be finite, the parameters
+must move at the second micro-step and not at the first, the running
+statistics at the first, and the path's kernels must have launched.  For
+each path one f32 ``train_forward`` + backward at batch 2 is held against
+``pallas="off"`` (losses and every gradient leaf; on the flagship with the
+box head's ReLU inputs moved off 0 first, and the ReLU masks equal).  The
+kernels line sums the launches of these paths and the served ones, and of
+nothing else.  Last, two micro-steps each of ``roi_bwd="xla"`` and
+``"structured"`` run at batch 2, side routes whose launches are printed on
+their own.
+
+Every check raises on failure, so any failed phase exits nonzero.
 
 Output: progress lines; the card's ``nvidia-smi`` name and power limit; one
 JSON line ``{"kernels": [...]}`` with each kernel's launches, error, times
@@ -397,22 +415,27 @@ def roi_pool_inputs(rng, dev, b=16, r=300, c=512, hw=38, img=600.0):
     return feats, (torch.from_numpy(rois) * scale).to(dev)
 
 
-def roi_pool_bound_ms(feats, rois, p: int = 7):
-    """Bytes: the map and rois read once, the f32 values and int32 indices
-    written once.  Operations: one compare per pixel of each bin per
-    channel."""
+def bin_pixels(rois, h: int, w: int, p: int = 7) -> int:
+    """Pixels in all bins of ``rois [B, R, 4]`` (map coordinates)."""
     from two_stage_object_detection_tpu_torch.ops.roi_pool import (
         _bin_edges_pool)
-    b, h, w, c = feats.shape
-    r = rois.shape[1]
     q = torch.round(rois).to(torch.int64)
     xs, xe = _bin_edges_pool(q[..., 0], q[..., 2], p)
     ys, ye = _bin_edges_pool(q[..., 1], q[..., 3], p)
     bw = (xe.clamp(0, w) - xs.clamp(0, w)).clamp(min=0)
     bh = (ye.clamp(0, h) - ys.clamp(0, h)).clamp(min=0)
-    ops = int((bh[..., :, None] * bw[..., None, :]).sum()) * c
+    return int((bh[..., :, None] * bw[..., None, :]).sum())
+
+
+def roi_pool_bound_ms(feats, rois, p: int = 7, out_bytes: int = 8):
+    """Bytes: the map and rois read once, the f32 values and (with
+    ``out_bytes=8``) int32 indices written once.  Operations: one compare
+    per pixel of each bin per channel."""
+    b, h, w, c = feats.shape
+    r = rois.shape[1]
+    ops = bin_pixels(rois, h, w, p) * c
     nbytes = (feats.numel() * feats.element_size() + rois.numel() * 4
-              + b * r * p * p * c * 8)
+              + b * r * p * p * c * out_bytes)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
@@ -420,13 +443,15 @@ def roi_pool_bound_ms(feats, rois, p: int = 7):
 
 def check_roi_pool(rng, dev):
     """Kernel 5 at B=16, R=300, C=512, 38x38, P=7 from bf16 maps: values
-    and argmax equal to the plain version (run one image at a time)."""
+    and argmax equal to the plain version (run one image at a time).
+    Returns its row of the kernels line and the time and bound of the
+    launch without the index store."""
     from two_stage_object_detection_tpu_torch.ops.roi_pool import (
         roi_pool_argmax)
     from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
         roi_pool_max)
     feats, rois = roi_pool_inputs(rng, dev)
-    got = roi_pool_max(feats, rois)
+    got = roi_pool_max(feats, rois, with_argmax=True)
 
     def plain():
         return [roi_pool_argmax(feats[i:i + 1], rois[i:i + 1])
@@ -445,17 +470,157 @@ def check_roi_pool(rng, dev):
     require(n_diff == 0, "roi_pool_max differs from the plain version "
             "(values and argmax must be equal)")
     del want
-    ms = cuda_time_ms(lambda: roi_pool_max(feats, rois), 20)
+    ms = cuda_time_ms(lambda: roi_pool_max(feats, rois, with_argmax=True), 20)
     plain_ms = cuda_time_ms(plain, 2, warmup=1)
     bound_ms, bound_by, nbytes = roi_pool_bound_ms(feats, rois)
     log(f"kernel roi_pool_max B=16 R=300 C=512: {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
         f"{nbytes / 1e6:.1f} MB)")
-    return dict(name="roi_pool_max", route="cuda",
-                source="two_stage_object_detection_tpu_torch/csrc/roi_pool.cu",
-                replaces="two_stage_object_detection_tpu/ops/pallas_roi.py:38",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    # the launch that no backward follows: no index buffer, half the bytes
+    values, none = roi_pool_max(feats, rois, with_argmax=False)
+    require(none is None and torch.equal(values, got[0]),
+            "roi_pool_max without the index store gives other values")
+    v_ms = cuda_time_ms(lambda: roi_pool_max(feats, rois, with_argmax=False), 20)
+    v_bound, v_by, v_bytes = roi_pool_bound_ms(feats, rois, out_bytes=4)
+    log(f"kernel roi_pool_max values only: {v_ms:.4f} ms, bound "
+        f"{v_bound:.5f} ms ({v_by}: {v_bytes / 1e6:.1f} MB)")
+    row = dict(name="roi_pool_max", route="cuda",
+               source="two_stage_object_detection_tpu_torch/csrc/roi_pool.cu",
+               replaces="two_stage_object_detection_tpu/ops/pallas_roi.py:38",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    return row, {"ms": v_ms, "bound_ms": v_bound, "bound_by": v_by}
+
+
+# ------------------------------------------------------ kernel 6, scatter
+def roi_pool_bwd_inputs(rng, dev, b=16, r=128, c=512, hw=38, img=600.0):
+    """The train step's shapes.  A 38x38x512 map per image that ends in a
+    ReLU: coarse values (ties inside bins), exact zeros in half the cells
+    (the ties a real map has) and a constant patch; 128 rois as
+    ``roi_pool_inputs`` makes them, a tenth over the image's edge (empty
+    bins); an f32 cotangent with every 8th roi all zero (padded samples)."""
+    g = torch.Generator(device="cpu").manual_seed(int(rng.randint(1 << 30)))
+    feats = torch.randint(-64, 64, (b, hw, hw, c), generator=g) / 16.0
+    feats = feats.clamp(min=0.0)
+    feats[:, 5:15, 5:15] = 1.5
+    _, rois = roi_pool_inputs(rng, "cpu", b=b, r=r, c=4, hw=hw, img=img)
+    cot = torch.randn((b, r, 7, 7, c), generator=g)
+    cot[:, ::8] = 0.0
+    return feats.to(dev), rois.to(dev), cot.to(dev)
+
+
+def check_roi_pool_bwd(rng, dev):
+    """Kernel 6 and kernel 5's scatter backward at B=16, R=128, 38x38x512,
+    P=7, from f32 and bf16 maps, against their plain versions.  The kernels
+    add with atomics, in no fixed order: a cell may differ from the plain
+    version by f32 rounding of its partial sums, so the tolerance is 1e-5
+    of the cell's sum of |g| (plus, from a bf16 map, one bf16 ulp of the
+    result, 2^-7 relative: two f32 sums a rounding error apart may round to
+    neighbouring bf16 values)."""
+    from two_stage_object_detection_tpu_torch.ops.roi_pool import (
+        roi_pool_grad_first_argmax, scatter_argmax_grad)
+    from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
+        roi_pool_bwd_recompute)
+    from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
+        roi_pool_bwd_scatter, roi_pool_max)
+    feats32, rois, g = roi_pool_bwd_inputs(rng, dev)
+    b, h, w, c = feats32.shape
+    argmax = roi_pool_max(feats32, rois, with_argmax=True)[1]
+    n_empty = int((argmax < 0).sum())
+    require(n_empty > 0, "the rois leave no empty bin to test")
+    mass = scatter_argmax_grad(argmax, g.abs(), h, w)      # sum of |g| per cell
+    rows = []
+
+    # kernel 5's backward: the scatter alone
+    got = roi_pool_bwd_scatter(argmax, g, h, w)
+    want = scatter_argmax_grad(argmax, g, h, w)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    tol = 1e-5 * mass + 1e-6
+    err_scatter = float(diff.max())
+    log(f"kernel roi_pool_bwd_scatter B=16 R=128 C=512 38x38 P=7: max |diff| "
+        f"{err_scatter:.3e}, worst diff/tol {float((diff / tol).max()):.3f} "
+        f"(tolerance 1e-5 * sum|g| + 1e-6); {n_empty} empty cells dropped")
+    require(bool((diff <= tol).all()), "roi_pool_bwd_scatter outside tolerance")
+    require(bool((got != 0).any()), "roi_pool_bwd_scatter wrote nothing")
+
+    # kernel 6 from f32 and from bf16 maps (the values are exact in both)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = feats32.to(dtype)
+        got = roi_pool_bwd_recompute(feats, rois, g)
+        want = roi_pool_grad_first_argmax(feats, rois, g)
+        torch.cuda.synchronize()
+        require(got.dtype == dtype and want.dtype == dtype,
+                "roi_pool_bwd_recompute: the result is not in the map's dtype")
+        diff = (got.float() - want.float()).abs()
+        tol = 1e-5 * mass + 1e-6
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * want.float().abs()
+        errs[dtype] = float(diff.max())
+        log(f"kernel roi_pool_bwd_recompute {str(dtype)[6:]} map B=16 R=128 "
+            f"C=512 38x38 P=7: max |diff| {errs[dtype]:.3e}, worst diff/tol "
+            f"{float((diff / tol).max()):.3f}, zero cells of the map "
+            f"{float((feats32 == 0).float().mean()):.2f}")
+        require(bool((diff <= tol).all()),
+                f"roi_pool_bwd_recompute {dtype} outside tolerance")
+        require(bool((got != 0).any()), "roi_pool_bwd_recompute wrote nothing")
+    del diff, tol, want, got
+
+    feats = feats32.to(torch.bfloat16)       # the train path's dtype
+    nbytes6 = (feats.numel() * 2 * 2 + rois.numel() * 4 + g.numel() * 4)
+    ops6 = bin_pixels(rois, h, w) * c + g.numel()
+    ms6 = cuda_time_ms(lambda: roi_pool_bwd_recompute(feats, rois, g), 20)
+    plain6 = cuda_time_ms(lambda: roi_pool_grad_first_argmax(feats, rois, g),
+                          1, warmup=1)
+    t_bytes, t_ops = nbytes6 / HBM_BYTES_PER_S, ops6 / F32_FLOP_PER_S
+    bound6 = max(t_bytes, t_ops) * 1e3
+    by6 = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"kernel roi_pool_bwd_recompute bf16 B=16 R=128 C=512: {ms6:.4f} ms, "
+        f"plain {plain6:.3f} ms, bound {bound6:.5f} ms ({by6}: "
+        f"{nbytes6 / 1e6:.1f} MB, {ops6 / 1e9:.2f} G compares and adds)")
+    rows.append(dict(
+        name="roi_pool_bwd_recompute", route="cuda",
+        source="two_stage_object_detection_tpu_torch/csrc/roi_pool_bwd.cu",
+        replaces="two_stage_object_detection_tpu/ops/pallas_roi_bwd.py:42",
+        max_abs_err=max(errs.values()), ms=ms6, plain_ms=plain6,
+        bound_ms=bound6, bound_by=by6, library_ms=None))
+
+    # the scatter: index, cotangent read once, the f32 map written once; one
+    # add per element.  Its library yardstick is one index_add_ over the
+    # flattened map with the flat indices made beforehand (empty bins sent
+    # to one extra cell).
+    nbytes = argmax.numel() * 8 + b * h * w * c * 4
+    ops = argmax.numel()
+    ms = cuda_time_ms(lambda: roi_pool_bwd_scatter(argmax, g, h, w), 20)
+    plain_ms = cuda_time_ms(lambda: scatter_argmax_grad(argmax, g, h, w), 5,
+                            warmup=1)
+    idx = argmax.reshape(b, -1, c).long()
+    flat = ((torch.arange(b, device=dev)[:, None, None] * (h * w) + idx) * c
+            + torch.arange(c, device=dev))
+    flat = torch.where(idx < 0, b * h * w * c, flat).reshape(-1)
+    gflat = g.reshape(-1)
+    lib = torch.zeros(b * h * w * c + 1, device=dev).index_add_(0, flat, gflat)
+    lib_err = float((lib[:-1].reshape(b, h, w, c)
+                     - scatter_argmax_grad(argmax, g, h, w)).abs().max())
+    require(lib_err <= 1e-2, f"the index_add_ yardstick computes something "
+            f"else ({lib_err})")
+    del lib
+    library_ms = cuda_time_ms(lambda: torch.zeros(
+        b * h * w * c + 1, device=dev).index_add_(0, flat, gflat), 5, warmup=1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"kernel roi_pool_bwd_scatter B=16 R=128 C=512: {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB)")
+    rows.append(dict(
+        name="roi_pool_bwd_scatter", route="cuda",
+        source="two_stage_object_detection_tpu_torch/csrc/roi_pool_bwd.cu",
+        replaces="two_stage_object_detection_tpu/ops/pallas_roi.py:151",
+        max_abs_err=err_scatter, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms))
+    return rows
 
 
 # ------------------------------------------------------------ main path
@@ -481,19 +646,29 @@ def counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from two_stage_object_detection_tpu_torch.ops.proposals import (
         fused_proposals, fused_proposals_batched, greedy_nms)
+    from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
+        roi_pool_bwd_recompute)
     from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
-        roi_pool_max)
+        roi_pool_bwd_scatter, roi_pool_max)
     from two_stage_object_detection_tpu_torch.ops.windowed_align import (
         windowed_roi_align_batched)
     return {"greedy_nms": greedy_nms,
             "windowed_align": windowed_roi_align_batched,
             "fused_proposals_batched": fused_proposals_batched,
-            "fused_proposals": fused_proposals, "roi_pool_max": roi_pool_max}
+            "fused_proposals": fused_proposals, "roi_pool_max": roi_pool_max,
+            "roi_pool_bwd_recompute": roi_pool_bwd_recompute,
+            "roi_pool_bwd_scatter": roi_pool_bwd_scatter}
+
+
+# images per request, by wire: a padded bucket (3 -> 8), the full bucket
+# and the one-image bucket
+SERVE_REQUESTS = {"f32": (1, 3, 16), "u8": (16,)}
 
 
 def serve(cfg, rng, label: str, expect):
     """A main path: a Predictor on ``cfg`` answering 1-, 3- and 16-image
-    requests on the f32 and u8 wires, with every launch counter set to 0
+    requests on the f32 wire and a 16-image one on the u8 wire, with every
+    launch counter set to 0
     just before and read just after; each kernel in ``expect`` must have
     launched."""
     from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
@@ -517,14 +692,14 @@ def serve(cfg, rng, label: str, expect):
         fn.launches = 0
     detections = {}
     for wire, server in servers.items():
-        for n in (1, 3, 16):
+        for n in SERVE_REQUESTS[wire]:
             req = images[:n] if wire == "f32" else np.round(
                 images[:n] * 255).astype(np.uint8)
             out = server(req)
             detections[f"{wire}_{n}"] = check_outputs(out, n, cfg)
     launches = {name: fn.launches for name, fn in wrappers.items()}
-    log(f"{label} Predictor answered 1/3/16-image requests on f32 and u8 "
-        f"wires; valid detections {detections}; kernel launches {launches}")
+    log(f"{label} Predictor answered {SERVE_REQUESTS} requests; valid "
+        f"detections {detections}; kernel launches {launches}")
     for name in expect:
         require(launches[name] > 0, f"the {label} path never launched {name}")
     # with random heads every class may score under score_thresh: the
@@ -616,6 +791,317 @@ def f32_parity(cfg, rng, label: str):
     return {"head_rel_err": head_err, "det_agree": frac}
 
 
+# ------------------------------------------------------------ train paths
+def train_batch(rng, cfg, b: int, wire: str = "u8"):
+    """A synthetic padded batch from the seed: ``b`` images, 1..8 boxes each
+    of 32..300 px inside the image, padded to ``cfg.max_gt_boxes``."""
+    h, w = cfg.input_size
+    g = cfg.max_gt_boxes
+    image = rng.randint(0, 256, size=(b, h, w, 3)).astype(np.uint8)
+    if wire == "f32":
+        image = image.astype(np.float32) / np.float32(255.0)
+    side = rng.uniform(32.0, 300.0, size=(b, g, 2))
+    xy = rng.rand(b, g, 2) * (np.array([w, h]) - side)
+    boxes = np.concatenate([xy, xy + side], -1).astype(np.float32)
+    valid = np.arange(g)[None, :] < rng.randint(1, 9, size=(b, 1))
+    boxes[~valid] = 0.0
+    labels = rng.randint(0, cfg.num_classes, size=(b, g)).astype(np.int64)
+    return {"image": image, "boxes": boxes, "labels": labels, "valid": valid}
+
+
+def snapshot(model):
+    params = [p.detach().clone() for p in model.parameters()]
+    stats = [b.detach().clone() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    return params, stats
+
+
+def n_changed(model, snap):
+    params, stats = snap
+    now_p, now_s = snapshot(model)
+    return (sum(int(not torch.equal(a, b)) for a, b in zip(params, now_p)),
+            sum(int(not torch.equal(a, b)) for a, b in zip(stats, now_s)))
+
+
+def train(cfg, rng, label: str, expect):
+    """A train path: ``create_train_state`` and four ``train_step``
+    micro-steps on ``cfg`` at batch 16 with ``grad_accum_steps=2`` (two
+    optimiser updates), u8 images, random sampling from a generator, with
+    every launch counter set to 0 just before and read just after."""
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state, train_step)
+    cfg = cfg.replace(grad_accum_steps=2)
+    model, state = create_train_state(cfg, seed=0, steps_per_epoch=8)
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    batches = [train_batch(rng, cfg, 16) for _ in range(4)]
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, changed = [], [], []
+    for batch in batches:
+        snap = snapshot(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = train_step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+        changed.append(n_changed(model, snap))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"{label} train: 4 micro-steps at b=16, grad_accum_steps=2: "
+        f"{state.updates} updates; step ms {[round(t, 1) for t in step_ms]}; "
+        f"peak memory {peak / 1e9:.2f} GB; kernel launches {launches}")
+    for i, (ls, (n_p, n_s)) in enumerate(zip(losses, changed)):
+        log(f"  micro-step {i}: " + ", ".join(f"{k} {v:.4f}" for k, v in ls.items())
+            + f"; {n_p} parameters and {n_s} running statistics changed")
+        require(all(np.isfinite(v) for v in ls.values()),
+                f"{label} train: a loss of micro-step {i} is not finite")
+        require(n_s > 0, f"{label} train: micro-step {i} moved no running "
+                "statistic")
+        require((n_p > 0) == (i % 2 == 1), f"{label} train: parameters "
+                f"{'did not move' if i % 2 else 'moved'} at micro-step {i}")
+    require(state.updates == 2 and state.step == 4, "wrong update count")
+    require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            f"{label} train: a parameter is not finite after two updates")
+    for name in expect:
+        require(launches[name] > 0, f"the {label} train path never launched "
+                f"{name}")
+    # steps 2 and 3 run on a warm allocator and warm cuDNN plans
+    perf = {"step_ms": step_ms, "warm_step_ms": float(np.mean(step_ms[2:])),
+            "warm_img_per_s": 16e3 / float(np.mean(step_ms[2:])),
+            "peak_mem_gb": peak / 1e9, "losses": losses,
+            "stages_ms": train_stage_times(state, batches[0])}
+    log(f"{label} train b=16: {perf['warm_step_ms']:.1f} ms a micro-step "
+        f"(mean of the last two, host clock around a synchronised step) = "
+        f"{perf['warm_img_per_s']:.1f} img/s")
+    log(f"{label} train b=16 by stage, each timed alone (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in perf["stages_ms"].items()))
+    return launches, perf
+
+
+def train_stage_times(state, batch):
+    """Device time of the pieces of one b=16 train micro-step, each run
+    alone on the previous piece's outputs (train-mode batch norm, first-k
+    sampling): the forward pieces without a graph, then the whole
+    ``train_forward`` with its graph plus the backward pass, and one AdamW
+    update on the gradients that leaves."""
+    from two_stage_object_detection_tpu_torch.nets.targets import (
+        anchor_target, proposal_target)
+    model, cfg = state.model, state.cfg
+    b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+    x = b["image"].float() / 255.0
+    img = tuple(x.shape[1:3])
+    model.set_mode(True)
+    with torch.no_grad():
+        feats = model.features(x)
+        rpn = model.rpn_head(feats)
+        rois, _, roi_valid = model.proposals(*rpn, img, 1.0, True)
+        sample_roi = proposal_target(rois, roi_valid, b["boxes"], b["valid"],
+                                     b["labels"], n_sample=cfg.roi_n_sample)[0]
+        head = ((lambda: model.roi_head(feats, sample_roi, img, use_window=False))
+                if cfg.fpn else (lambda: model.roi_head(feats, sample_roi, img)))
+        t = {"backbone_neck": cuda_time_ms(lambda: model.features(x), 5),
+             "rpn_head": cuda_time_ms(lambda: model.rpn_head(feats), 5),
+             "proposals": cuda_time_ms(
+                 lambda: model.proposals(*rpn, img, 1.0, True), 5),
+             "anchor_target": cuda_time_ms(lambda: anchor_target(
+                 model.anchors, b["boxes"], b["valid"],
+                 n_sample=cfg.rpn_n_sample), 5),
+             "proposal_target": cuda_time_ms(lambda: proposal_target(
+                 rois, roi_valid, b["boxes"], b["valid"], b["labels"],
+                 n_sample=cfg.roi_n_sample), 5),
+             "roi_head": cuda_time_ms(head, 5)}
+
+    def forward_backward():
+        model.zero_grad(set_to_none=True)
+        model.train_forward(x, b["boxes"], b["labels"],
+                            b["valid"])["losses"]["total"].backward()
+
+    t["forward_backward"] = cuda_time_ms(forward_backward, 3, warmup=1)
+    t["adamw_update"] = cuda_time_ms(state.optimizer.step, 3, warmup=1)
+    model.zero_grad(set_to_none=True)
+    return t
+
+
+def grads_of(model, batch):
+    model.zero_grad(set_to_none=True)
+    b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+    out = model.train_forward(b["image"], b["boxes"], b["labels"], b["valid"])
+    out["losses"]["total"].backward()
+    return ({k: float(v.detach()) for k, v in out["losses"].items()},
+            {n: p.grad for n, p in model.named_parameters()})
+
+
+RELU_MARGIN = 1e-4
+
+
+def relu_sites(model):
+    """The box head's layers whose outputs go through a ReLU (the flagship's
+    fc1 and fc2; the single-scale head has none)."""
+    return [m for n, m in model.roi_head.named_children() if n in ("fc1", "fc2")]
+
+
+@torch.no_grad()
+def settle_relus(model, batch):
+    """One train-mode forward that shifts, feature by feature, the bias of
+    every layer of ``relu_sites`` until none of its outputs lies within
+    ``RELU_MARGIN`` of 0, the ReLU's threshold.  Returns how many features it
+    shifted."""
+    moved = [0]
+
+    def clear(layer, _, out):
+        v = out.reshape(-1, out.shape[-1]).double()
+        shift = torch.zeros(v.shape[1], dtype=v.dtype, device=v.device)
+        todo = v.abs().amin(0) < RELU_MARGIN
+        moved[0] += int(todo.sum())
+        k = 0
+        while bool(todo.any()):
+            k += 1
+            require(k < 1000, "no shift clears a ReLU's threshold")
+            for step in (0.5 * k * RELU_MARGIN, -0.5 * k * RELU_MARGIN):
+                cand = torch.where(todo, torch.full_like(shift, step), shift)
+                found = todo & ((v + cand).abs().amin(0) >= RELU_MARGIN)
+                shift = torch.where(found, cand, shift)
+                todo = todo & ~found
+        layer.bias.add_(shift.to(layer.bias.dtype))
+        return out + shift.to(out.dtype)
+
+    hooks = [m.register_forward_hook(clear) for m in relu_sites(model)]
+    b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+    model.train_forward(b["image"], b["boxes"], b["labels"], b["valid"])
+    for h in hooks:
+        h.remove()
+    return moved[0]
+
+
+def grads_and_masks(model, batch):
+    """``grads_of`` plus, for each layer of ``relu_sites``, which of its
+    outputs were above 0."""
+    masks = []
+    hooks = [m.register_forward_hook(lambda _m, _i, out: masks.append(out > 0))
+             for m in relu_sites(model)]
+    losses, grads = grads_of(model, batch)
+    for h in hooks:
+        h.remove()
+    return losses, grads, masks
+
+
+def train_parity(cfg, rng, label: str):
+    """One float32 ``train_forward`` + backward at b=2, TF32 off, through
+    the kernels and with pallas="off" (the plain versions), same weights,
+    batch and first-k sampling: the losses within 1e-6 (of the loss where it
+    is above 1: one f32 ulp of a loss of 9 is 9.5e-7), every gradient leaf
+    within 1e-4 of the leaf's largest magnitude plus 1e-4 of the model's
+    largest gradient magnitude.  The second term is the floor for leaves
+    whose gradient is a sum that cancels: one whose true gradient is zero
+    and whose computed one is f32 rounding noise (a batch-norm bias that
+    only feeds 1x1 convs followed by train-mode batch norm, which removes
+    any constant shift), or a PReLU slope, one number a thousandth of the
+    model's largest gradient.
+
+    The two forward passes are bit-equal on the single scale (kernels 3 and
+    5 equal their plain versions; only kernel 6's atomic adds reorder sums
+    in the backward pass).  The flagship's kernel 2 differs from its plain
+    version by f32 summation order (7e-7), so a ReLU unit of fc1 or fc2
+    whose input lies that close to 0 can take another side, a step in the
+    gradients.  The comparison is therefore made twice: on the seed's
+    weights as they come, where the units that differ are counted and the
+    worst leaf is printed and held to nothing, and on weights whose fc
+    biases ``settle_relus`` has moved off the threshold, where the ReLU
+    masks must be equal and the leaves within the tolerance."""
+    from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
+    torch.backends.cudnn.deterministic = True
+    c32 = cfg.replace(compute_dtype="float32")
+    batch = train_batch(rng, c32, 2, wire="f32")
+    on = FasterRCNN(c32, seed=1)
+    off = FasterRCNN(c32.replace(pallas="off"), seed=1)
+    result = {}
+    for weights in ("seeded", "settled") if relu_sites(off) else ("seeded",):
+        if weights == "settled":
+            result["features_shifted"] = settle_relus(off, batch)
+            on.load_state_dict(off.state_dict())
+        l_on, g_on, m_on = grads_and_masks(on, batch)
+        l_off, g_off, m_off = grads_and_masks(off, batch)
+        flips = sum(int((a != b).sum()) for a, b in zip(m_on, m_off))
+        units = sum(a.numel() for a in m_on)
+        loss_err = max(abs(l_on[k] - l_off[k]) / max(1.0, abs(l_off[k]))
+                       for k in l_on)
+        for name, g in g_off.items():
+            require(g is not None and g_on[name] is not None,
+                    f"{label}: {name} got no gradient")
+        top = max(float(g.abs().max()) for g in g_off.values())
+        ratios = []
+        for name, g in g_off.items():
+            err = float((g_on[name] - g).abs().max())
+            leaf = float(g.abs().max())
+            ratios.append((err / (1e-4 * leaf + 1e-4 * top),
+                           err / max(leaf, 1e-30), name))
+        ratios.sort(reverse=True)
+        worst, _, where = ratios[0]
+        log(f"{label} f32 (TF32 off) train_forward + backward, kernels on vs "
+            f"off, b=2, {weights} weights: losses {l_on}; max |loss diff| "
+            f"{loss_err:.2e} (tolerance 1e-6 * max(1, |loss|)); {flips} of "
+            f"{units} ReLU units of the box head differ; worst gradient leaf "
+            f"{where} at {worst:.3f} of its tolerance (1e-4 of the leaf's "
+            f"largest magnitude + 1e-4 of the model's, {top:.3e}); "
+            f"{len(g_off)} leaves; the three worst (share of tolerance, "
+            "share of leaf): "
+            + ", ".join(f"{n} {a:.3f} {b:.2e}" for a, b, n in ratios[:3]))
+        require(loss_err <= 1e-6, f"{label}: f32 losses differ by {loss_err}")
+        result[weights] = {"loss_err": loss_err, "grad_err_over_tol": worst,
+                           "relu_flips": flips, "relu_units": units}
+    torch.backends.cudnn.deterministic = False
+    require(flips == 0, f"{label}: {flips} ReLU units differ on {weights} "
+            "weights")
+    require(worst <= 1.0, f"{label}: f32 gradient {where} is at {worst} of "
+            "its tolerance")
+    return result
+
+
+def train_modes(cfg, rng):
+    """Two micro-steps at b=2 on each plain backward route of the
+    single-scale RoI head, to show that it runs on the card: finite losses
+    and parameters.  These are side routes at a small batch: their launches
+    are printed here and do not enter the kernels line.  The first step of a
+    route pays its one-time costs (cuDNN plans for the new batch size, the
+    first call of its operators); the second is the route's own time."""
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state, train_step)
+    times, launched = {}, {}
+    for mode in ("xla", "structured"):
+        c = cfg.replace(grad_accum_steps=2, roi_bwd=mode)
+        model, state = create_train_state(c, seed=0)
+        batch = train_batch(rng, c, 2)
+        wrappers = counters()
+        for fn in wrappers.values():
+            fn.launches = 0
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses = train_step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            require(bool(torch.isfinite(losses["total"])),
+                    f"train roi_bwd={mode}: the loss is not finite")
+        require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+                f"train roi_bwd={mode}: a parameter is not finite after the "
+                "update")
+        launched[mode] = {n: f.launches for n, f in wrappers.items()
+                          if f.launches}
+        require("roi_pool_bwd_recompute" not in launched[mode]
+                and "roi_pool_bwd_scatter" not in launched[mode],
+                f"roi_bwd={mode} launched a backward kernel")
+        log(f"single-scale train roi_bwd={mode} b=2 (a side route, not in "
+            f"the kernels line): two micro-steps in {ms[0]:.0f} and "
+            f"{ms[1]:.0f} ms, total loss {float(losses['total']):.4f}, "
+            f"launches {launched[mode]}")
+        times[mode] = ms
+    return launched, times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the measured numbers here")
@@ -645,7 +1131,9 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     kernels = [check_nms(rng, dev), check_align(rng, dev),
-               *check_fused(rng, dev), check_roi_pool(rng, dev)]
+               *check_fused(rng, dev)]
+    pool_row, pool_values_only = check_roi_pool(rng, dev)
+    kernels += [pool_row, *check_roi_pool_bwd(rng, dev)]
     torch.cuda.empty_cache()
 
     paths = {"flagship": (Config(fpn=True, backbone="resnet50",
@@ -662,6 +1150,27 @@ def main() -> int:
         parity[label] = f32_parity(cfg, rng, label)
         torch.cuda.empty_cache()
 
+    # three train paths at full width: the scatter kernel is the backward
+    # of the single scale's other kernel route, pallas_roi=True
+    train_paths = {
+        "flagship": (paths["flagship"][0], ("greedy_nms", "windowed_align")),
+        "single-scale": (Config(roi_bwd="pallas"), (
+            "fused_proposals_batched", "roi_pool_max",
+            "roi_pool_bwd_recompute")),
+        "single-scale pallas_roi": (Config(pallas_roi=True), (
+            "fused_proposals_batched", "roi_pool_max",
+            "roi_pool_bwd_scatter"))}
+    train_perf, train_par = {}, {}
+    for label, (cfg, expect) in train_paths.items():
+        counts, train_perf[label] = train(cfg, rng, label, expect)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        torch.cuda.empty_cache()
+        train_par[label] = train_parity(cfg, rng, label)
+        torch.cuda.empty_cache()
+    mode_launches, mode_ms = train_modes(Config(), rng)
+    torch.cuda.empty_cache()
+
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -672,7 +1181,11 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump({"card": smi, "torch": torch.__version__,
                        "cuda": torch.version.cuda, **line, "predict": perf,
-                       "detections": detections, "f32_parity": parity}, f,
+                       "detections": detections, "f32_parity": parity,
+                       "train": train_perf, "train_f32_parity": train_par,
+                       "train_modes_ms": mode_ms,
+                       "train_modes_launches": mode_launches,
+                       "roi_pool_max_values_only": pool_values_only}, f,
                       indent=1)
     log(smi)
     log(json.dumps(line))

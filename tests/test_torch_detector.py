@@ -108,11 +108,16 @@ def test_predictor_rejects_bad_requests(carried):
 
 def test_unported_routes_raise(carried):
     """What the port does not do yet raises and names it: the single-scale
-    ``align`` / ``mean`` RoI pooling and the yuv420 wire."""
+    ``align`` / ``mean`` RoI pooling, the dense FPN route
+    (``fpn_roi_window=0``) and the yuv420 wire.  (``device_augment``:
+    ``tests/test_torch_train.py``.)"""
     for mode in ("align", "mean"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FasterRCNN(Config(**{**KW, "fpn": False, "backbone": "hardnet39",
                                  "roi_pool_mode": mode}), device="cpu")
     _, _, pred = carried
+    dense = FasterRCNN(Config(**{**KW, "fpn_roi_window": 0}), device="cpu")
+    with pytest.raises(NotImplementedError, match="fpn_roi_window=0"):
+        dense.predict(torch.zeros((1, 64, 64, 3)))
     with pytest.raises(ValueError, match="yuv420 is not ported"):
         Predictor(pred.cfg, pred.model, wire="yuv420")

@@ -1,5 +1,5 @@
-"""PyTorch port, the CUDA kernels (1, 2, 3/4, 5) against their plain
-PyTorch versions.
+"""PyTorch port, the CUDA kernels (1, 2, 3/4, 5, 5's scatter backward, 6)
+against their plain PyTorch versions.
 
 These need an NVIDIA GPU and ``nvcc`` (the kernels build from
 ``two_stage_object_detection_tpu_torch/csrc`` at first use); without a GPU
@@ -10,7 +10,8 @@ they skip.  Run them on the GPU machine with
 (``--noconftest``: the suite's conftest sets up JAX, which that machine
 need not have; this file imports nothing of JAX.)
 
-``chip_smoke.py`` repeats these checks at the predict path's full shapes.
+``chip_smoke.py`` repeats these checks at the full shapes of the predict
+and train paths.
 """
 
 import numpy as np
@@ -23,8 +24,12 @@ from two_stage_object_detection_tpu_torch.ops.proposals import (
     MAX_FUSED_ROWS, MAX_FUSED_SMEM_ROWS, fused_proposals,
     fused_proposals_batched, fused_proposals_rows_reference, greedy_nms,
     greedy_nms_rows_reference, proposals_batched)
-from two_stage_object_detection_tpu_torch.ops.roi_pool import roi_pool_argmax
-from two_stage_object_detection_tpu_torch.ops.roi_pool_max import roi_pool_max
+from two_stage_object_detection_tpu_torch.ops.roi_pool import (
+    roi_pool_argmax, roi_pool_grad_first_argmax, scatter_argmax_grad)
+from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
+    roi_pool_bwd_recompute, roi_pool_fast)
+from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
+    roi_pool_bwd_scatter, roi_pool_max)
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     windowed_roi_align_batched)
 
@@ -213,3 +218,90 @@ def test_roi_pool_kernel_rejects_bad_input(dev):
     with pytest.raises(ValueError, match="f32 or bf16"):
         roi_pool_max(torch.zeros((1, 4, 4, 8), device=dev, dtype=torch.float16),
                      rois)
+
+
+def _pool_case(rng, dev, dtype, c):
+    """A ReLU-like map (half zeros, coarse values, a tied patch), rois with
+    one off the map and one with empty first bins, and a cotangent whose
+    third roi is all zero."""
+    feats = torch.from_numpy((np.maximum(rng.randint(-8, 8, size=(2, 12, 10, c)),
+                                         0) / 4.0).astype(np.float32))
+    feats[:, 2:7, 1:6] = 0.75
+    xy = rng.rand(2, 30, 2) * np.array([160, 192]) * 1.1 - 16
+    rois = np.concatenate([xy, xy + rng.rand(2, 30, 2) * 120 + 2], -1)
+    rois[:, 0] = [-400, -300, -200, -100]
+    rois[:, 1] = [-40, 16, 24, 80]
+    g = rng.randn(2, 30, 7, 7, c).astype(np.float32)
+    g[:, 2] = 0.0
+    return (feats.to(dev, dtype), torch.from_numpy(rois.astype(np.float32)).to(dev),
+            torch.from_numpy(g).to(dev))
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 8), (torch.float32, 300),
+                                     (torch.bfloat16, 4), (torch.bfloat16, 512)])
+def test_roi_pool_bwd_kernel_matches_plain(rng, dev, dtype, c):
+    """Kernel 6 == its plain version up to the order of its atomic adds:
+    within 1e-5 of each cell's sum of |g| (plus one bf16 ulp of the result
+    from a bf16 map), ties and empty bins included; the result is in the
+    map's dtype; one launch is counted."""
+    feats, rois, g = _pool_case(rng, dev, dtype, c)
+    before = roi_pool_bwd_recompute.launches
+    got = roi_pool_bwd_recompute(feats, rois, g, 7, 1.0 / 16)
+    want = roi_pool_grad_first_argmax(feats, rois, g, 7, 1.0 / 16)
+    torch.cuda.synchronize()
+    assert roi_pool_bwd_recompute.launches == before + 1
+    assert got.dtype == want.dtype == dtype and got.shape == feats.shape
+    argmax = roi_pool_argmax(feats, rois, 7, 1.0 / 16)[1]
+    mass = scatter_argmax_grad(argmax, g.abs(), 12, 10)
+    tol = 1e-5 * mass + 1e-6
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.float().abs()
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert bool((want != 0).any())
+
+
+def test_roi_pool_backward_kernels_through_autograd(rng, dev):
+    """``roi_pool_fast`` (backward: kernel 6) and ``roi_pool_max`` (backward:
+    the scatter kernel over the saved argmax) give the gradient of the
+    plain versions, and each counts its launch."""
+    feats, rois, g = _pool_case(rng, dev, torch.float32, 16)
+    want = roi_pool_grad_first_argmax(feats, rois, g, 7, 1.0 / 16)
+    counts = (roi_pool_bwd_recompute.launches, roi_pool_bwd_scatter.launches)
+    f = feats.clone().requires_grad_(True)
+    (roi_pool_fast(f, rois, 7, 1.0 / 16) * g).sum().backward()
+    assert roi_pool_bwd_recompute.launches == counts[0] + 1
+    torch.testing.assert_close(f.grad, want, rtol=0, atol=1e-4)
+    f = feats.clone().requires_grad_(True)
+    pooled, argmax = roi_pool_max(f, rois, 7, 1.0 / 16)
+    (pooled * g).sum().backward()
+    torch.cuda.synchronize()
+    assert roi_pool_bwd_scatter.launches == counts[1] + 1
+    torch.testing.assert_close(f.grad, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(roi_pool_bwd_scatter(argmax, g, 12, 10),
+                               scatter_argmax_grad(argmax, g, 12, 10),
+                               rtol=0, atol=1e-4)
+
+
+def test_roi_pool_kernel_skips_the_index_store(rng, dev):
+    """Without a backward to follow, kernel 5 gets no index buffer: the
+    values are the same and no index comes back."""
+    feats, rois, _ = _pool_case(rng, dev, torch.bfloat16, 32)
+    both = roi_pool_max(feats, rois, 7, 1.0 / 16)
+    with torch.inference_mode():
+        values, none = roi_pool_max(feats, rois, 7, 1.0 / 16, with_argmax=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(values, both[0])
+
+
+def test_roi_pool_bwd_kernels_reject_bad_input(dev):
+    rois = torch.zeros((1, 2, 4), device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        roi_pool_bwd_recompute(torch.zeros((1, 4, 4, 6), device=dev), rois,
+                               torch.zeros((1, 2, 7, 7, 6), device=dev))
+    with pytest.raises(ValueError, match="g must have shape"):
+        roi_pool_bwd_recompute(torch.zeros((1, 4, 4, 8), device=dev), rois,
+                               torch.zeros((1, 2, 5, 5, 8), device=dev))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        roi_pool_bwd_scatter(torch.zeros((1, 2, 7, 7, 6), device=dev,
+                                         dtype=torch.int32),
+                             torch.zeros((1, 2, 7, 7, 6), device=dev), 4, 4)

@@ -176,7 +176,9 @@ def test_levels_match_flax(rng):
 
 def test_fpn_roi_head_matches_flax(rng):
     """Windowed predict route: level assignment with span-aware bumps,
-    windowed RoIAlign, fc1 over (p, q, c), fc2, cls_loc/score: <= 1e-4."""
+    windowed RoIAlign, fc1 over (p, q, c), fc2, cls_loc/score: <= 1e-4.
+    The hybrid train route (``use_window=False``) has the same forward; the
+    dense route (``window=0``) still raises."""
     c, img = 16, (64, 64)
     pyr = [rng.rand(2, s, s, c).astype(np.float32) for s in (16, 8, 4, 2, 1)]
     x1 = rng.rand(2, 10, 2) * 40
@@ -191,6 +193,10 @@ def test_fpn_roi_head_matches_flax(rng):
         gl, gs = thead([T(p).permute(0, 3, 1, 2) for p in pyr], T(rois), img)
     np.testing.assert_allclose(gl.numpy(), np.asarray(wl), atol=1e-4)
     np.testing.assert_allclose(gs.numpy(), np.asarray(ws), atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        thead([T(p).permute(0, 3, 1, 2) for p in pyr], T(rois), img,
-              use_window=False)
+    with torch.no_grad():
+        hl, hs = thead([T(p).permute(0, 3, 1, 2) for p in pyr], T(rois), img,
+                       use_window=False)
+    assert torch.equal(hl, gl) and torch.equal(hs, gs)
+    with pytest.raises(NotImplementedError, match="fpn_roi_window=0"):
+        tfpn.FPNRoIHead(4, channels=c, fc_dim=32, window=0)(
+            [T(p).permute(0, 3, 1, 2) for p in pyr], T(rois), img)

@@ -7,10 +7,12 @@ each Pallas TPU kernel on the ported path is a hand-written CUDA kernel
 (``csrc/``) with a plain PyTorch version beside it.  This package never
 imports JAX or the JAX package.
 
-Ported so far: ``predict`` (``nets/detector.py``) of the FPN-ResNet
-flagship and of the single-scale HarDNet detector of the default
-``Config()``, behind a ``Predictor`` (``serving.py``); see ROADMAP.md for
-the rest.
+Ported so far, for the FPN-ResNet flagship and the single-scale HarDNet
+detector of the default ``Config()``: ``predict`` (``nets/detector.py``)
+behind a ``Predictor`` (``serving.py``), and the train step
+(``train_forward``, targets, losses, and the trainer of ``nets/trainer.py``:
+AdamW, cosine schedule, gradient accumulation).  See ROADMAP.md for the
+rest.
 """
 
 __version__ = "0.1.0"

@@ -16,7 +16,8 @@
 // bf16 maps are read as they are; the upcast to f32 is exact.  Each thread
 // takes 4 neighbouring channels (C must be a multiple of 4): one 8-byte
 // (bf16) or 16-byte (f32) load a pixel, one 16-byte store of values and one
-// of indices a bin.
+// of indices a bin.  With a null `argmax` (a forward that no backward
+// will follow) the indices are not stored: half the bytes.
 //
 // What bounds it on the H100: bytes.  The outputs are f32 + int32 per
 // (roi, bin, channel): 963 MB at B=16, R=300, P=7, C=512, against a 23.6 MB
@@ -51,7 +52,7 @@ __device__ __forceinline__ void bin_range(int lo, int hi, int p, int pooled,
   *end = (int)min(max(e, 0ll), (long long)limit);
 }
 
-template <typename T>
+template <typename T, bool kWithArgmax>
 __global__ void __launch_bounds__(kThreads)
 roi_pool_kernel(const T* __restrict__ feats, const float4* __restrict__ rois,
                 int h, int w, int c, int r, int pooled, float scale,
@@ -90,8 +91,10 @@ roi_pool_kernel(const T* __restrict__ feats, const float4* __restrict__ rois,
         }
         *reinterpret_cast<float4*>(out + o + ch) =
             make_float4(best[0], best[1], best[2], best[3]);
-        *reinterpret_cast<int4*>(argmax + o + ch) =
-            make_int4(idx[0], idx[1], idx[2], idx[3]);
+        if (kWithArgmax) {
+          *reinterpret_cast<int4*>(argmax + o + ch) =
+              make_int4(idx[0], idx[1], idx[2], idx[3]);
+        }
       }
     }
   }
@@ -110,13 +113,21 @@ extern "C" int roi_pool_launch(const void* feats, const void* rois, void* out,
   int* a = static_cast<int*>(argmax);
   // the wrapper hands 16-byte-aligned tensors with C % 4 == 0, so every
   // pixel and every output row starts 16-byte (f32) or 8-byte (bf16) aligned
-  if (dtype == 0) {
-    roi_pool_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(feats), b, h, w, c, r, pooled, scale, o, a);
+  const float* f32 = static_cast<const float*>(feats);
+  const __nv_bfloat16* bf16 = static_cast<const __nv_bfloat16*>(feats);
+  // four instantiations: the map's type, and with or without the index store
+  if (dtype == 0 && a != nullptr) {
+    roi_pool_kernel<float, true><<<grid, kThreads, 0, s>>>(
+        f32, b, h, w, c, r, pooled, scale, o, a);
+  } else if (dtype == 0) {
+    roi_pool_kernel<float, false><<<grid, kThreads, 0, s>>>(
+        f32, b, h, w, c, r, pooled, scale, o, a);
+  } else if (a != nullptr) {
+    roi_pool_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, s>>>(
+        bf16, b, h, w, c, r, pooled, scale, o, a);
   } else {
-    roi_pool_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(feats), b, h, w, c, r, pooled,
-        scale, o, a);
+    roi_pool_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, s>>>(
+        bf16, b, h, w, c, r, pooled, scale, o, a);
   }
   return (int)cudaGetLastError();
 }

@@ -6,15 +6,19 @@ at stride 1 and a stride-2+2 tail, which gives a stride-16 512-channel map:
 600x600 -> 38x38x512) and the strided ``s`` variants (true stride-2 downs,
 a stride-1 tail, and optional FPN taps at strides 4/8/16/32).
 
-Numerics follow flax: explicit symmetric ``k // 2`` padding, inference-mode
-batch norm with ``eps=1e-5``, ReLU6 after each ``ConvLayer``.  The tail is
+Numerics follow flax: explicit symmetric ``k // 2`` padding, batch norm
+with ``eps=1e-5`` (batch statistics in train mode, running ones in eval
+mode), ReLU6 after each ``ConvLayer``.  The tail is
 two depth-wise 3x3 convs **with bias** and no batch norm (a ReLU between
 them) and a grouped 1x1 conv (``groups=512``) to 512 channels.  Submodules
 carry the flax names (``stem0..2``, ``block{i}.layer{t}.layer1/.layer2``,
 ``transition{i}``, ``down{i}``, ``tail0..2``, ``pyr_down``; ``conv``,
 ``dwconv``, ``norm``), so ``utils/jax_weights.py`` maps them by rule.
 
-Left out, as train-only: ``remat`` and arch 85's ``Dropout``.  Only the
+Train mode is the module's own (``.train()`` / ``.eval()``).  ``remat``
+recomputes each ``HarDBlock`` in the backward pass instead of keeping its
+layers' activations (``torch.utils.checkpoint``); arch 85 drops 10% of its
+last block's output in train mode, from an explicit generator.  Only the
 depth-wise form (``depth_wise=True``) is built: it is the only one the
 backbone registry of either package constructs.
 """
@@ -26,8 +30,10 @@ from typing import List, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from two_stage_object_detection_tpu_torch.models.layers import BatchNorm, Conv
+from two_stage_object_detection_tpu_torch.models.layers import (
+    BatchNorm, Conv, frozen_running_stats)
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
@@ -161,16 +167,21 @@ class HarDNetFeatureExtraction(nn.Module):
     ``strided=True`` makes the first two downs stride 2 and the tail stride
     1; ``pyramid=True`` (strided only) returns the taps ``(C2, C3, C4, C5)``
     at strides 4/8/16/32, C5 being one more depth-wise stride-2 step
-    (``pyr_down``).  Input and outputs are NCHW.
+    (``pyr_down``).  ``remat=True`` rematerialises every block in the
+    backward pass.  Input and outputs are NCHW.
     """
 
+    DROPOUT = 0.1       # arch 85, after its last block, train mode only
+
     def __init__(self, arch: int = 39, dtype=torch.float32,
-                 strided: bool = False, pyramid: bool = False):
+                 strided: bool = False, pyramid: bool = False,
+                 remat: bool = False):
         super().__init__()
         if pyramid and not strided:
             raise ValueError("pyramid taps require the strided variant")
         first_ch, ch_list, grmul, gr, n_layers, down_samp = _ARCH[arch]
         self.arch, self.strided, self.pyramid = arch, strided, pyramid
+        self.remat = remat
         self.stem0 = ConvLayer(3, first_ch[0], 3, 2, dtype)
         self.stem1 = ConvLayer(first_ch[0], first_ch[1], 1, dtype=dtype)
         self.stem2 = DWConvLayer(first_ch[1], 2, dtype)
@@ -203,12 +214,39 @@ class HarDNetFeatureExtraction(nn.Module):
             self.out_channels = (*(ch_list[i] for i in self.tap_after), 512, 512)
         else:
             self.out_channels = 512
+        # built in eval mode, as the flax module defaults to ``train=False``
+        self.eval()
 
-    def forward(self, x: torch.Tensor):
+    def _block(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        blk = getattr(self, f"block{i}")
+        if not (self.remat and torch.is_grad_enabled()):
+            return blk(x)
+        calls = []
+
+        def run(inp):
+            # the backward pass calls this a second time: same values, and
+            # the running statistics have already moved
+            calls.append(None)
+            if len(calls) == 1:
+                return blk(inp)
+            with frozen_running_stats(blk):
+                return blk(inp)
+
+        return checkpoint(run, x, use_reentrant=False)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator = None):
         x = self.stem2(self.stem1(self.stem0(x)))
         taps = []
         for i in range(self.n_blocks):
-            x = getattr(self, f"transition{i}")(getattr(self, f"block{i}")(x))
+            x = self._block(i, x)
+            if i == self.n_blocks - 1 and self.arch == 85 and self.training:
+                if generator is None:
+                    u = torch.rand_like(x, dtype=torch.float32)
+                else:
+                    u = torch.rand(x.shape, generator=generator,
+                                   device=generator.device).to(x.device)
+                x = x * (u >= self.DROPOUT).to(x.dtype) / (1.0 - self.DROPOUT)
+            x = getattr(self, f"transition{i}")(x)
             if i in self.tap_after:
                 taps.append(x)
             if hasattr(self, f"down{i}"):

@@ -11,6 +11,7 @@ draws from an explicit ``torch.Generator`` (:func:`init_weights`).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -71,22 +72,61 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode batch norm over NCHW channels:
-    ``(x - mean) / sqrt(var + 1e-5) * weight + bias``, computed in float32
-    and returned in the input's dtype, as flax's ``BatchNorm`` with
-    ``use_running_average=True`` does."""
+    """Batch norm over NCHW channels with flax's numerics:
+    ``(x - mean) / sqrt(var + 1e-5) * weight + bias``, statistics in
+    float32, the result in the input's dtype.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    In eval mode ``mean`` / ``var`` are the running statistics
+    (``use_running_average=True``).  In train mode they are the batch's, the
+    variance **biased** (divided by n), and the running statistics move as
+    flax's do: ``ra = 0.9 * ra + 0.1 * batch`` with the same biased
+    variance.  ``F.batch_norm`` normalises with the biased variance
+    but hands back the unbiased one, so it runs here on scratch statistics
+    (its ``momentum=1`` returns the batch's own) and the variance is scaled
+    back by ``(n - 1) / n`` before it enters the running average.
+    """
+
+    EPS, MOMENTUM = 1e-5, 0.9
+
+    def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
-        self.eps = eps
+        self.update_stats = True      # see frozen_running_stats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.EPS)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                           self.EPS)
+        if not self.update_stats:
+            return out
+        n = x.numel() // x.shape[1]
+        m = self.MOMENTUM
+        with torch.no_grad():
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
+        return out
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Train-mode :class:`BatchNorm` layers below ``module`` leave their
+    running statistics alone inside: for the second forward of a
+    rematerialised block, whose first forward has already moved them."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

@@ -19,11 +19,13 @@ _RESNETS = {
 }
 
 
-def build_backbone(name: str, dtype=torch.float32, pyramid: bool = False):
+def build_backbone(name: str, dtype=torch.float32, remat: bool = False,
+                   pyramid: bool = False):
     """Build a feature extractor by name, as the JAX package's registry does.
 
     ``hardnet39/68/85`` are the reference layout, ``hardnet39s/68s/85s`` the
-    strided variants.  ``pyramid=True`` gives the FPN taps (C2..C5) and a
+    strided variants.  ``remat`` rematerialises HarDBlock activations in the
+    backward pass (the resnets ignore it).  ``pyramid=True`` gives the FPN taps (C2..C5) and a
     per-tap channel tuple (resnets and the strided hardnets only);
     otherwise the stride-16 map (no resnet layer4).
     """
@@ -38,7 +40,7 @@ def build_backbone(name: str, dtype=torch.float32, pyramid: bool = False):
                 f"keeps all blocks at one spatial size (stride-1 quirk) — "
                 f"use hardnet{arch}s or a resnet backbone")
         mod = HarDNetFeatureExtraction(arch=arch, dtype=dtype, strided=strided,
-                                       pyramid=pyramid)
+                                       pyramid=pyramid, remat=remat)
         return mod, mod.out_channels
     if name not in _RESNETS:
         raise ValueError(f"unknown backbone {name!r}; expected hardnet39/68/85 "

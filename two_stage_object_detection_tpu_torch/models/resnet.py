@@ -2,7 +2,8 @@
 
 The counterparts of the JAX package's ``models/resnet.py``, with its
 numerics: one PReLU per block with a single scalar slope, shared by every
-activation of the block; inference-mode batch norm; flax's ``SAME``
+activation of the block; batch norm in the module's mode (batch statistics
+under ``.train()``, running ones under ``.eval()``); flax's ``SAME``
 padding, which for the 1x1 stride-2 shortcut convs pads nothing; a stem
 max pool that pads with -inf.  Submodules carry the flax names
 (``conv1``, ``bn1``, ``relu``, ``ds_conv``, ``ds_norm``, ``layer{i}_{j}``).
@@ -121,8 +122,12 @@ class ResNetFeatureExtraction(nn.Module):
             self.stages.append(names)
         self.out_channels = (tuple(c * exp for c in channels) if pyramid
                              else 256 * exp)
+        # built in eval mode, as the flax module defaults to ``train=False``
+        self.eval()
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator: torch.Generator = None):
+        """``generator`` is the backbones' common train-mode argument; this
+        one draws nothing."""
         x = self.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         taps = []

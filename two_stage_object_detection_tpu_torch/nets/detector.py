@@ -1,4 +1,4 @@
-"""FasterRCNN: the end-to-end detector (predict path).
+"""FasterRCNN: the end-to-end detector (``predict`` and ``train_forward``).
 
 The counterpart of the JAX package's ``nets/detector.py``, both branches:
 
@@ -16,10 +16,21 @@ class-offset NMS (:meth:`FasterRCNN.detect`).  ``predict`` takes
 scores [B, D], labels [B, D] (1-based), valid [B, D])`` with
 ``D = cfg.max_detections``, invalid slots zeroed.
 
-``train_forward`` is not ported yet.
+``train_forward`` takes a padded batch (images, ``gt_boxes [B, G, 4]``,
+``gt_labels [B, G]`` 0-based, ``gt_valid [B, G]``) and returns the four
+losses, their total and the trainer-parity predictions.  Proposals are cut
+from the graph (their inputs are detached), the RoI head pools the sampled
+rois on its train route (``Config.roi_bwd`` / ``pallas_roi`` for the
+single-scale head, the hybrid RoIAlign for the FPN head), and batch norm
+runs in the module's mode: :meth:`FasterRCNN.set_mode` puts the model in
+train or eval mode and keeps a ``freeze_bn`` trunk on its running
+statistics.  The model is built in eval mode; ``train_forward(train=True)``
+and ``predict`` set the mode they need.
 """
 
 from __future__ import annotations
+
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -30,8 +41,12 @@ from two_stage_object_detection_tpu_torch.models.layers import init_weights
 from two_stage_object_detection_tpu_torch.models.registry import build_backbone
 from two_stage_object_detection_tpu_torch.nets.fpn import (
     FPNNeck, FPNRoIHead, FPNRPNHead)
+from two_stage_object_detection_tpu_torch.nets.losses import (
+    fast_rcnn_loc_loss, softmax_cross_entropy_with_ignore)
 from two_stage_object_detection_tpu_torch.nets.roi_head import RoIHead
 from two_stage_object_detection_tpu_torch.nets.rpn import RPNHead
+from two_stage_object_detection_tpu_torch.nets.targets import (
+    anchor_target, proposal_target)
 from two_stage_object_detection_tpu_torch.ops.anchors import (
     make_anchors, make_fpn_anchors)
 from two_stage_object_detection_tpu_torch.ops.geometry import (
@@ -56,8 +71,8 @@ class FasterRCNN(nn.Module):
         self.cfg = cfg
         dev = resolve_device(cfg.device if device is None else device)
         dtype = compute_dtype(cfg)
-        self.extractor, feat_channels = build_backbone(cfg.backbone, dtype,
-                                                       pyramid=cfg.fpn)
+        self.extractor, feat_channels = build_backbone(
+            cfg.backbone, dtype, remat=cfg.remat_backbone, pyramid=cfg.fpn)
         n_class = cfg.num_classes + 1
         if cfg.fpn:
             self.neck = FPNNeck(feat_channels, cfg.fpn_channels, dtype)
@@ -76,7 +91,9 @@ class FasterRCNN(nn.Module):
             self.rpn_head = RPNHead(cfg.n_anchors_per_cell, feat_channels,
                                     dtype)
             self.roi_head = RoIHead(n_class, feat_channels, cfg.roi_size,
-                                    cfg.roi_pool_mode, use_kernels(cfg), dtype)
+                                    cfg.roi_pool_mode, use_kernels(cfg), dtype,
+                                    pallas_roi=cfg.pallas_roi,
+                                    roi_bwd=cfg.roi_bwd)
             anchors = make_anchors(cfg)
         self.register_buffer("anchors", torch.from_numpy(anchors),
                              persistent=False)
@@ -92,11 +109,22 @@ class FasterRCNN(nn.Module):
     def device(self) -> torch.device:
         return self.anchors.device
 
+    def set_mode(self, train: bool) -> "FasterRCNN":
+        """Train or eval mode (batch-norm statistics, dropout); with
+        ``cfg.freeze_bn`` the trunk stays on its running statistics while
+        its weights still train."""
+        self.train(train)
+        if train and self.cfg.freeze_bn:
+            self.extractor.eval()
+        return self
+
     # ----------------------------------------------------------------- parts
-    def features(self, images: torch.Tensor):
+    def features(self, images: torch.Tensor,
+                 generator: Optional[torch.Generator] = None):
         """Backbone (+ FPN neck) on ``[B, H, W, 3]`` images: the stride-16
-        map, or (P2..P6) with ``cfg.fpn``; NCHW."""
-        taps = self.extractor(images.permute(0, 3, 1, 2))
+        map, or (P2..P6) with ``cfg.fpn``; NCHW.  ``generator`` feeds the
+        train-mode dropout of HarDNet-85, the one backbone that has any."""
+        taps = self.extractor(images.permute(0, 3, 1, 2), generator)
         return self.neck(taps) if self.cfg.fpn else taps
 
     def _check_anchor_contract(self, n_locs: int):
@@ -108,21 +136,125 @@ class FasterRCNN(nn.Module):
                 f"{self.cfg.input_size} has {n_anchors}; pass images of "
                 f"cfg.input_size or construct the model with a matching Config")
 
-    def proposals(self, rpn_locs, rpn_scores, img_size, scale: float = 1.0):
-        """Predict-time proposals: ``(rois, scores, valid)``, each ``[B, n_post, ...]``."""
+    def proposals(self, rpn_locs, rpn_scores, img_size, scale: float = 1.0,
+                  train: bool = False):
+        """Proposals ``(rois, scores, valid)``, each ``[B, n_post, ...]``:
+        ``n_test_pre_nms`` / ``n_test_post_nms`` of them, or the ``n_train``
+        pair with ``train``."""
         cfg = self.cfg
         self._check_anchor_contract(rpn_locs.shape[1])
         fg = torch.softmax(rpn_scores, dim=-1)[..., 1]
         return proposals_batched(
             rpn_locs, fg, self.anchors, tuple(img_size),
-            nms_iou=cfg.rpn_nms_iou, n_post_nms=cfg.n_test_post_nms,
+            nms_iou=cfg.rpn_nms_iou,
+            n_post_nms=cfg.n_train_post_nms if train else cfg.n_test_post_nms,
             min_size=cfg.proposal_min_size * scale,
-            n_pre_nms=cfg.n_test_pre_nms, use_kernel=use_kernels(cfg))
+            n_pre_nms=cfg.n_train_pre_nms if train else cfg.n_test_pre_nms,
+            use_kernel=use_kernels(cfg))
+
+    # ----------------------------------------------------------------- train
+    def train_forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,
+                      gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                      scale: float = 1.0, train: bool = True,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, Any]:
+        """Losses + predictions for one (padded) batch.
+
+        Args:
+          images: ``[B, H, W, 3]`` float32 in [0, 1].
+          gt_boxes: ``[B, G, 4]`` xyxy, zero-padded; ``gt_valid``: ``[B, G]``.
+          gt_labels: ``[B, G]`` integer, 0-based foreground classes.
+          train: True for training (batch-statistics BN, 12000/600
+            proposals); False for evaluation through the same graph
+            (running-average BN, 3000/300 proposals, no statistics moved).
+          generator: draws the target samplers' random priorities; None
+            samples the first k in index order.
+
+        Returns a dict: ``losses`` (``rpn_loc``, ``rpn_cls``, ``roi_loc``,
+        ``roi_cls``, ``total``), the per-sample ``boxes_pred``,
+        ``classes_pred``, ``classes_score_pred``, ``pred_valid``, and the GT
+        (labels shifted so that background is 0).
+        """
+        cfg = self.cfg
+        self.set_mode(train)
+        img_size = tuple(images.shape[1:3])
+        feats = self.features(images, generator)
+        rpn_locs, rpn_scores = self.rpn_head(feats)
+        # proposals are samples, not a differentiable function: the RPN
+        # learns through its own losses below
+        rois, _, roi_valid = self.proposals(
+            rpn_locs.detach(), rpn_scores.detach(), img_size, scale, train)
+
+        gt_valid = gt_valid.to(torch.bool)
+        gt_rpn_loc, gt_rpn_label = anchor_target(
+            self.anchors, gt_boxes, gt_valid, n_sample=cfg.rpn_n_sample,
+            pos_iou_thresh=cfg.rpn_pos_iou_thresh,
+            neg_iou_thresh=cfg.rpn_neg_iou_thresh,
+            pos_ratio=cfg.rpn_pos_ratio, generator=generator)
+        rpn_loc_loss = fast_rcnn_loc_loss(rpn_locs, gt_rpn_loc, gt_rpn_label,
+                                          cfg.rpn_sigma).mean()
+        rpn_cls_loss = softmax_cross_entropy_with_ignore(
+            rpn_scores, gt_rpn_label).mean()
+
+        sample_roi, gt_roi_loc, gt_roi_label, sample_valid = proposal_target(
+            rois, roi_valid, gt_boxes, gt_valid, gt_labels,
+            n_sample=cfg.roi_n_sample, pos_ratio=cfg.roi_pos_ratio,
+            pos_iou_thresh=cfg.roi_pos_iou_thresh,
+            neg_iou_thresh_high=cfg.roi_neg_iou_thresh_high,
+            neg_iou_thresh_low=cfg.roi_neg_iou_thresh_low,
+            loc_std=cfg.loc_normalize_std if cfg.loc_normalize else None,
+            generator=generator)
+
+        if cfg.fpn:
+            # the hybrid route: windowed forward, dense backward
+            roi_cls_locs, roi_scores = self.roi_head(
+                feats, sample_roi, img_size, use_window=False)
+        else:
+            roi_cls_locs, roi_scores = self.roi_head(feats, sample_roi,
+                                                     img_size)
+        b, s = sample_roi.shape[:2]
+        locs4 = roi_cls_locs.reshape(b, s, -1, 4)
+        # the GT class's regression
+        roi_loc = torch.gather(
+            locs4, 2, gt_roi_label[..., None, None].expand(b, s, 1, 4))[:, :, 0]
+
+        # padding samples are ignored by the cross-entropy
+        ce_labels = torch.where(sample_valid, gt_roi_label, -1)
+        roi_loc_loss = fast_rcnn_loc_loss(
+            roi_loc, gt_roi_loc, torch.where(sample_valid, gt_roi_label, 0),
+            cfg.roi_sigma).mean()
+        roi_cls_loss = softmax_cross_entropy_with_ignore(
+            roi_scores, ce_labels).mean()
+        total = rpn_loc_loss + rpn_cls_loss + roi_loc_loss + roi_cls_loss
+
+        # trainer-parity predictions (un-normalised before the decode when
+        # the head trains against normalised targets)
+        dec_loc = roi_loc.detach()
+        if cfg.loc_normalize:
+            dec_loc = dec_loc * torch.tensor(cfg.loc_normalize_std,
+                                             dtype=dec_loc.dtype,
+                                             device=dec_loc.device)
+        probs = torch.softmax(roi_scores.detach(), dim=-1)
+        classes_score_pred, classes_pred = probs.max(dim=-1)
+        return {
+            "losses": {"rpn_loc": rpn_loc_loss, "rpn_cls": rpn_cls_loss,
+                       "roi_loc": roi_loc_loss, "roi_cls": roi_cls_loss,
+                       "total": total},
+            "boxes_pred": loc2bbox(sample_roi, dec_loc),        # [B, S, 4]
+            "classes_pred": classes_pred,
+            "classes_score_pred": classes_score_pred,
+            "pred_valid": sample_valid,
+            "gt_boxes": gt_boxes,
+            "gt_labels": gt_labels + 1,                         # bg = 0
+            "gt_valid": gt_valid,
+        }
 
     # --------------------------------------------------------------- predict
     @torch.inference_mode()
     def predict(self, images: torch.Tensor, scale: float = 1.0):
         """True inference: ``[B, H, W, 3] -> (boxes, scores, labels, valid)``."""
+        if self.training:
+            self.set_mode(False)
         return self.detect(self.features(images), tuple(images.shape[1:3]), scale)
 
     @torch.inference_mode()

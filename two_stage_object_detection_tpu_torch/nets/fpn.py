@@ -9,8 +9,9 @@ is free); public outputs keep the JAX layouts:
 * the RoI head pools ``[B, R, P, P, C]`` and flattens it in (p, q, c)
   order for ``fc1``, so the flax weights map unchanged.
 
-Only the windowed predict route of the RoI head is ported: the dense
-route (``fpn_roi_window=0``) and the train route raise.
+The RoI head pools through windows: the predict route (kernel 2) and the
+hybrid train route (that forward, with the dense RoIAlign's gradient as
+its backward).  The dense route (``fpn_roi_window=0``) raises.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from two_stage_object_detection_tpu_torch.models.layers import Conv, Dense
 from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
 from two_stage_object_detection_tpu_torch.ops.roi_pool import _norm_scales
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
-    windowed_roi_align_batched)
+    multilevel_roi_align_hybrid_batched, windowed_roi_align_batched)
 
 
 def _upsample2x_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -120,6 +121,7 @@ def span_aware_levels(rois: torch.Tensor, levels: torch.Tensor, scales,
 
 class FPNRoIHead(nn.Module):
     """Windowed multi-level RoIAlign (kernel 2) + fc1 -> fc2 -> cls_loc/score.
+    ``use_window=False`` takes the hybrid train route.
 
     ``(pyramid (P_min..), rois [B, R, 4] image coords, img_size) ->
     (roi_cls_locs [B, R, n_class*4], roi_scores [B, R, n_class])``, f32.
@@ -141,8 +143,10 @@ class FPNRoIHead(nn.Module):
         self.score = Dense(fc_dim, n_class, dtype)
 
     def pool(self, pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
-             img_size) -> torch.Tensor:
-        """Level assignment + windowed RoIAlign -> ``[B, R, P, P, C]``."""
+             img_size, use_window: bool = True) -> torch.Tensor:
+        """Level assignment + windowed RoIAlign -> ``[B, R, P, P, C]``;
+        ``use_window=False`` is the train route, differentiable in the
+        pyramid."""
         if not self.window:
             raise NotImplementedError(
                 "fpn_roi_window=0 (dense multi-level RoIAlign) is not ported "
@@ -158,18 +162,16 @@ class FPNRoIHead(nn.Module):
                 rois, levels - self.min_level, scales, float(self.window - 2))
         nhwc = [p.permute(0, 2, 3, 1).contiguous()
                 for p in pyramid[:self.n_pool_levels]]
-        return windowed_roi_align_batched(
-            nhwc, rois.contiguous(), (levels - self.min_level).to(torch.int32),
-            scales, self.roi_size, 2, self.window, False,
-            use_kernel=self.use_kernel)
+        align = (windowed_roi_align_batched if use_window
+                 else multilevel_roi_align_hybrid_batched)
+        return align(nhwc, rois.contiguous(),
+                     (levels - self.min_level).to(torch.int32), scales,
+                     self.roi_size, 2, self.window, False,
+                     use_kernel=self.use_kernel)
 
     def forward(self, pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
                 img_size, use_window: bool = True):
-        if not use_window:
-            raise NotImplementedError(
-                "the FPN train route (hybrid windowed forward, dense backward) "
-                "is not ported yet (ROADMAP.md, 'Modules to port')")
-        pooled = self.pool(pyramid, rois, img_size)
+        pooled = self.pool(pyramid, rois, img_size, use_window)
         flat = pooled.reshape(*pooled.shape[:2], -1)
         x = F.relu(self.fc1(flat))
         x = F.relu(self.fc2(x))

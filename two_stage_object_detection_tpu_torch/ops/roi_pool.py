@@ -14,6 +14,24 @@ gathers one column offset of every bin at a time, so it holds
 ``[..., R, P, H, C]`` slabs and never the ``[R, P, H, W, C]`` broadcast of
 the JAX masked max.
 
+**RoIPool max backward**, three rules that differ where a bin's maximum is
+tied (often: the maps end in a ReLU-like activation, so zeros tie), each a
+plain function ``(feats, rois, g) -> dfeat`` held against its own JAX
+reference:
+
+* :func:`roi_pool_grad_xla`: autodiff of the two-stage masked max (max over
+  a bin's columns, then over its rows), which splits the cotangent evenly
+  among the ties of each stage; the backward of the JAX ``roi_pool``;
+* :func:`roi_pool_grad_structured`: the same credit written out with
+  equality masks and tie counts (the JAX ``roi_pool_structured``);
+* :func:`roi_pool_grad_first_argmax`: all of it to the first maximum of each
+  bin in row-major order: the plain version of kernel 6
+  (``ops/roi_pool_bwd.py``), built from :func:`scatter_argmax_grad`, the
+  plain version of kernel 5's scatter backward.
+
+The first two hold ``[r, P, H, W, C]`` masks, so they walk the batch one
+image and ``_ROI_CHUNK`` rois at a time.
+
 **Windowed multi-level RoIAlign** (the FPN part): each roi pools a
 ``[window, window]`` slice of its assigned pyramid level with 2-D bilinear
 RoIAlign (``P x P`` bins, ``s x s`` samples per bin).  This is the plain
@@ -26,6 +44,10 @@ rules, which are not torchvision's RoIAlign boundary rules:
   and to the widest level's width (at least ``win``) in columns;
 * window-local coordinates clip again to ``[0, win - 1]`` and the upper tap
   is ``i1 = min(i0 + 1, win - 1)``.
+
+Its train route pairs that forward with the gradient of the *dense*
+RoIAlign (:func:`multilevel_roi_align_dense_grad`), two matrix products per
+level; the two forwards are equal wherever the window covers the roi.
 
 Every function takes any number of leading batch axes.
 """
@@ -114,6 +136,127 @@ def roi_pool(features: torch.Tensor, rois: torch.Tensor, output_size: int = 7,
     return roi_pool_argmax(features, rois, output_size, spatial_scale)[0]
 
 
+NEG_INF = -1e30
+
+
+def _pool_masks(rois: torch.Tensor, h: int, w: int, p: int,
+                spatial_scale: float):
+    """Column / row bin membership of ``rois [R, 4]``: ``(col [R, P, W],
+    row [R, P, H])`` bool."""
+    q = torch.round(rois.to(torch.float32) * spatial_scale).to(torch.int64)
+    xs, xe = _bin_edges_pool(q[:, 0], q[:, 2], p)
+    ys, ye = _bin_edges_pool(q[:, 1], q[:, 3], p)
+    xs, xe = xs.clamp(0, w)[..., None], xe.clamp(0, w)[..., None]
+    ys, ye = ys.clamp(0, h)[..., None], ye.clamp(0, h)[..., None]
+    cols = torch.arange(w, device=rois.device)
+    rows = torch.arange(h, device=rois.device)
+    return (cols >= xs) & (cols < xe), (rows >= ys) & (rows < ye)
+
+
+def _two_stage_max(f: torch.Tensor, cm: torch.Tensor, rm: torch.Tensor):
+    """The separable masked max of the JAX ``roi_pool`` on one image:
+    ``f [H, W, C]`` -> stage 1 ``[R, Pw, H, C]`` (max over a bin's columns
+    in every row) and stage 2 ``[R, Ph, Pw, C]`` (max over a bin's rows);
+    masked-out entries are ``NEG_INF``."""
+    s1 = torch.where(cm[:, :, None, :, None], f[None, None], NEG_INF).amax(3)
+    s2 = torch.where(rm[:, :, None, :, None], s1[:, None], NEG_INF).amax(3)
+    return s1, s2
+
+
+_ROI_CHUNK = 8
+
+
+def _chunks(rois: torch.Tensor):
+    """``(image index, roi slice)`` pairs covering ``rois [B, R, 4]``,
+    ``_ROI_CHUNK`` rois each."""
+    for i in range(rois.shape[0]):
+        for r0 in range(0, rois.shape[1], _ROI_CHUNK):
+            yield i, slice(r0, r0 + _ROI_CHUNK)
+
+
+def roi_pool_grad_xla(feats: torch.Tensor, rois: torch.Tensor, g: torch.Tensor,
+                      output_size: int = 7,
+                      spatial_scale: float = 1.0) -> torch.Tensor:
+    """RoIPool max backward by autodiff of the two-stage masked max.
+
+    ``torch.amax`` hands its cotangent to the ties in equal shares, as the
+    ``reduce_max`` of XLA does, so a tied stage-2 maximum is split among its
+    rows and each row's share among that row's tied columns.
+
+    ``feats [B, H, W, C]``, ``rois [B, R, 4]``, ``g [B, R, P, P, C]`` ->
+    ``dfeat [B, H, W, C]`` in the map's dtype (accumulated in f32).
+    """
+    _, h, w, _ = feats.shape
+    out = torch.zeros(feats.shape, dtype=torch.float32, device=feats.device)
+    for i, rs in _chunks(rois):
+        cm, rm = _pool_masks(rois[i, rs], h, w, output_size, spatial_scale)
+        with torch.enable_grad():
+            f = feats[i].detach().to(torch.float32).requires_grad_(True)
+            s2 = _two_stage_max(f, cm, rm)[1]
+            pooled = torch.where(s2 <= NEG_INF / 2, 0.0, s2)
+            out[i] += torch.autograd.grad(pooled, f,
+                                          g[i, rs].to(torch.float32))[0]
+    return out.to(feats.dtype)
+
+
+def roi_pool_grad_structured(feats: torch.Tensor, rois: torch.Tensor,
+                             g: torch.Tensor, output_size: int = 7,
+                             spatial_scale: float = 1.0) -> torch.Tensor:
+    """RoIPool max backward with the credit written out: both max stages
+    recomputed, equality masks against them, and each stage's credit divided
+    by its tie count.  Shapes as :func:`roi_pool_grad_xla`."""
+    _, h, w, _ = feats.shape
+    out = torch.zeros(feats.shape, dtype=torch.float32, device=feats.device)
+    for i, rs in _chunks(rois):
+        cm, rm = _pool_masks(rois[i, rs], h, w, output_size, spatial_scale)
+        f = feats[i].detach().to(torch.float32)
+        s1, s2 = _two_stage_max(f, cm, rm)
+        gi = g[i, rs].to(torch.float32)
+        # stage-2 credit; empty bins die at the stage-1 compare (f != NEG_INF)
+        eq2 = (rm[:, :, None, :, None]
+               & (s1[:, None] == s2[:, :, :, None, :])).to(torch.float32)
+        n2 = eq2.sum(dim=3, keepdim=True).clamp(min=1.0)     # [R,Ph,Pw,1,C]
+        ds1 = (eq2 / n2 * gi[:, :, :, None, :]).sum(dim=1)   # [R,Pw,H,C]
+        eq1 = (cm[:, :, None, :, None]
+               & (f[None, None] == s1[:, :, :, None, :])).to(torch.float32)
+        n1 = eq1.sum(dim=3, keepdim=True).clamp(min=1.0)     # [R,Pw,H,1,C]
+        out[i] += (eq1 / n1 * ds1[:, :, :, None, :]).sum(dim=(0, 1))
+    return out.to(feats.dtype)
+
+
+def scatter_argmax_grad(argmax: torch.Tensor, g: torch.Tensor, h: int,
+                        w: int) -> torch.Tensor:
+    """Add each pooled cotangent at its bin's argmax: the plain version of
+    kernel 5's scatter backward.
+
+    ``argmax [B, R, P, P, C]`` flat ``y*W + x`` (-1: empty bin, dropped),
+    ``g`` of the same shape -> ``[B, H, W, C]`` in ``g``'s dtype.
+    """
+    b, c = argmax.shape[0], argmax.shape[-1]
+    idx = argmax.reshape(b, -1, c).to(torch.int64)
+    # cell h*w collects the empty bins and is cut off
+    idx = torch.where(idx < 0, h * w, idx)
+    out = torch.zeros((b, h * w + 1, c), dtype=g.dtype, device=g.device)
+    out.scatter_add_(1, idx, g.reshape(b, -1, c))
+    return out[:, :h * w].reshape(b, h, w, c)
+
+
+def roi_pool_grad_first_argmax(feats: torch.Tensor, rois: torch.Tensor,
+                               g: torch.Tensor, output_size: int = 7,
+                               spatial_scale: float = 1.0) -> torch.Tensor:
+    """RoIPool max backward with all of a bin's cotangent credited to its
+    first maximum in row-major order, recomputed from the map: the plain
+    version of kernel 6.  Shapes as :func:`roi_pool_grad_xla`."""
+    _, h, w, _ = feats.shape
+    out = torch.empty(feats.shape, dtype=torch.float32, device=feats.device)
+    for i in range(feats.shape[0]):       # [R, P, H, C] slabs, one image each
+        argmax = roi_pool_argmax(feats[i:i + 1].detach(), rois[i:i + 1],
+                                 output_size, spatial_scale)[1]
+        out[i] = scatter_argmax_grad(argmax, g[i:i + 1].to(torch.float32),
+                                     h, w)[0]
+    return out.to(feats.dtype)
+
+
 def _norm_scales(scales, n_levels: int) -> torch.Tensor:
     """``[L, 2]`` (sy, sx) float32 from scalar-or-pair per-level scales."""
     return torch.tensor([(float(s), float(s)) if not isinstance(s, (tuple, list))
@@ -140,6 +283,58 @@ def _align_weights_local(c_global: torch.Tensor, origin: torch.Tensor,
     w = (F.one_hot(i0, win).to(torch.float32) * (1.0 - f)[..., None]
          + F.one_hot(i1, win).to(torch.float32) * f[..., None])
     return div_exact(w.reshape(*w.shape[:-2], p, s, win).sum(dim=-2), s)
+
+
+def _align_weights(lo: torch.Tensor, span: torch.Tensor, p: int, s: int,
+                   size: int) -> torch.Tensor:
+    """Dense separable RoIAlign weights along one axis, ``[..., R, P, size]``:
+    row ``(r, q)`` holds the averaged bilinear weights of bin ``q``'s ``s``
+    sample points on a level ``size`` cells long."""
+    c = lo[..., None] + _sample_grid(p, s, lo.device) * div_exact(span, p)[..., None]
+    c = torch.clamp(c, 0.0, size - 1.0)
+    i0 = torch.floor(c).to(torch.int64)
+    i1 = torch.clamp(i0 + 1, max=size - 1)
+    f = c - i0
+    w = (F.one_hot(i0, size).to(torch.float32) * (1.0 - f)[..., None]
+         + F.one_hot(i1, size).to(torch.float32) * f[..., None])
+    return div_exact(w.reshape(*w.shape[:-2], p, s, size).sum(dim=-2), s)
+
+
+def _level_align_weights(rois: torch.Tensor, sy: float, sx: float, p: int,
+                         s: int, h: int, w: int, aligned: bool):
+    """Dense RoIAlign weight pair of one pyramid level for ``rois [..., R,
+    4]`` in image coordinates: ``(wy [..., R, P, H], wx [..., R, P, W])``."""
+    off = 0.5 if aligned else 0.0
+    r4 = rois.to(torch.float32) * torch.tensor(
+        [sx, sy, sx, sy], dtype=torch.float32, device=rois.device) - off
+    roi_w = torch.clamp(r4[..., 2] - r4[..., 0], min=1.0)
+    roi_h = torch.clamp(r4[..., 3] - r4[..., 1], min=1.0)
+    return (_align_weights(r4[..., 1], roi_h, p, s, h),
+            _align_weights(r4[..., 0], roi_w, p, s, w))
+
+
+def multilevel_roi_align_dense_grad(shapes, dtype, rois: torch.Tensor,
+                                    levels: torch.Tensor, scales,
+                                    g: torch.Tensor, output_size: int = 7,
+                                    sampling_ratio: int = 2,
+                                    aligned: bool = False):
+    """Gradient of the dense multi-level RoIAlign with respect to the
+    pyramid: ``dF_l = sum_r 1[lvl_r = l] WY_l[r]^T g[r] WX_l[r]``, two
+    matrix products per level, in the levels' dtype.
+
+    ``shapes``: per-level ``(H, W)``; ``rois [B, R, 4]``; ``levels [B, R]``
+    (0 = finest); ``g [B, R, P, P, C]``.  Returns per-level ``[B, H, W, C]``.
+    """
+    p, s = output_size, sampling_ratio
+    sc = _norm_scales(scales, len(shapes)).tolist()
+    out = []
+    for li, (h, w) in enumerate(shapes):
+        sy, sx = sc[li]
+        wy, wx = _level_align_weights(rois, sy, sx, p, s, h, w, aligned)
+        gm = torch.where((levels == li)[..., None, None, None], g, 0).to(dtype)
+        t = torch.einsum("brqw,brpqc->brpwc", wx.to(dtype), gm)
+        out.append(torch.einsum("brph,brpwc->bhwc", wy.to(dtype), t))
+    return out
 
 
 def _roi_samples(rois, levels, sizes, sc, p: int, s: int, aligned: bool):

@@ -1,7 +1,7 @@
-"""RoIPool max forward with the hand-written kernel (kernel 5).
+"""RoIPool max with the hand-written kernel (kernel 5) and its backward.
 
 The counterpart of the JAX package's ``ops/pallas_roi.py``
-(``_roi_pool_fwd_impl``): RoIPool max with torchvision integer bins over a
+(``roi_pool_pallas``): RoIPool max with torchvision integer bins over a
 batch, plus the flat index ``y*W + x`` of the first maximum of each bin in
 row-major order (-1, value 0, for an empty bin).  On CUDA tensors it
 launches ``csrc/roi_pool.cu``; its plain version is
@@ -9,8 +9,12 @@ launches ``csrc/roi_pool.cu``; its plain version is
 device with ``use_kernel=False``.  Same outputs either way, bit for bit:
 max is exact in any float format.
 
-The backward (a scatter-add of the pooled cotangent to the argmax) belongs
-to the training slice (ROADMAP.md).
+:func:`roi_pool_max` is differentiable in the map: its backward adds each
+pooled cotangent at the saved argmax and drops the empty bins
+(:func:`roi_pool_bwd_scatter`, a second hand-written kernel, in
+``csrc/roi_pool_bwd.cu``; plain version
+:func:`~..ops.roi_pool.scatter_argmax_grad`).  The additions are atomic, so
+that gradient equals the plain version's up to f32 summation order.
 """
 
 from __future__ import annotations
@@ -20,25 +24,20 @@ import ctypes
 import torch
 
 from two_stage_object_detection_tpu_torch.ops import _cuda
-from two_stage_object_detection_tpu_torch.ops.roi_pool import roi_pool_argmax
+from two_stage_object_detection_tpu_torch.ops.roi_pool import (
+    roi_pool_argmax, scatter_argmax_grad)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def roi_pool_max(feats: torch.Tensor, rois: torch.Tensor, output_size: int = 7,
-                 spatial_scale: float = 1.0, use_kernel: bool = True):
-    """Kernel 5: RoIPool max with argmax over a batch.
-
-    Args:
-      feats: ``[B, H, W, C]`` map, f32 or bf16 (pooled in f32); the kernel
-        reads 4 channels a thread and takes C a multiple of 4.
-      rois: ``[B, R, 4]`` xyxy f32, multiplied by ``spatial_scale`` to reach
-        map coordinates.
-
-    Returns ``(pooled [B, R, P, P, C] f32, argmax [B, R, P, P, C] int32)``.
-    """
+def _forward(feats: torch.Tensor, rois: torch.Tensor, output_size: int,
+             spatial_scale: float, use_kernel: bool, with_argmax: bool):
+    """Kernel 5 or its plain version, outside autograd: ``(pooled, argmax or
+    None)``."""
     if not (use_kernel and rois.is_cuda):
-        return roi_pool_argmax(feats, rois, output_size, spatial_scale)
+        pooled, argmax = roi_pool_argmax(feats, rois, output_size,
+                                         spatial_scale)
+        return pooled, (argmax if with_argmax else None)
     b, h, w, c = feats.shape
     r, p = rois.shape[1], output_size
     if feats.dtype not in _DTYPES:
@@ -48,15 +47,66 @@ def roi_pool_max(feats: torch.Tensor, rois: torch.Tensor, output_size: int = 7,
     _cuda.require(feats, "feats", feats.dtype, (b, h, w, c))
     _cuda.require(rois, "rois", torch.float32, (b, r, 4))
     pooled = torch.empty((b, r, p, p, c), dtype=torch.float32, device=rois.device)
-    argmax = torch.empty((b, r, p, p, c), dtype=torch.int32, device=rois.device)
+    argmax = (torch.empty((b, r, p, p, c), dtype=torch.int32, device=rois.device)
+              if with_argmax else None)
     fn = _pool_fn()
     with torch.cuda.device(rois.device):
         status = fn(feats.data_ptr(), rois.data_ptr(), pooled.data_ptr(),
-                    argmax.data_ptr(), b, h, w, c, r, p, spatial_scale,
-                    _DTYPES[feats.dtype], _cuda.stream_handle(rois))
+                    None if argmax is None else argmax.data_ptr(), b, h, w, c,
+                    r, p, spatial_scale, _DTYPES[feats.dtype],
+                    _cuda.stream_handle(rois))
     _cuda.check(status, "roi_pool_launch")
     roi_pool_max.launches += 1
     return pooled, argmax
+
+
+class _RoIPoolMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, rois, output_size, spatial_scale, use_kernel,
+                with_argmax):
+        need_grad = ctx.needs_input_grad[0]
+        pooled, argmax = _forward(feats.detach(), rois, output_size,
+                                  spatial_scale, use_kernel,
+                                  with_argmax or need_grad)
+        if need_grad:
+            ctx.save_for_backward(argmax)
+            ctx.hw, ctx.dtype = feats.shape[1:3], feats.dtype
+            ctx.use_kernel = use_kernel
+        if not with_argmax:
+            return pooled, None
+        ctx.mark_non_differentiable(argmax)
+        return pooled, argmax
+
+    @staticmethod
+    def backward(ctx, g, _):
+        (argmax,) = ctx.saved_tensors
+        dfeat = roi_pool_bwd_scatter(argmax, g.contiguous(), *ctx.hw,
+                                     use_kernel=ctx.use_kernel)
+        return dfeat.to(ctx.dtype), None, None, None, None, None
+
+
+def roi_pool_max(feats: torch.Tensor, rois: torch.Tensor, output_size: int = 7,
+                 spatial_scale: float = 1.0, use_kernel: bool = True,
+                 with_argmax: bool = True):
+    """Kernel 5: RoIPool max with argmax over a batch, differentiable in
+    ``feats``.
+
+    Args:
+      feats: ``[B, H, W, C]`` map, f32 or bf16 (pooled in f32); the kernel
+        reads 4 channels a thread and takes C a multiple of 4.
+      rois: ``[B, R, 4]`` xyxy f32, multiplied by ``spatial_scale`` to reach
+        map coordinates.
+      with_argmax: return the index.  With False the index is computed
+        only where a backward pass will read it (gradients enabled and
+        ``feats`` requires one); otherwise, as under ``inference_mode``, the
+        kernel is handed no index buffer and skips that store, half of its
+        bytes.
+
+    Returns ``(pooled [B, R, P, P, C] f32, argmax [B, R, P, P, C] int32 or
+    None)``.
+    """
+    return _RoIPoolMax.apply(feats, rois, output_size, spatial_scale,
+                             use_kernel, with_argmax)
 
 
 roi_pool_max.launches = 0
@@ -68,3 +118,35 @@ def _pool_fn():
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def roi_pool_bwd_scatter(argmax: torch.Tensor, g: torch.Tensor, h: int,
+                         w: int, use_kernel: bool = True) -> torch.Tensor:
+    """Kernel 5's backward: add ``g`` at each bin's argmax.
+
+    ``argmax [B, R, P, P, C]`` int32 (-1: empty bin, dropped), ``g`` of the
+    same shape, f32 -> ``dfeat [B, H, W, C]`` f32.  On CUDA tensors with
+    ``use_kernel`` it launches ``csrc/roi_pool_bwd.cu`` (atomic adds: equal
+    to the plain version up to f32 summation order); otherwise it runs
+    :func:`~..ops.roi_pool.scatter_argmax_grad`.
+    """
+    if not (use_kernel and g.is_cuda):
+        return scatter_argmax_grad(argmax, g, h, w)
+    b, c = argmax.shape[0], argmax.shape[-1]
+    if c % 4:
+        raise ValueError(f"roi_pool_bwd kernel takes C a multiple of 4, got {c}")
+    _cuda.require(argmax, "argmax", torch.int32)
+    _cuda.require(g, "g", torch.float32, argmax.shape)
+    dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=g.device)
+    fn = _cuda.library("roi_pool_bwd").roi_pool_bwd_scatter_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(g.device):
+        status = fn(argmax.data_ptr(), g.data_ptr(), dfeat.data_ptr(), b,
+                    argmax[0].numel() // c, c, h * w, _cuda.stream_handle(g))
+    _cuda.check(status, "roi_pool_bwd_scatter_launch")
+    roi_pool_bwd_scatter.launches += 1
+    return dfeat
+
+
+roi_pool_bwd_scatter.launches = 0

@@ -5,6 +5,12 @@ same signature as its ``windowed_roi_align_batched``, launching kernel 2
 (``csrc/windowed_align.cu``) on CUDA tensors.  The plain version is
 :func:`~..ops.roi_pool.multilevel_roi_align` over the batch; it runs on the
 CPU, or on any device with ``use_kernel=False``.
+
+:func:`multilevel_roi_align_hybrid_batched` is the train route (the JAX
+function of that name in ``ops/roi_pool.py``): that windowed forward, with
+the gradient of the *dense* RoIAlign as its backward
+(:func:`~..ops.roi_pool.multilevel_roi_align_dense_grad`, plain matrix
+products in both packages).  Rois and levels get no gradient.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import torch
 
 from two_stage_object_detection_tpu_torch.ops import _cuda
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
-    _norm_scales, multilevel_roi_align)
+    _norm_scales, multilevel_roi_align, multilevel_roi_align_dense_grad)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -76,3 +82,39 @@ def _align_fn():
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+class _Hybrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rois, levels, scales, output_size, sampling_ratio,
+                window, aligned, use_kernel, *pyramid):
+        ctx.save_for_backward(rois, levels)
+        ctx.shapes = [tuple(f.shape[1:3]) for f in pyramid]
+        ctx.args = (pyramid[0].dtype, scales, output_size, sampling_ratio,
+                    aligned)
+        return windowed_roi_align_batched(
+            [f.detach() for f in pyramid], rois, levels, scales, output_size,
+            sampling_ratio, window, aligned, use_kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        rois, levels = ctx.saved_tensors
+        dtype, scales, output_size, sampling_ratio, aligned = ctx.args
+        d_pyr = multilevel_roi_align_dense_grad(
+            ctx.shapes, dtype, rois, levels, scales, g, output_size,
+            sampling_ratio, aligned)
+        return (None,) * 8 + tuple(d_pyr)
+
+
+def multilevel_roi_align_hybrid_batched(pyramid, rois: torch.Tensor,
+                                        levels: torch.Tensor, scales,
+                                        output_size: int = 7,
+                                        sampling_ratio: int = 2,
+                                        window: int = 32,
+                                        aligned: bool = False,
+                                        use_kernel: bool = True) -> torch.Tensor:
+    """Windowed forward (kernel 2 on CUDA tensors), dense matrix-product
+    backward, whole batch at once.  Arguments and result as
+    :func:`windowed_roi_align_batched`; differentiable in ``pyramid``."""
+    return _Hybrid.apply(rois, levels, scales, output_size, sampling_ratio,
+                         window, aligned, use_kernel, *pyramid)

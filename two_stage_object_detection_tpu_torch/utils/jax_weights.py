@@ -1,4 +1,4 @@
-"""Carry flax variables across into the port's modules.
+"""Carry flax variables across into the port's modules, and back.
 
 ``load_jax_variables(model, params, batch_stats)`` takes the JAX package's
 variable trees as nested dicts of numpy arrays (so this module needs no
@@ -13,6 +13,11 @@ One rule per layer type:
 
 It raises on a flax leaf it does not consume, on a port parameter or buffer
 left unfilled, and on any shape that does not match.
+
+``to_jax_variables(model)`` is the way back: ``(params, batch_stats)`` as
+nested dicts of numpy arrays in flax's names and layouts, of the values or,
+with ``grads=True``, of the parameters' gradients, so that a train step is
+compared with the JAX package leaf by leaf.  A round trip is the identity.
 """
 
 from __future__ import annotations
@@ -27,14 +32,20 @@ from two_stage_object_detection_tpu_torch.models.layers import (
     BatchNorm, Conv, Dense)
 from two_stage_object_detection_tpu_torch.models.resnet import PReLU
 
+# layer type -> flax leaf -> (port name, flax-to-port, port-to-flax)
 _RULES = {
-    Conv: {"kernel": ("weight", lambda a: a.transpose(3, 2, 0, 1)),
-           "bias": ("bias", None)},
-    Dense: {"kernel": ("weight", lambda a: a.T), "bias": ("bias", None)},
-    BatchNorm: {"scale": ("weight", None), "bias": ("bias", None),
-                "mean": ("running_mean", None), "var": ("running_var", None)},
-    PReLU: {"alpha": ("weight", lambda a: a.reshape(1))},
+    Conv: {"kernel": ("weight", lambda a: a.transpose(3, 2, 0, 1),
+                      lambda a: a.transpose(2, 3, 1, 0)),
+           "bias": ("bias", None, None)},
+    Dense: {"kernel": ("weight", lambda a: a.T, lambda a: a.T),
+            "bias": ("bias", None, None)},
+    BatchNorm: {"scale": ("weight", None, None), "bias": ("bias", None, None),
+                "mean": ("running_mean", None, None),
+                "var": ("running_var", None, None)},
+    PReLU: {"alpha": ("weight", lambda a: a.reshape(1),
+                      lambda a: a.reshape(()))},
 }
+_BATCH_STATS = ("mean", "var")
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -67,7 +78,7 @@ def load_jax_variables(model: nn.Module, params: Mapping,
         if rule is None:
             raise KeyError(f"flax variable {'/'.join(path)} has no counterpart "
                            f"in {type(mod).__name__} {mod_path!r}")
-        name, convert = rule
+        name, convert, _ = rule
         arr = np.asarray(value, dtype=np.float32)
         if convert is not None:
             arr = convert(arr)
@@ -86,3 +97,33 @@ def load_jax_variables(model: nn.Module, params: Mapping,
         raise KeyError(f"{len(missing)} port variables have no flax "
                        f"counterpart: {missing[:8]}")
     return model
+
+
+def to_jax_variables(model: nn.Module, grads: bool = False):
+    """The port's variables in flax's names and layouts.
+
+    Returns ``(params, batch_stats)``, nested dicts of float32 numpy arrays
+    keyed by the flax module path.  ``grads=True`` puts each parameter's
+    ``.grad`` in place of its value (zeros where it has none) and leaves
+    ``batch_stats`` empty.
+    """
+    params: dict = {}
+    stats: dict = {}
+    for path, mod in model.named_modules():
+        for leaf, (name, _, back) in _RULES.get(type(mod), {}).items():
+            t = getattr(mod, name, None)
+            if t is None:                       # a conv without bias
+                continue
+            is_stat = leaf in _BATCH_STATS
+            if grads:
+                if is_stat:
+                    continue
+                t = torch.zeros_like(t) if t.grad is None else t.grad
+            arr = t.detach().to("cpu", torch.float32).contiguous().numpy()
+            node = stats if is_stat else params
+            for key in path.split("."):
+                node = node.setdefault(key, {})
+            # (np.ascontiguousarray would turn PReLU's 0-d alpha into [1])
+            node[leaf] = np.array(arr if back is None else back(arr),
+                                  dtype=np.float32, order="C")
+    return params, stats
