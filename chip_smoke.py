@@ -6,7 +6,10 @@
 Builds the port's CUDA kernels from ``two_stage_object_detection_tpu_torch/
 csrc`` (one nvcc per source, in parallel), holds each kernel against its
 plain PyTorch version at the shapes of the path that runs it, and times
-both.  Then it serves requests through the port's ``Predictor`` on
+both; kernels 1 and 2 at the flagship's predict and train shapes (kernel 1
+K=3000 -> 300 and K=12,000 -> 600, bit for bit, also on images with every
+row masked, with fewer survivors than ``n_post`` and with one box
+repeated; kernel 2 R=300 and R=128).  Then it serves requests through the port's ``Predictor`` on
 two paths, each at full width (600x600, 81 classes, 100 detections,
 bfloat16, seeded random weights), with every launch counter set to 0 just
 before and read just after:
@@ -94,9 +97,13 @@ def require(cond: bool, what: str) -> None:
 
 
 # ------------------------------------------------------------ kernel 1
-def nms_inputs(rng, b: int, k: int, dev):
+def nms_inputs(rng, b: int, k: int, dev, edges: bool = False):
     """Score-sorted rows (stable, ties by lower index) with score ties,
-    near-threshold pairs (IoU ~ 0.7) and masked (-1e9) tail rows."""
+    near-threshold pairs (IoU ~ 0.7) and masked (-1e9) tail rows.  With
+    ``edges``, image 0 has every row masked, image 1 only 50 valid rows
+    (fewer survivors than ``n_post``) and image 2 one box repeated with 2 px
+    of jitter (each kept row suppresses nearly every later one, so the walk
+    reaches the last tile)."""
     xy = rng.rand(b, k, 2) * 560.0
     wh = rng.rand(b, k, 2) * 200.0 + 16.0
     boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
@@ -108,6 +115,11 @@ def nms_inputs(rng, b: int, k: int, dev):
     boxes[:, 1:k:4] = partner
     scores = (rng.randint(0, 200, size=(b, k)) / 200.0).astype(np.float32)
     scores[:, k - k // 20:] = -1e9
+    if edges:
+        scores[0] = -1e9
+        scores[1, 50:] = -1e9
+        boxes[2] = (np.array([100.0, 120.0, 260.0, 250.0], np.float32)
+                    + rng.rand(k, 4).astype(np.float32) * 2.0)
     order = np.argsort(-scores, axis=1, kind="stable")
     boxes = np.take_along_axis(boxes, order[..., None], 1)
     scores = np.take_along_axis(scores, order, 1)
@@ -129,39 +141,57 @@ def nms_bound_ms(boxes, out_boxes, valid, n_post: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# kernel 1's (K, n_post): predict, then train; kernel 2's R: the same
+NMS_SHAPES = ((3000, 300), (12000, 600))
+ALIGN_ROIS = (300, 128)
+
+
 def check_nms(rng, dev):
+    """Kernel 1 at the predict and train shapes, B=16: bit for bit against
+    the plain version, on the timed batch and on one with three edge images
+    (``nms_inputs(edges=True)``).  Returns the predict shape's row of the
+    kernels line and each shape's numbers."""
     from two_stage_object_detection_tpu_torch.ops.proposals import (
         greedy_nms, greedy_nms_rows_reference)
-    report = {}
-    for k, n_post in ((3000, 300), (12000, 600)):
-        boxes, scores = nms_inputs(rng, 16, k, dev)
-        got = greedy_nms(boxes, scores, n_post=n_post, iou_threshold=0.7)
-        want = greedy_nms_rows_reference(boxes, scores, n_post=n_post,
-                                         iou_threshold=0.7)
-        torch.cuda.synchronize()
-        for name, g, w in zip(("boxes", "scores", "valid"), got, want):
-            require(torch.equal(g, w), f"nms K={k}: {name} differ from the "
-                    "plain version (must be bitwise equal)")
-        n_valid = int(got[2].sum())
-        log(f"kernel greedy_nms B=16 K={k} n_post={n_post}: bitwise equal "
-            f"to plain, {n_valid} kept")
-        require(n_valid > 0, "nms kept nothing")
-        report[k] = (boxes, scores, got, n_post,
-                     float((got[0] - want[0]).abs().max()))
-    # time at the predict shape
-    boxes, scores, got, n_post, err = report[3000]
-    ms = cuda_time_ms(lambda: greedy_nms(boxes, scores, n_post=n_post,
-                                         iou_threshold=0.7), 50)
-    plain_ms = cuda_time_ms(lambda: greedy_nms_rows_reference(
-        boxes, scores, n_post=n_post, iou_threshold=0.7), 3, warmup=1)
-    bound_ms, bound_by = nms_bound_ms(boxes, got[0], got[2], n_post)
-    log(f"kernel greedy_nms B=16 K=3000: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by})")
-    return dict(name="greedy_nms", route="cuda",
-                source="two_stage_object_detection_tpu_torch/csrc/nms.cu",
-                replaces="two_stage_object_detection_tpu/ops/pallas_proposals.py:230",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    shapes = {}
+    for k, n_post in NMS_SHAPES:
+        for edges in (False, True):
+            boxes, scores = nms_inputs(rng, 16, k, dev, edges=edges)
+            run = lambda: greedy_nms(boxes, scores, n_post=n_post,  # noqa: E731
+                                     iou_threshold=0.7)
+            plain = lambda: greedy_nms_rows_reference(              # noqa: E731
+                boxes, scores, n_post=n_post, iou_threshold=0.7)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            for name, g, w in zip(("boxes", "scores", "valid"), got, want):
+                require(torch.equal(g, w), f"nms K={k} edges={edges}: {name} "
+                        "differ from the plain version (must be bitwise equal)")
+            kept = got[2].sum(1).tolist()
+            log(f"kernel greedy_nms B=16 K={k} n_post={n_post}"
+                f"{' edge images' if edges else ''}: bitwise equal to plain, "
+                f"{sum(kept)} kept (images 0-2: {kept[:3]})")
+            if edges:
+                require(kept[0] == 0 and 0 < kept[1] <= 50
+                        and 0 < kept[2] < n_post,
+                        f"nms K={k}: the edge images are not what they claim")
+                continue
+            require(sum(kept) > 0, "nms kept nothing")
+            ms = cuda_time_ms(run, 50 if k <= 3000 else 20)
+            plain_ms = cuda_time_ms(plain, 2, warmup=1)
+            bound_ms, bound_by = nms_bound_ms(boxes, got[0], got[2], n_post)
+            log(f"kernel greedy_nms B=16 K={k} n_post={n_post}: {ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            shapes[f"K{k}"] = dict(
+                n_post=n_post, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, kept=sum(kept),
+                max_abs_err=float((got[0] - want[0]).abs().max()))
+    pred = shapes[f"K{NMS_SHAPES[0][0]}"]
+    row = dict(name="greedy_nms", route="cuda",
+               source="two_stage_object_detection_tpu_torch/csrc/nms.cu",
+               replaces="two_stage_object_detection_tpu/ops/pallas_proposals.py:230",
+               library_ms=None, **{key: pred[key] for key in (
+                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    return row, shapes
 
 
 # ------------------------------------------------------------ kernel 2
@@ -197,7 +227,10 @@ def align_inputs(rng, dev, dtype, b=16, r=300, c=256):
 
 
 def touched_bytes(pyr, rois, levels, scales, win=32, p=7, s=2):
-    """Bytes of the distinct pyramid pixels the rois' bilinear taps read."""
+    """Bytes of the distinct pyramid pixels the rois' bilinear taps read:
+    over the whole batch (each pixel once: the HBM bound), and summed over
+    the rois (each pixel once per roi that reads it: the least one block a
+    roi brings into its SM)."""
     from two_stage_object_detection_tpu_torch.ops import roi_pool
     dev = rois.device
     sizes = torch.tensor(LEVELS_HW, dtype=torch.float32, device=dev)
@@ -216,6 +249,16 @@ def touched_bytes(pyr, rois, levels, scales, win=32, p=7, s=2):
         return torch.cat([i0, torch.clamp(i0 + 1, max=win - 1)], -1) + o[..., None]
 
     ty, tx = taps(cy, oy), taps(cx, ox)                  # [B, R, 2*P*S]
+
+    def distinct(t, lim):       # taps of a roi inside its level's map
+        v = torch.where(t < lim[..., None], t, -1).sort(-1).values
+        new = torch.ones_like(v, dtype=torch.bool)
+        new[..., 1:] = v[..., 1:] != v[..., :-1]
+        return (new & (v >= 0)).sum(-1)
+
+    # a roi's taps are a grid: its pixels are its rows times its columns
+    per_roi = int((distinct(ty, sizes[lv, 0].long())
+                   * distinct(tx, sizes[lv, 1].long())).sum())
     total = 0
     bidx = torch.arange(rois.shape[0], device=dev)[:, None, None, None]
     for li, (h, w) in enumerate(LEVELS_HW):
@@ -227,55 +270,75 @@ def touched_bytes(pyr, rois, levels, scales, win=32, p=7, s=2):
         bb = bidx.expand_as(yy)
         occ[bb[ok], yy[ok], xx[ok]] = True
         total += int(occ.sum())
-    return total * pyr[0].shape[-1] * pyr[0].element_size()
+    pixel = pyr[0].shape[-1] * pyr[0].element_size()
+    return total * pixel, per_roi * pixel
 
 
 def check_align(rng, dev):
+    """Kernel 2 at the predict (R=300) and train (R=128) shapes, B=16,
+    C=256: f32 within 1e-5 of the plain version, bf16 within one bf16
+    rounding of the plain version run in f32; each shape timed in bf16
+    against its bound.  Returns the predict shape's row of the kernels line
+    and each shape's numbers."""
     from two_stage_object_detection_tpu_torch.ops.windowed_align import (
         windowed_roi_align_batched)
-    # float32: the kernel equals the plain version to summation order
-    pyr, rois, levels, scales = align_inputs(rng, dev, torch.float32)
-    got = windowed_roi_align_batched(pyr, rois, levels, scales)
-    want = windowed_roi_align_batched(pyr, rois, levels, scales, use_kernel=False)
-    err32 = float((got - want).abs().max())
-    log(f"kernel windowed_align f32 B=16 R=300 C=256: max |diff| {err32:.3e} "
-        "(tolerance 1e-5)")
-    require(err32 <= 1e-5, f"windowed_align f32 differs by {err32}")
-    del pyr, got, want
-    # bfloat16: the kernel accumulates in f32 and rounds once, so it is
-    # within one bf16 rounding (2^-8 relative) of the plain version run in
-    # f32 on the same bf16 features
-    pyr, rois, levels, scales = align_inputs(rng, dev, torch.bfloat16)
-    got = windowed_roi_align_batched(pyr, rois, levels, scales)
-    want = windowed_roi_align_batched([p.float() for p in pyr], rois, levels,
-                                      scales, use_kernel=False)
-    diff = (got.float() - want).abs()
-    tol = 2.0 ** -8 * want.abs() + 1e-5
-    err = float(diff.max())
-    log(f"kernel windowed_align bf16: max |diff| {err:.3e}, worst diff/tol "
-        f"{float((diff / tol).max()):.3f} (tolerance 2^-8*|ref| + 1e-5)")
-    require(bool((diff <= tol).all()), "windowed_align bf16 outside tolerance")
-    del want, diff, tol
+    shapes = {}
+    for r in ALIGN_ROIS:
+        # float32: the kernel equals the plain version to summation order
+        pyr, rois, levels, scales = align_inputs(rng, dev, torch.float32, r=r)
+        got = windowed_roi_align_batched(pyr, rois, levels, scales)
+        want = windowed_roi_align_batched(pyr, rois, levels, scales,
+                                          use_kernel=False)
+        err32 = float((got - want).abs().max())
+        log(f"kernel windowed_align f32 B=16 R={r} C=256: max |diff| "
+            f"{err32:.3e} (tolerance 1e-5)")
+        require(err32 <= 1e-5, f"windowed_align f32 R={r} differs by {err32}")
+        del pyr, got, want
+        # bfloat16: the kernel accumulates in f32 and rounds once, so it is
+        # within one bf16 rounding (2^-8 relative) of the plain version run
+        # in f32 on the same bf16 features
+        pyr, rois, levels, scales = align_inputs(rng, dev, torch.bfloat16, r=r)
+        got = windowed_roi_align_batched(pyr, rois, levels, scales)
+        want = windowed_roi_align_batched([p.float() for p in pyr], rois,
+                                          levels, scales, use_kernel=False)
+        diff = (got.float() - want).abs()
+        tol = 2.0 ** -8 * want.abs() + 1e-5
+        err = float(diff.max())
+        log(f"kernel windowed_align bf16 R={r}: max |diff| {err:.3e}, worst "
+            f"diff/tol {float((diff / tol).max()):.3f} (tolerance "
+            "2^-8*|ref| + 1e-5)")
+        require(bool((diff <= tol).all()), f"windowed_align bf16 R={r} "
+                "outside tolerance")
+        del want, diff, tol
 
-    ms = cuda_time_ms(lambda: windowed_roi_align_batched(pyr, rois, levels,
-                                                         scales), 20)
-    plain_ms = cuda_time_ms(lambda: windowed_roi_align_batched(
-        pyr, rois, levels, scales, use_kernel=False), 3, warmup=1)
-    n_roi, c = rois.shape[0] * rois.shape[1], pyr[0].shape[-1]
-    nbytes = (touched_bytes(pyr, rois, levels, scales) + n_roi * (16 + 4)
-              + n_roi * 49 * c * pyr[0].element_size())
-    ops = n_roi * c * (49 * 16 * 3 + 49)      # 16 taps x (w*w, *v, +) per bin
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"kernel windowed_align bf16 B=16 R=300 C=256: {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
-    return dict(name="windowed_align", route="cuda",
-                source="two_stage_object_detection_tpu_torch/csrc/windowed_align.cu",
-                replaces="two_stage_object_detection_tpu/ops/pallas_windowed_align.py:52",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+        ms = cuda_time_ms(lambda: windowed_roi_align_batched(
+            pyr, rois, levels, scales), 20)
+        plain_ms = cuda_time_ms(lambda: windowed_roi_align_batched(
+            pyr, rois, levels, scales, use_kernel=False), 3, warmup=1)
+        n_roi, c = rois.shape[0] * rois.shape[1], pyr[0].shape[-1]
+        touched, per_roi = touched_bytes(pyr, rois, levels, scales)
+        nbytes = (touched + n_roi * (16 + 4)
+                  + n_roi * 49 * c * pyr[0].element_size())
+        ops = n_roi * c * (49 * 16 * 3 + 49)   # 16 taps x (w*w, *v, +) per bin
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"kernel windowed_align bf16 B=16 R={r} C=256: {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); the rois' "
+            f"footprints, each pixel once per roi: {per_roi / 1e6:.1f} MB")
+        shapes[f"R{r}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, max_abs_err=err,
+                               max_abs_err_f32=err32, bytes=nbytes,
+                               footprint_bytes=per_roi)
+        del pyr, got
+    pred = shapes[f"R{ALIGN_ROIS[0]}"]
+    row = dict(name="windowed_align", route="cuda",
+               source="two_stage_object_detection_tpu_torch/csrc/windowed_align.cu",
+               replaces="two_stage_object_detection_tpu/ops/pallas_windowed_align.py:52",
+               library_ms=None, **{key: pred[key] for key in (
+                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    return row, shapes
 
 
 # ------------------------------------------------------------ kernels 3/4
@@ -1130,8 +1193,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
-    kernels = [check_nms(rng, dev), check_align(rng, dev),
-               *check_fused(rng, dev)]
+    nms_row, nms_shapes = check_nms(rng, dev)
+    align_row, align_shapes = check_align(rng, dev)
+    kernels = [nms_row, align_row, *check_fused(rng, dev)]
     pool_row, pool_values_only = check_roi_pool(rng, dev)
     kernels += [pool_row, *check_roi_pool_bwd(rng, dev)]
     torch.cuda.empty_cache()
@@ -1185,7 +1249,9 @@ def main() -> int:
                        "train": train_perf, "train_f32_parity": train_par,
                        "train_modes_ms": mode_ms,
                        "train_modes_launches": mode_launches,
-                       "roi_pool_max_values_only": pool_values_only}, f,
+                       "roi_pool_max_values_only": pool_values_only,
+                       "greedy_nms_shapes": nms_shapes,
+                       "windowed_align_shapes": align_shapes}, f,
                       indent=1)
     log(smi)
     log(json.dumps(line))

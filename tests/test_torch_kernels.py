@@ -50,20 +50,35 @@ def dev():
     return torch.device("cuda")
 
 
-def _sorted_rows(rng, b, k):
+def _sorted_rows(rng, b, k, edges=False):
+    """Score-sorted rows, the last tenth masked.  With ``edges``, image 0
+    has every row masked, image 1 only 5 valid rows (fewer survivors than
+    any ``n_post`` here) and image 2 one box repeated with jitter, so that
+    each valid row suppresses nearly all after it and the walk reaches the
+    last tile."""
     xy = rng.rand(b, k, 2) * 200.0
     boxes = np.concatenate([xy, xy + rng.rand(b, k, 2) * 80 + 4], -1)
     scores = rng.randint(0, 30, size=(b, k)) / 30.0
     scores[:, -k // 10:] = -1e9
+    if edges:
+        scores[0] = -1e9
+        scores[1, 5:] = -1e9
+        boxes[2] = [50.0, 60.0, 150.0, 140.0] + rng.rand(k, 4) * 2.0
     order = np.argsort(-scores, axis=1, kind="stable")
     boxes = np.take_along_axis(boxes, order[..., None], 1).astype(np.float32)
     scores = np.take_along_axis(scores, order, 1).astype(np.float32)
     return torch.from_numpy(boxes), torch.from_numpy(scores)
 
 
-@pytest.mark.parametrize("k,n_post", [(1, 1), (64, 8), (130, 40), (3000, 300)])
-def test_greedy_nms_kernel_bitwise_equals_plain(rng, dev, k, n_post):
-    boxes, scores = _sorted_rows(rng, 3, k)
+@pytest.mark.parametrize("b,k,n_post,edges", [
+    (3, 1, 1, False), (3, 64, 8, False), (3, 130, 40, False),
+    (3, 3000, 300, False), (16, 3000, 300, False), (3, 12000, 600, False),
+    (2, 28000, 600, False), (3, 3000, 300, True), (3, 12000, 600, True)])
+def test_greedy_nms_kernel_bitwise_equals_plain(rng, dev, b, k, n_post, edges):
+    """Kernel 1 == its plain version, bit for bit, at the predict and train
+    shapes, the row cap, B=16, and on masked, few-survivor and
+    all-suppressing images."""
+    boxes, scores = _sorted_rows(rng, b, k, edges)
     boxes, scores = boxes.to(dev), scores.to(dev)
     before = greedy_nms.launches
     got = greedy_nms(boxes, scores, n_post=n_post, iou_threshold=0.7)
@@ -73,6 +88,9 @@ def test_greedy_nms_kernel_bitwise_equals_plain(rng, dev, k, n_post):
     assert greedy_nms.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    if edges:
+        kept = got[2].sum(1).tolist()
+        assert kept[0] == 0 and 0 < kept[1] <= 5 and 0 < kept[2] < n_post
 
 
 def test_greedy_nms_kernel_rejects_bad_input(dev):
@@ -82,24 +100,49 @@ def test_greedy_nms_kernel_rejects_bad_input(dev):
                    iou_threshold=0.5)
 
 
-@pytest.mark.parametrize("dtype,c", [(torch.float32, 32), (torch.float32, 300),
-                                     (torch.bfloat16, 256)])
-def test_windowed_align_kernel_matches_plain(rng, dev, dtype, c):
+@pytest.mark.parametrize("dtype,c,r,p,s", [
+    (torch.float32, 32, 20, 7, 2), (torch.float32, 300, 20, 7, 2),
+    (torch.bfloat16, 256, 20, 7, 2), (torch.bfloat16, 256, 128, 7, 2),
+    (torch.bfloat16, 260, 20, 7, 2), (torch.float32, 30, 20, 7, 2),
+    (torch.float32, 32, 20, 5, 3)])
+def test_windowed_align_kernel_matches_plain(rng, dev, dtype, c, r, p, s):
     """f32: <= 1e-5 (summation order); bf16: within one bf16 rounding of
-    the plain version run in f32 on the same bf16 features."""
+    the plain version run in f32 on the same bf16 features.  C=260 bf16 and
+    C=30 f32 take 8-byte vectors; P=5, S=3 the kernel's generic loops."""
     hw = [(40, 40), (20, 20), (10, 10), (5, 5)]
     scales = tuple((h / 160.0, w / 160.0) for h, w in hw)
     pyr = [torch.randn(2, h, w, c, device=dev).to(dtype) for h, w in hw]
-    x1 = torch.from_numpy(rng.rand(2, 20, 2).astype(np.float32) * 170 - 10)
-    wh = torch.from_numpy(rng.rand(2, 20, 2).astype(np.float32) * 150 + 2)
+    x1 = torch.from_numpy(rng.rand(2, r, 2).astype(np.float32) * 170 - 10)
+    wh = torch.from_numpy(rng.rand(2, r, 2).astype(np.float32) * 150 + 2)
     rois = torch.cat([x1, x1 + wh], -1).to(dev)
-    levels = torch.from_numpy(rng.randint(0, 4, (2, 20)).astype(np.int32)).to(dev)
-    got = windowed_roi_align_batched(pyr, rois, levels, scales)
-    want = windowed_roi_align_batched([p.float() for p in pyr], rois, levels,
-                                      scales, use_kernel=False)
+    levels = torch.from_numpy(rng.randint(0, 4, (2, r)).astype(np.int32)).to(dev)
+    before = windowed_roi_align_batched.launches
+    got = windowed_roi_align_batched(pyr, rois, levels, scales, p, s)
+    want = windowed_roi_align_batched([t.float() for t in pyr], rois, levels,
+                                      scales, p, s, use_kernel=False)
+    torch.cuda.synchronize()
+    assert windowed_roi_align_batched.launches == before + 1
+    assert got.shape == (2, r, p, p, c) and got.dtype == dtype
     diff = (got.float() - want).abs()
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 * want.abs() + 1e-5
     assert bool((diff <= tol).all()), float(diff.max())
+
+
+def test_windowed_align_kernel_rejects_misaligned_input(dev):
+    """A level whose data does not start on 16 bytes raises (the kernel's
+    vector loads need it); nothing is launched."""
+    hw = [(8, 8), (4, 4)]
+    scales = tuple((h / 32.0, w / 32.0) for h, w in hw)
+    pyr = [torch.zeros(1, h, w, 8, device=dev, dtype=torch.bfloat16)
+           for h, w in hw]
+    pyr[1] = torch.zeros(1 * 4 * 4 * 8 + 1, device=dev,
+                         dtype=torch.bfloat16)[1:].view(1, 4, 4, 8)
+    rois = torch.tensor([[[0.0, 0.0, 16.0, 16.0]]], device=dev)
+    levels = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    before = windowed_roi_align_batched.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        windowed_roi_align_batched(pyr, rois, levels, scales)
+    assert windowed_roi_align_batched.launches == before
 
 
 def _proposal_data(rng, b, n, img=600.0):

@@ -115,5 +115,11 @@ def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    check_aligned(t, name)
+
+
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise unless ``t``'s data starts on a 16-byte boundary: the kernels
+    load their inputs in vectors of up to 16 bytes."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")

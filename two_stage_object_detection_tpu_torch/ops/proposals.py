@@ -24,6 +24,7 @@ two routes (:func:`proposals_batched` picks one as
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,7 +33,11 @@ from two_stage_object_detection_tpu_torch.ops.geometry import (
     clip_boxes, loc2bbox)
 from two_stage_object_detection_tpu_torch.ops.nms import NEG_INF, topk_stable
 
-# the scan kernel keeps one 8-byte mask word per row in shared memory
+# kernel 1 spreads an image over a cluster of up to NMS_MAX_CLUSTER blocks,
+# each holding its share of the rows in tiles of NMS_TILE (16 bytes of box
+# and one alive bit a row, in shared memory): 28,000 rows are 56 KB a block
+NMS_TILE = 64
+NMS_MAX_CLUSTER = 8
 MAX_KERNEL_ROWS = 28000
 # kernel 3 keeps every row's box (16 bytes) in one block's shared memory up
 # to MAX_FUSED_SMEM_ROWS rows, and in a global scratch buffer above that, up
@@ -82,6 +87,16 @@ def greedy_nms_rows_reference(boxes: torch.Tensor, scores: torch.Tensor, *,
     return out_boxes, out_scores, out_valid
 
 
+def nms_cluster_size(k: int) -> int:
+    """Blocks of kernel 1's cluster for ``k`` rows per image: one per tile
+    of ``NMS_TILE`` rows, at most ``NMS_MAX_CLUSTER``.  Raises outside
+    ``1..MAX_KERNEL_ROWS``."""
+    if not 0 < k <= MAX_KERNEL_ROWS:
+        raise ValueError(f"greedy_nms kernel takes 1..{MAX_KERNEL_ROWS} rows "
+                         f"per image, got {k}")
+    return min(NMS_MAX_CLUSTER, -(-k // NMS_TILE))
+
+
 def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
                iou_threshold: float, use_kernel: bool = True):
     """Kernel 1: greedy NMS over score-sorted ``boxes [B, K, 4]`` f32.
@@ -98,19 +113,15 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
     b, k, _ = boxes.shape
     _cuda.require(boxes, "boxes", torch.float32, (b, k, 4))
     _cuda.require(scores, "scores", torch.float32, (b, k))
-    if not 0 < k <= MAX_KERNEL_ROWS:
-        raise ValueError(f"greedy_nms kernel takes 1..{MAX_KERNEL_ROWS} rows "
-                         f"per image, got {k}")
     dev = boxes.device
-    n_words = (k + 63) // 64
-    mask = torch.empty((b, k, n_words), dtype=torch.int64, device=dev)
+    cluster = _nms_cluster(dev.index, b, k)
     out_boxes = torch.empty((b, n_post, 4), dtype=torch.float32, device=dev)
     out_scores = torch.empty((b, n_post), dtype=torch.float32, device=dev)
     out_valid = torch.empty((b, n_post), dtype=torch.bool, device=dev)
     fn = _nms_fn()
     with torch.cuda.device(dev):
-        status = fn(boxes.data_ptr(), scores.data_ptr(), mask.data_ptr(),
-                    b, k, n_post, iou_threshold, out_boxes.data_ptr(),
+        status = fn(boxes.data_ptr(), scores.data_ptr(), b, k, n_post,
+                    iou_threshold, cluster, out_boxes.data_ptr(),
                     out_scores.data_ptr(), out_valid.data_ptr(),
                     _cuda.stream_handle(boxes))
     _cuda.check(status, "nms_launch")
@@ -121,10 +132,21 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
 greedy_nms.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _nms_cluster(device_index: int, b: int, k: int) -> int:
+    """Blocks per image that let all ``b`` images run at once on this card,
+    at most :func:`nms_cluster_size` (``csrc/nms.cu:nms_pick_cluster``)."""
+    fn = _cuda.library("nms").nms_pick_cluster
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device_index):
+        return fn(b, k, nms_cluster_size(k))
+
+
 def _nms_fn():
     fn = _cuda.library("nms").nms_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_float] + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return fn
 

@@ -50,8 +50,7 @@ def windowed_roi_align_batched(pyramid, rois: torch.Tensor,
     b, r, _ = rois.shape
     c = pyramid[0].shape[-1]
     dt = pyramid[0].dtype
-    if dt not in _DTYPES:
-        raise ValueError(f"windowed_align kernel takes f32 or bf16, got {dt}")
+    vec = align_vector_width(c, dt)
     for i, f in enumerate(pyramid):
         _cuda.require(f, f"pyramid[{i}]", dt, (b, f.shape[1], f.shape[2], c))
     _cuda.require(rois, "rois", torch.float32, (b, r, 4))
@@ -66,7 +65,7 @@ def windowed_roi_align_batched(pyramid, rois: torch.Tensor,
     with torch.cuda.device(rois.device):
         status = fn(feats, hw, scl, n, rois.data_ptr(), levels.data_ptr(),
                     out.data_ptr(), b, r, c, p, s, window, int(aligned),
-                    _DTYPES[dt], _cuda.stream_handle(rois))
+                    _DTYPES[dt], vec, _cuda.stream_handle(rois))
     _cuda.check(status, "windowed_align_launch")
     windowed_roi_align_batched.launches += 1
     return out
@@ -75,10 +74,23 @@ def windowed_roi_align_batched(pyramid, rois: torch.Tensor,
 windowed_roi_align_batched.launches = 0
 
 
+def align_vector_width(c: int, dtype: torch.dtype) -> int:
+    """Channels kernel 2 loads at once: the widest vector of 16, 8, 4 or 2
+    bytes (one element at least) that divides a pixel's ``c`` channels, so
+    every pixel of a 16-byte aligned ``[H, W, c]`` map starts on a vector
+    and no channel is left over (bf16: 8 for C=256, 4 for C=260; f32: 4 for
+    C=256, 2 for C=30)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"windowed_align kernel takes f32 or bf16, got {dtype}")
+    size = dtype.itemsize
+    return next(n // size for n in (16, 8, 4, 2)
+                if n >= size and (c * size) % n == 0)
+
+
 def _align_fn():
     fn = _cuda.library("windowed_align").windowed_align_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
