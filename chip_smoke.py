@@ -9,7 +9,12 @@ plain PyTorch version at the shapes of the path that runs it, and times
 both; kernels 1 and 2 at the flagship's predict and train shapes (kernel 1
 K=3000 -> 300 and K=12,000 -> 600, bit for bit, also on images with every
 row masked, with fewer survivors than ``n_post`` and with one box
-repeated; kernel 2 R=300 and R=128).  Then it serves requests through the port's ``Predictor`` on
+repeated; kernel 2 R=300 and R=128), kernel 3 (two launches: decode and
+sort in ``csrc/proposals.cu``, kernel 1's walk in ``csrc/nms.cu``) bit for
+bit at the single scale's 12,996 anchors (n_post 300 and 600), at the
+16,368 of a 256x256 FPN input and at the 65,472 of a 512x512 one (n_post
+600, B=4), and kernel 5 values and argmax at R=300 and R=128.  Then it
+serves requests through the port's ``Predictor`` on
 two paths, each at full width (600x600, 81 classes, 100 detections,
 bfloat16, seeded random weights), with every launch counter set to 0 just
 before and read just after:
@@ -402,24 +407,52 @@ def fused_bound_ms(locs, fg, anchors, img, n_post: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sort_ms(locs, fg, anchors, img, iters: int = 20) -> float:
+    """Device time of kernel 3's launch A alone (decode, mask, sort)."""
+    from two_stage_object_detection_tpu_torch.ops import _cuda
+    from two_stage_object_detection_tpu_torch.ops import proposals as P
+    b, n, _ = locs.shape
+    keys = torch.empty((b, n), dtype=torch.int64, device=locs.device)
+    boxes = torch.empty((b, n, 4), dtype=torch.float32, device=locs.device)
+    scores = torch.empty((b, n), dtype=torch.float32, device=locs.device)
+    fn = P._sort_fn()
+
+    def run():
+        _cuda.check(fn(locs.data_ptr(), fg.data_ptr(), anchors.data_ptr(), b,
+                       n, 16.0, float(img[0]), float(img[1]), keys.data_ptr(),
+                       boxes.data_ptr(), scores.data_ptr(),
+                       _cuda.stream_handle(locs)), "proposals_sort_launch")
+    return cuda_time_ms(run, iters)
+
+
+# kernel 3's shapes: (label, config, B, n_post); the first three are the
+# single-scale predict and train launches and kernel 4's one-image launch
+FUSED_SHAPES = (("predict", None, 16, 300), ("train", None, 16, 600),
+                ("one image", None, 1, 300), ("FPN 256", (256, 256), 16, 300),
+                ("FPN 512 train", (512, 512), 4, 600))
+
+
 def check_fused(rng, dev):
     """Kernel 3 at B=16 (predict n_post 300, train n_post 600) and kernel 4
-    (B=1), bit for bit against the plain version; then kernel 3 with its
-    boxes in the scratch buffer, on the 16,368 anchors of an FPN input of
-    256x256 (the whole-table route, as 6 * 3000 > 16,368), checked and
-    timed but not a row of the kernels line."""
+    (B=1), bit for bit against the plain version and timed; then kernel 3
+    on the 16,368 anchors of an FPN input of 256x256 (the predict's
+    whole-table route, as 6 * 3000 > 16,368) and on the 65,472 anchors of
+    one of 512x512 at the train's n_post (its whole-table route, as
+    6 * 12,000 > 65,472; B=4), checked and timed but not rows of the
+    kernels line.  Each timed shape also times launch A alone.  Returns the
+    rows of kernels 3 and 4 and each shape's numbers."""
     from two_stage_object_detection_tpu_torch.config import Config
     from two_stage_object_detection_tpu_torch.ops.proposals import (
         fused_proposals, fused_proposals_batched,
         fused_proposals_rows_reference)
     kw = dict(nms_iou=0.7, min_size=16.0)
-    single = Config()
-    fpn256 = Config(fpn=True, backbone="resnet50", input_size=(256, 256))
-    rows = []
-    for cfg, b, n_post in ((single, 16, 300), (single, 16, 600),
-                           (single, 1, 300), (fpn256, 16, 300)):
+    rows, shapes = [], {}
+    for label, size, b, n_post in FUSED_SHAPES:
+        cfg = (Config() if size is None else
+               Config(fpn=True, backbone="resnet50", input_size=size))
         img = cfg.input_size
         locs, fg, anchors = fused_inputs(rng, b, dev, cfg)
+        n = locs.shape[1]
         if b == 1:
             run = lambda: [t[None] for t in fused_proposals(      # noqa: E731
                 locs[0], fg[0], anchors, img, n_post_nms=n_post, **kw)]
@@ -434,30 +467,34 @@ def check_fused(rng, dev):
         err = float((got[0] - want[0]).abs().max())
         n_valid = int(got[2].sum())
         name = "fused_proposals" if b == 1 else "fused_proposals_batched"
-        log(f"kernel {name} B={b} N={locs.shape[1]} n_post={n_post}: "
-            f"{n_diff} elements differ from plain, {n_valid} kept, "
-            f"max |box diff| {err:.3e}")
-        require(n_diff == 0, f"{name} n_post={n_post}: outputs differ from "
-                "the plain version (must be bitwise equal)")
+        log(f"kernel {name} B={b} N={n} n_post={n_post} ({label}): {n_diff} "
+            f"elements differ from plain, {n_valid} kept, max |box diff| "
+            f"{err:.3e}")
+        require(n_diff == 0, f"{name} N={n} n_post={n_post}: outputs differ "
+                "from the plain version (must be bitwise equal)")
         require(n_valid > 0, f"{name} kept nothing")
-        if n_post == 600:
-            continue                      # the train shape: checked, not timed
         ms = cuda_time_ms(run, 20)
+        a_ms = sort_ms(locs, fg, anchors, img)
         plain_ms = cuda_time_ms(plain, 3, warmup=1)
         bound_ms, bound_by = fused_bound_ms(locs, fg, anchors, img, n_post)
-        log(f"kernel {name} B={b} N={locs.shape[1]} n_post={n_post}: "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
-            f"({bound_by})")
-        if cfg is fpn256:
+        log(f"kernel {name} B={b} N={n} n_post={n_post}: {ms:.4f} ms (launch "
+            f"A alone {a_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+        shapes[f"{label} N{n} n_post{n_post} B{b}"] = dict(
+            ms=ms, launch_a_ms=a_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, kept=n_valid, max_abs_err=err)
+        if label not in ("predict", "one image"):
             continue
         line = 43 if b == 1 else 191
         rows.append(dict(
             name=name, route="cuda",
             source="two_stage_object_detection_tpu_torch/csrc/proposals.cu",
+            sources=["two_stage_object_detection_tpu_torch/csrc/proposals.cu",
+                     "two_stage_object_detection_tpu_torch/csrc/nms.cu"],
             replaces=f"two_stage_object_detection_tpu/ops/pallas_proposals.py:{line}",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None))
-    return rows
+    return rows, shapes
 
 
 # ------------------------------------------------------------ kernel 5
@@ -505,54 +542,75 @@ def roi_pool_bound_ms(feats, rois, p: int = 7, out_bytes: int = 8):
 
 
 def check_roi_pool(rng, dev):
-    """Kernel 5 at B=16, R=300, C=512, 38x38, P=7 from bf16 maps: values
-    and argmax equal to the plain version (run one image at a time).
-    Returns its row of the kernels line and the time and bound of the
-    launch without the index store."""
+    """Kernel 5 at B=16, C=512, 38x38, P=7 from bf16 maps, at the predict's
+    R=300 and the train's R=128: values and argmax equal to the plain
+    version (run one image at a time), and the launch without the index
+    store equal too; each timed.  Beside the HBM bound it prints what the
+    direct scan (the design before the map slice in shared memory) pulls
+    from L2: every bin's pixels x C x 2 bytes.  Returns the R=300 row of
+    the kernels line and each shape's numbers."""
     from two_stage_object_detection_tpu_torch.ops.roi_pool import (
         roi_pool_argmax)
     from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
-        roi_pool_max)
-    feats, rois = roi_pool_inputs(rng, dev)
-    got = roi_pool_max(feats, rois, with_argmax=True)
+        roi_pool_max, roi_pool_plan)
+    shapes, row = {}, None
+    for r in (300, 128):
+        feats, rois = roi_pool_inputs(rng, dev, r=r)
+        b, h, w, c = feats.shape
+        plan = roi_pool_plan(b, h, w, c, r, feats.element_size(),
+                             torch.cuda.get_device_properties(dev)
+                             .multi_processor_count)
+        got = roi_pool_max(feats, rois, with_argmax=True)
 
-    def plain():
-        return [roi_pool_argmax(feats[i:i + 1], rois[i:i + 1])
-                for i in range(feats.shape[0])]
+        def plain():
+            return [roi_pool_argmax(feats[i:i + 1], rois[i:i + 1])
+                    for i in range(feats.shape[0])]
 
-    want = plain()
-    torch.cuda.synchronize()
-    n_diff = sum(int((got[0][i] != v[0]).sum() + (got[1][i] != a[0]).sum())
-                 for i, (v, a) in enumerate(want))
-    err = max(float((got[0][i] - v[0]).abs().max())
-              for i, (v, _) in enumerate(want))
-    n_empty = int((got[1] < 0).sum())
-    log(f"kernel roi_pool_max bf16 B=16 R=300 C=512 38x38 P=7: {n_diff} "
-        f"elements differ from plain (values and argmax), {n_empty} empty "
-        "cells")
-    require(n_diff == 0, "roi_pool_max differs from the plain version "
-            "(values and argmax must be equal)")
-    del want
-    ms = cuda_time_ms(lambda: roi_pool_max(feats, rois, with_argmax=True), 20)
-    plain_ms = cuda_time_ms(plain, 2, warmup=1)
-    bound_ms, bound_by, nbytes = roi_pool_bound_ms(feats, rois)
-    log(f"kernel roi_pool_max B=16 R=300 C=512: {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.1f} MB)")
-    # the launch that no backward follows: no index buffer, half the bytes
-    values, none = roi_pool_max(feats, rois, with_argmax=False)
-    require(none is None and torch.equal(values, got[0]),
-            "roi_pool_max without the index store gives other values")
-    v_ms = cuda_time_ms(lambda: roi_pool_max(feats, rois, with_argmax=False), 20)
-    v_bound, v_by, v_bytes = roi_pool_bound_ms(feats, rois, out_bytes=4)
-    log(f"kernel roi_pool_max values only: {v_ms:.4f} ms, bound "
-        f"{v_bound:.5f} ms ({v_by}: {v_bytes / 1e6:.1f} MB)")
-    row = dict(name="roi_pool_max", route="cuda",
-               source="two_stage_object_detection_tpu_torch/csrc/roi_pool.cu",
-               replaces="two_stage_object_detection_tpu/ops/pallas_roi.py:38",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=None)
-    return row, {"ms": v_ms, "bound_ms": v_bound, "bound_by": v_by}
+        want = plain()
+        torch.cuda.synchronize()
+        n_diff = sum(int((got[0][i] != v[0]).sum() + (got[1][i] != a[0]).sum())
+                     for i, (v, a) in enumerate(want))
+        err = max(float((got[0][i] - v[0]).abs().max())
+                  for i, (v, _) in enumerate(want))
+        n_empty = int((got[1] < 0).sum())
+        log(f"kernel roi_pool_max bf16 B={b} R={r} C={c} {h}x{w} P=7 ({plan}): "
+            f"{n_diff} elements differ from plain (values and argmax), "
+            f"{n_empty} empty cells")
+        require(n_diff == 0, f"roi_pool_max R={r} differs from the plain "
+                "version (values and argmax must be equal)")
+        del want
+        # the launch that no backward follows: no index buffer, half the bytes
+        values, none = roi_pool_max(feats, rois, with_argmax=False)
+        require(none is None and torch.equal(values, got[0]),
+                f"roi_pool_max R={r} without the index store gives other "
+                "values")
+        del values
+        ms = cuda_time_ms(lambda: roi_pool_max(feats, rois, with_argmax=True),
+                          20)
+        v_ms = cuda_time_ms(lambda: roi_pool_max(feats, rois,
+                                                 with_argmax=False), 20)
+        plain_ms = cuda_time_ms(plain, 2, warmup=1)
+        bound_ms, bound_by, nbytes = roi_pool_bound_ms(feats, rois)
+        v_bound, v_by, v_bytes = roi_pool_bound_ms(feats, rois, out_bytes=4)
+        l2_bytes = bin_pixels(rois, h, w) * c * feats.element_size()
+        log(f"kernel roi_pool_max B={b} R={r} C={c}: {ms:.4f} ms, values only "
+            f"{v_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}: {nbytes / 1e6:.1f} MB), values only {v_bound:.5f} "
+            f"ms ({v_by}: {v_bytes / 1e6:.1f} MB); the direct scan's L2 -> SM "
+            f"bytes (bin pixels x C x 2): {l2_bytes / 1e6:.1f} MB")
+        shapes[f"R{r}"] = dict(ms=ms, values_only_ms=v_ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               values_only_bound_ms=v_bound,
+                               bytes=nbytes, l2_scan_bytes=l2_bytes,
+                               max_abs_err=err, plan=plan)
+        if row is None:
+            row = dict(name="roi_pool_max", route="cuda",
+                       source="two_stage_object_detection_tpu_torch/csrc/roi_pool.cu",
+                       replaces="two_stage_object_detection_tpu/ops/pallas_roi.py:38",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        del feats, got
+    return row, shapes
 
 
 # ------------------------------------------------------ kernel 6, scatter
@@ -1195,8 +1253,9 @@ def main() -> int:
     rng = np.random.RandomState(0)
     nms_row, nms_shapes = check_nms(rng, dev)
     align_row, align_shapes = check_align(rng, dev)
-    kernels = [nms_row, align_row, *check_fused(rng, dev)]
-    pool_row, pool_values_only = check_roi_pool(rng, dev)
+    fused_rows, fused_shapes = check_fused(rng, dev)
+    kernels = [nms_row, align_row, *fused_rows]
+    pool_row, pool_shapes = check_roi_pool(rng, dev)
     kernels += [pool_row, *check_roi_pool_bwd(rng, dev)]
     torch.cuda.empty_cache()
 
@@ -1239,7 +1298,9 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    line = {"kernels": [{key: k[key] for key in keys} for k in kernels]}
+    line = {"kernels": [{**{key: k[key] for key in keys},
+                         **{key: k[key] for key in ("sources",) if key in k}}
+                        for k in kernels]}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -1249,7 +1310,8 @@ def main() -> int:
                        "train": train_perf, "train_f32_parity": train_par,
                        "train_modes_ms": mode_ms,
                        "train_modes_launches": mode_launches,
-                       "roi_pool_max_values_only": pool_values_only,
+                       "fused_proposals_shapes": fused_shapes,
+                       "roi_pool_max_shapes": pool_shapes,
                        "greedy_nms_shapes": nms_shapes,
                        "windowed_align_shapes": align_shapes}, f,
                       indent=1)

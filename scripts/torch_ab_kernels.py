@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels 1 and 2 of the PyTorch port in two checkouts of the
+"""Time kernels 1, 2, 3 and 5 of the PyTorch port in two checkouts of the
 repository on the same GPU, in turns within one call, so that two designs
 are compared under the same card, power limit and host load.
 
@@ -11,11 +11,16 @@ checkout: it builds that checkout's kernels and times, with CUDA events,
 * ``greedy_nms`` (kernel 1) at B=16, K=3000 -> 300 (predict) and
   K=12,000 -> 600 (train), 50 and 20 launches;
 * ``windowed_roi_align_batched`` (kernel 2) at B=16, R=300 (predict) and
-  R=128 (train), C=256 bf16 over P2..P5 of a 600x600 image, 20 launches.
+  R=128 (train), C=256 bf16 over P2..P5 of a 600x600 image, 20 launches;
+* ``fused_proposals_batched`` (kernel 3) at B=16 over the 12,996 anchors
+  of ``Config()``, n_post 300 (predict) and 600 (train), 20 launches;
+* ``roi_pool_max`` (kernel 5) at B=16, 38x38x512 bf16, P=7: R=300 with and
+  without the index store, and R=128 with it, 20 launches.
 
 The inputs come from this script's own ``chip_smoke.py`` (``nms_inputs``,
-``align_inputs``) with a fixed seed per shape, so both checkouts get the same
-data; a checksum of each output shows that they compute the same thing.
+``align_inputs``, ``fused_inputs``, ``roi_pool_inputs``) with a fixed seed
+per shape, so both checkouts get the same data; a checksum of each output
+shows that they compute the same thing.
 The last line is one JSON object with every turn.
 """
 
@@ -35,8 +40,12 @@ def worker() -> None:
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
+    from two_stage_object_detection_tpu_torch.config import Config
     from two_stage_object_detection_tpu_torch.ops import _cuda
-    from two_stage_object_detection_tpu_torch.ops.proposals import greedy_nms
+    from two_stage_object_detection_tpu_torch.ops.proposals import (
+        fused_proposals_batched, greedy_nms)
+    from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
+        roi_pool_max)
     from two_stage_object_detection_tpu_torch.ops.windowed_align import (
         windowed_roi_align_batched)
 
@@ -66,6 +75,27 @@ def worker() -> None:
             "ms": cs.cuda_time_ms(run, 20),
             "checksum": float(got.double().sum())}
         del pyr, got
+        torch.cuda.empty_cache()
+    cfg = Config()
+    locs, fg, anchors = cs.fused_inputs(np.random.RandomState(3), 16, dev, cfg)
+    for n_post in (300, 600):
+        run = lambda: fused_proposals_batched(  # noqa: E731
+            locs, fg, anchors, cfg.input_size, nms_iou=0.7,
+            n_post_nms=n_post, min_size=16.0)
+        got = run()
+        out[f"fused_proposals_N{locs.shape[1]}_post{n_post}"] = {
+            "ms": cs.cuda_time_ms(run, 20), "kept": int(got[2].sum()),
+            "checksum": float(got[0].double().sum())}
+    for r, with_argmax in ((300, True), (300, False), (128, True)):
+        feats, rois = cs.roi_pool_inputs(np.random.RandomState(r), dev, r=r)
+        run = lambda: roi_pool_max(  # noqa: E731
+            feats, rois, with_argmax=with_argmax)
+        got = run()
+        out[f"roi_pool_max_R{r}{'' if with_argmax else '_values_only'}"] = {
+            "ms": cs.cuda_time_ms(run, 20),
+            "checksum": float(got[0].double().sum())
+            + (float(got[1].double().sum()) if with_argmax else 0.0)}
+        del feats, got
         torch.cuda.empty_cache()
     print("AB_RESULT " + json.dumps(out), flush=True)
 
@@ -99,7 +129,8 @@ def main() -> int:
         spread = (max(sums) - min(sums)) / max(max(map(abs, sums)), 1e-30)
         print(f"{name}: output checksums {sums} (relative spread "
               f"{spread:.2e}; kernel 2 rounds its f32 sums to bf16, so two "
-              "designs may differ by a bf16 ulp)")
+              "designs may differ by a bf16 ulp; kernels 1, 3 and 5 must "
+              "agree exactly)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

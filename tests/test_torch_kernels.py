@@ -21,15 +21,15 @@ import torch
 from two_stage_object_detection_tpu_torch.config import Config
 from two_stage_object_detection_tpu_torch.ops.anchors import make_fpn_anchors
 from two_stage_object_detection_tpu_torch.ops.proposals import (
-    MAX_FUSED_ROWS, MAX_FUSED_SMEM_ROWS, fused_proposals,
-    fused_proposals_batched, fused_proposals_rows_reference, greedy_nms,
-    greedy_nms_rows_reference, proposals_batched)
+    MAX_KERNEL_ROWS, fused_proposals, fused_proposals_batched,
+    fused_proposals_rows_reference, greedy_nms, greedy_nms_rows_reference,
+    proposals_batched)
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
     roi_pool_argmax, roi_pool_grad_first_argmax, scatter_argmax_grad)
 from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
     roi_pool_bwd_recompute, roi_pool_fast)
 from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
-    roi_pool_bwd_scatter, roi_pool_max)
+    roi_pool_bwd_scatter, roi_pool_max, roi_pool_plan)
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     windowed_roi_align_batched)
 
@@ -73,11 +73,13 @@ def _sorted_rows(rng, b, k, edges=False):
 @pytest.mark.parametrize("b,k,n_post,edges", [
     (3, 1, 1, False), (3, 64, 8, False), (3, 130, 40, False),
     (3, 3000, 300, False), (16, 3000, 300, False), (3, 12000, 600, False),
-    (2, 28000, 600, False), (3, 3000, 300, True), (3, 12000, 600, True)])
+    (2, 28000, 600, False), (2, 65472, 300, False),
+    (1, MAX_KERNEL_ROWS, 100, False), (3, 3000, 300, True),
+    (3, 12000, 600, True)])
 def test_greedy_nms_kernel_bitwise_equals_plain(rng, dev, b, k, n_post, edges):
     """Kernel 1 == its plain version, bit for bit, at the predict and train
-    shapes, the row cap, B=16, and on masked, few-survivor and
-    all-suppressing images."""
+    shapes, at 65,472 rows (at least 5 blocks an image) and the row cap,
+    B=16, and on masked, few-survivor and all-suppressing images."""
     boxes, scores = _sorted_rows(rng, b, k, edges)
     boxes, scores = boxes.to(dev), scores.to(dev)
     before = greedy_nms.launches
@@ -97,6 +99,11 @@ def test_greedy_nms_kernel_rejects_bad_input(dev):
     boxes = torch.zeros((1, 8, 4), device=dev, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         greedy_nms(boxes, torch.zeros((1, 8), device=dev), n_post=2,
+                   iou_threshold=0.5)
+    k = MAX_KERNEL_ROWS + 1
+    with pytest.raises(ValueError, match=f"1..{MAX_KERNEL_ROWS} rows"):
+        greedy_nms(torch.zeros((1, k, 4), device=dev),
+                   torch.zeros((1, k), device=dev), n_post=2,
                    iou_threshold=0.5)
 
 
@@ -163,23 +170,36 @@ def _proposal_data(rng, b, n, img=600.0):
                  for a in (locs, fg, anchors))
 
 
-@pytest.mark.parametrize("b,n,n_post", [(1, 1, 1), (2, 600, 64),
-                                        (3, 5000, 300),
-                                        (2, MAX_FUSED_SMEM_ROWS, 40),
-                                        (2, MAX_FUSED_SMEM_ROWS + 1, 40),
-                                        (2, MAX_FUSED_ROWS, 40)])
-def test_fused_proposals_kernel_bitwise_equals_plain(rng, dev, b, n, n_post):
-    """Kernel 3 == its plain version, bit for bit (torch.equal), with the
-    boxes in shared memory and, above its rows, in the scratch buffer."""
+@pytest.mark.parametrize("b,n,n_post,signed_zeros", [
+    (1, 1, 1, False), (2, 600, 64, False), (3, 5000, 300, False),
+    (2, 14336, 40, False), (2, 16368, 300, True), (2, 32768, 40, False),
+    (2, 65472, 600, True), (1, 71999, 300, True)])
+def test_fused_proposals_kernel_bitwise_equals_plain(rng, dev, b, n, n_post,
+                                                     signed_zeros):
+    """Kernel 3 == its plain version, bit for bit (torch.equal), over one
+    to eight sort chunks and cluster sizes down to the shared-memory floor
+    (65,472 and 71,999 rows: the whole-table train route of an FPN input of
+    512 px and its largest table); with ``signed_zeros`` all scores but 50
+    rows' are -0.0 or +0.0, which the plain argmax holds equal, so most
+    kept rows come from those ties."""
     locs, fg, anchors = (t.to(dev) for t in _proposal_data(rng, b, n))
+    if signed_zeros:
+        zeros = torch.from_numpy(np.where(rng.rand(b, n) < 0.5, -0.0, 0.0)
+                                 .astype(np.float32)).to(dev)
+        fg = torch.where(torch.arange(n, device=dev) % (n // 50) == 0, fg,
+                         zeros)
     kw = dict(nms_iou=0.7, n_post_nms=n_post, min_size=16.0)
-    before = fused_proposals_batched.launches
+    before = fused_proposals_batched.launches, greedy_nms.launches
     got = fused_proposals_batched(locs, fg, anchors, (600, 600), **kw)
     want = fused_proposals_rows_reference(locs, fg, anchors, (600, 600), **kw)
     torch.cuda.synchronize()
-    assert fused_proposals_batched.launches == before + 1
+    assert fused_proposals_batched.launches == before[0] + 1
+    assert greedy_nms.launches == before[1]
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    if signed_zeros:
+        kept = got[1][got[2]]
+        assert bool((kept == 0).any() & torch.signbit(kept).any())
 
 
 def test_fused_proposals_one_image_kernel(rng, dev):
@@ -203,7 +223,7 @@ def test_fpn_256_predict_proposals_take_kernel_3(rng, dev):
                  input_size=(256, 256))
     anchors = torch.from_numpy(make_fpn_anchors(cfg)).to(dev)
     n = anchors.shape[0]
-    assert MAX_FUSED_SMEM_ROWS < n < 6 * cfg.n_test_pre_nms
+    assert 14336 < n < 6 * cfg.n_test_pre_nms
     locs = torch.from_numpy((rng.randn(2, n, 4) * 0.2).astype(np.float32))
     fg = torch.from_numpy((rng.randint(0, 50, size=(2, n)) / 50.0)
                           .astype(np.float32))
@@ -222,11 +242,18 @@ def test_fpn_256_predict_proposals_take_kernel_3(rng, dev):
 
 
 def test_fused_proposals_kernel_raises_above_its_row_cap(rng, dev):
+    """Kernel 3 takes every table of the whole-table route at the default
+    ``n_train_pre_nms`` (N < 6 * 12,000) and raises, naming its cap, just
+    above ``MAX_KERNEL_ROWS``; nothing is launched."""
+    assert MAX_KERNEL_ROWS >= 6 * Config().n_train_pre_nms - 1
     locs, fg, anchors = (t.to(dev) for t in
-                         _proposal_data(rng, 1, MAX_FUSED_ROWS + 1))
-    with pytest.raises(ValueError, match="anchors per image"):
+                         _proposal_data(rng, 1, MAX_KERNEL_ROWS + 1))
+    before = fused_proposals_batched.launches
+    with pytest.raises(ValueError,
+                       match=f"1..{MAX_KERNEL_ROWS} anchors per image"):
         fused_proposals_batched(locs, fg, anchors, (600, 600), nms_iou=0.7,
                                 n_post_nms=8, min_size=16.0)
+    assert fused_proposals_batched.launches == before
 
 
 @pytest.mark.parametrize("dtype,c", [(torch.float32, 8), (torch.float32, 300),
@@ -252,6 +279,38 @@ def test_roi_pool_kernel_equals_plain(rng, dev, dtype, c):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert (got[1][:, 0] == -1).all() and (got[1][:, 1] == -1).any()
+
+
+@pytest.mark.parametrize("b,h,w,c,dtype,route", [
+    (1, 38, 38, 12, torch.float32, "slice"),
+    (1, 38, 38, 512, torch.bfloat16, "slice"),
+    (2, 38, 38, 260, torch.bfloat16, "slice"),
+    (1, 130, 120, 8, torch.bfloat16, "direct"),
+    (1, 130, 120, 4, torch.float32, "direct")])
+def test_roi_pool_kernel_routes_equal_plain(rng, dev, b, h, w, c, dtype, route):
+    """Kernel 5 on both routes == its plain version, values and argmax,
+    with and without the index store: one image (roi chunks that reload
+    the slice), f32 C=12, bf16 C=260 (8-byte vectors, 65 slices), and maps
+    too big for shared memory (the direct scan)."""
+    assert roi_pool_plan(b, h, w, c, 40, torch.finfo(dtype).bits // 8,
+                         132)["route"] == route
+    feats = torch.from_numpy((rng.randint(-8, 8, size=(b, h, w, c)) / 4.0)
+                             .astype(np.float32))
+    feats[:, 2:9, 1:6] = 0.75
+    xy = rng.rand(b, 40, 2) * np.array([w, h]) * 16 * 1.1 - 16
+    rois = np.concatenate([xy, xy + rng.rand(b, 40, 2) * np.array([w, h])
+                           * 12 + 2], -1)
+    rois[:, 0] = [-400, -300, -200, -100]
+    rois = torch.from_numpy(rois.astype(np.float32)).to(dev)
+    feats = feats.to(dev, dtype)
+    got = roi_pool_max(feats, rois, 7, 1.0 / 16)
+    values, none = roi_pool_max(feats, rois, 7, 1.0 / 16, with_argmax=False)
+    want = roi_pool_argmax(feats, rois, 7, 1.0 / 16)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    assert none is None and torch.equal(values, want[0])
+    assert (got[1][:, 0] == -1).all() and (got[1] >= 0).any()
 
 
 def test_roi_pool_kernel_rejects_bad_input(dev):

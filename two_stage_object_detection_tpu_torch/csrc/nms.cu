@@ -35,10 +35,17 @@
 // at K=3000) nor operations (each kept row against the rows after it: some
 // 14 M IoUs at K=3000, B=16), but the chain of tiles: per tile one walk,
 // one flag passed between SMs, two block barriers and one suppression
-// pass.  A cluster spreads an image, and its boxes, over up to 8 SMs
-// (28,000 rows: 56 KB a block).  The launcher takes the largest cluster of
-// which the card holds the whole batch at once (nms_pick_cluster): an
-// H100 holds fewer than 16 clusters of 8 such blocks, so B=16 gets 4.
+// pass.  A cluster spreads an image, and its boxes, over up to 8 SMs.  A
+// block's shared memory holds at most 219 tiles (1,032 bytes a tile), so
+// an image of K rows needs at least ceil(K / 64 / 219) blocks and 8 blocks
+// take up to 112,128 rows (ops/proposals.py:nms_cluster_bounds).  The
+// launcher takes the largest cluster of which the card holds the whole
+// batch at once, but never one below that floor (nms_pick_cluster): an
+// H100 holds fewer than 16 clusters of 8 1024-thread blocks, so B=16 gets
+// 4 at K=3000.
+//
+// Kernel 3 (csrc/proposals.cu) calls this walk too, over its whole table
+// once launch A has sorted it, with K = N.
 //
 // Exactness: the IoU is computed with __fmul_rn/__fadd_rn/__fsub_rn in the
 // order inter / (area + barea - inter + 1e-8), with area = (x2-x1)*(y2-y1),
@@ -330,13 +337,15 @@ bool launch_config(int batch, int k, int cluster, cudaStream_t stream,
 }  // namespace
 
 // Blocks per image for a batch of `batch` images of `k` rows: the largest of
-// max_cluster, max_cluster / 2, ... (ops/proposals.py:nms_cluster_size
-// gives max_cluster) of which the card can hold all `batch` clusters at
+// max_cluster, max_cluster / 2, ..., min_cluster (ops/proposals.py:
+// nms_cluster_bounds gives both; below min_cluster a block's shared memory
+// cannot hold its rows) of which the card can hold all `batch` clusters at
 // once (cudaOccupancyMaxActiveClusters), so that every image runs in one
-// wave; else the smallest whose blocks' shared memory holds their rows.
-extern "C" int nms_pick_cluster(int batch, int k, int max_cluster) {
+// wave; else min_cluster.
+extern "C" int nms_pick_cluster(int batch, int k, int max_cluster,
+                                int min_cluster) {
   int best = max_cluster;
-  for (int cs = max_cluster; cs >= 1; cs /= 2) {
+  for (int cs = max_cluster; cs >= min_cluster && cs >= 1;) {
     cudaLaunchAttribute attr[1];
     cudaLaunchConfig_t cfg;
     int per_block = 0, n_active = 0;
@@ -348,11 +357,13 @@ extern "C" int nms_pick_cluster(int batch, int k, int max_cluster) {
     }
     best = cs;
     if (n_active >= batch) break;
+    cs = (cs / 2 < min_cluster && cs > min_cluster) ? min_cluster : cs / 2;
   }
   return best;
 }
 
-// `cluster`: blocks per image, 1..min(8, ceil(k / 64)) (nms_pick_cluster).
+// `cluster`: blocks per image, 1..min(8, ceil(k / 64)) (nms_pick_cluster);
+// launch_config refuses one whose blocks cannot hold their rows.
 // Returns a cudaError_t code.
 extern "C" int nms_launch(const void* boxes, const void* scores, int batch,
                           int k, int n_post, float thr, int cluster,

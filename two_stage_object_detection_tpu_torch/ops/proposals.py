@@ -12,13 +12,17 @@ two routes (:func:`proposals_batched` picks one as
   the greedy NMS over the ``[B, K]`` survivors runs in kernel 1
   (``csrc/nms.cu``, :func:`greedy_nms`);
 * **whole table** (otherwise, the single-scale path and small FPN inputs):
-  decode, clip, min-size mask and greedy NMS over all ``N`` anchors run in
-  one launch of kernel 3 (``csrc/proposals.cu``,
-  :func:`fused_proposals_batched`), no sort: each step takes the best
-  alive score, lowest index on ties.  Its per-image form, kernel 4
-  (:func:`fused_proposals`), is the same kernel launched with ``B = 1``;
-  like the JAX package's ``_fused_kernel`` it is on neither the predict nor
-  the train path.
+  kernel 3 (:func:`fused_proposals_batched`) in two launches.  Launch A
+  (``csrc/proposals.cu``) decodes, clips and min-size masks all ``N``
+  anchors and sorts each image's rows by a unique 64-bit key (score
+  descending, index ascending: :func:`order_keys`), in shared memory and
+  with no library sort; launch B is kernel 1's walk over the sorted rows
+  with ``K = N`` (:func:`_nms_walk`, which ``greedy_nms.launches`` does not
+  count).  Taking "the best alive score, lowest index on ties" at each
+  step, as the JAX kernel does, is walking the rows in that order.  Its
+  per-image form, kernel 4 (:func:`fused_proposals`), is the same launches
+  with ``B = 1``; like the JAX package's ``_fused_kernel`` it is on neither
+  the predict nor the train path.
 """
 
 from __future__ import annotations
@@ -34,17 +38,20 @@ from two_stage_object_detection_tpu_torch.ops.geometry import (
 from two_stage_object_detection_tpu_torch.ops.nms import NEG_INF, topk_stable
 
 # kernel 1 spreads an image over a cluster of up to NMS_MAX_CLUSTER blocks,
-# each holding its share of the rows in tiles of NMS_TILE (16 bytes of box
-# and one alive bit a row, in shared memory): 28,000 rows are 56 KB a block
+# each holding its share of the rows in tiles of NMS_TILE: 16 bytes of box a
+# row and 8 bytes of alive bits a tile, in dynamic shared memory.  A block
+# may opt into 232,448 bytes on the H100; NMS_STATIC_SMEM bounds what the
+# kernel keeps in static shared memory (4,884 bytes).  So a block holds at
+# most NMS_MAX_TILES_PER_BLOCK tiles (219), an image of K rows needs at
+# least ceil(K / 64 / 219) blocks, and 8 blocks hold MAX_KERNEL_ROWS rows
+# (112,128): the cap of kernels 1 and 3 alike.
 NMS_TILE = 64
 NMS_MAX_CLUSTER = 8
-MAX_KERNEL_ROWS = 28000
-# kernel 3 keeps every row's box (16 bytes) in one block's shared memory up
-# to MAX_FUSED_SMEM_ROWS rows, and in a global scratch buffer above that, up
-# to MAX_FUSED_ROWS (kSmemMaxRows and kMaxRows of csrc/proposals.cu)
-MAX_FUSED_SMEM_ROWS = 14336
-MAX_FUSED_ROWS = 32768
-
+BLOCK_SMEM_BYTES = 232448
+NMS_STATIC_SMEM = 6144
+NMS_TILE_BYTES = NMS_TILE * 16 + 8
+NMS_MAX_TILES_PER_BLOCK = (BLOCK_SMEM_BYTES - NMS_STATIC_SMEM) // NMS_TILE_BYTES
+MAX_KERNEL_ROWS = NMS_MAX_CLUSTER * NMS_MAX_TILES_PER_BLOCK * NMS_TILE
 
 def greedy_nms_rows_reference(boxes: torch.Tensor, scores: torch.Tensor, *,
                               n_post: int, iou_threshold: float):
@@ -87,14 +94,21 @@ def greedy_nms_rows_reference(boxes: torch.Tensor, scores: torch.Tensor, *,
     return out_boxes, out_scores, out_valid
 
 
-def nms_cluster_size(k: int) -> int:
-    """Blocks of kernel 1's cluster for ``k`` rows per image: one per tile
-    of ``NMS_TILE`` rows, at most ``NMS_MAX_CLUSTER``.  Raises outside
+def nms_cluster_bounds(k: int) -> tuple[int, int]:
+    """Blocks of kernel 1's cluster for ``k`` rows per image, ``(least,
+    most)``: the fewest whose shared memory holds the rows, and one per tile
+    of ``NMS_TILE`` rows up to ``NMS_MAX_CLUSTER``.  Raises outside
     ``1..MAX_KERNEL_ROWS``."""
     if not 0 < k <= MAX_KERNEL_ROWS:
         raise ValueError(f"greedy_nms kernel takes 1..{MAX_KERNEL_ROWS} rows "
                          f"per image, got {k}")
-    return min(NMS_MAX_CLUSTER, -(-k // NMS_TILE))
+    tiles = -(-k // NMS_TILE)
+    return -(-tiles // NMS_MAX_TILES_PER_BLOCK), min(NMS_MAX_CLUSTER, tiles)
+
+
+def nms_cluster_size(k: int) -> int:
+    """The most blocks kernel 1 spreads an image of ``k`` rows over."""
+    return nms_cluster_bounds(k)[1]
 
 
 def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
@@ -113,6 +127,18 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
     b, k, _ = boxes.shape
     _cuda.require(boxes, "boxes", torch.float32, (b, k, 4))
     _cuda.require(scores, "scores", torch.float32, (b, k))
+    out = _nms_walk(boxes, scores, n_post, iou_threshold)
+    greedy_nms.launches += 1
+    return out
+
+
+greedy_nms.launches = 0
+
+
+def _nms_walk(boxes, scores, n_post, iou_threshold):
+    """Launch kernel 1 (``csrc/nms.cu``) on checked ``[B, K]`` rows, counted
+    by no wrapper: :func:`greedy_nms` and kernel 3 count their own calls."""
+    b, k, _ = boxes.shape
     dev = boxes.device
     cluster = _nms_cluster(dev.index, b, k)
     out_boxes = torch.empty((b, n_post, 4), dtype=torch.float32, device=dev)
@@ -125,22 +151,19 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
                     out_scores.data_ptr(), out_valid.data_ptr(),
                     _cuda.stream_handle(boxes))
     _cuda.check(status, "nms_launch")
-    greedy_nms.launches += 1
     return out_boxes, out_scores, out_valid
-
-
-greedy_nms.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _nms_cluster(device_index: int, b: int, k: int) -> int:
     """Blocks per image that let all ``b`` images run at once on this card,
-    at most :func:`nms_cluster_size` (``csrc/nms.cu:nms_pick_cluster``)."""
+    within :func:`nms_cluster_bounds` (``csrc/nms.cu:nms_pick_cluster``)."""
     fn = _cuda.library("nms").nms_pick_cluster
-    fn.argtypes = [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
+    least, most = nms_cluster_bounds(k)
     with torch.cuda.device(device_index):
-        return fn(b, k, nms_cluster_size(k))
+        return fn(b, k, most, least)
 
 
 def _nms_fn():
@@ -181,6 +204,45 @@ def fused_proposals_rows_reference(rpn_locs: torch.Tensor,
                                      iou_threshold=nms_iou)
 
 
+def order_keys(scores: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of launch A's sort key, ``[B, N]`` f32 ->
+    ``[B, N]`` int64, unique per image, ascending in the greedy order:
+    score descending (-0.0 taken as +0.0, as ``argmax`` takes them), then
+    the row index ascending.  The kernel builds the unsigned 64-bit key
+    ``~orderable(score) << 32 | row``; this is that key less 2^63, which
+    orders the same in int64."""
+    s = torch.where(scores == 0, torch.zeros_like(scores), scores.float())
+    u = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ordered = torch.where(u >= 1 << 31, 0xFFFFFFFF - u, u | (1 << 31))
+    row = torch.arange(s.shape[-1], dtype=torch.int64, device=s.device)
+    return (0xFFFFFFFF - ordered - (1 << 31)) * (1 << 32) + row
+
+
+def sorted_rows_reference(boxes: torch.Tensor, scores: torch.Tensor):
+    """Plain PyTorch version of launch A's output: ``boxes [B, N, 4]`` and
+    ``scores [B, N]`` in ascending :func:`order_keys` order (the keys are
+    unique, so the order is unique)."""
+    idx = torch.argsort(order_keys(scores), dim=-1)
+    return (torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)),
+            torch.gather(scores, 1, idx))
+
+
+def fused_proposals_sorted_reference(rpn_locs: torch.Tensor,
+                                     rpn_fg_scores: torch.Tensor,
+                                     anchors: torch.Tensor, img_size, *,
+                                     nms_iou: float, n_post_nms: int,
+                                     min_size: float):
+    """Kernel 3's two launches in plain PyTorch: decode and mask, sort by
+    :func:`order_keys` (launch A), then kernel 1's steps over the sorted
+    rows (launch B).  Equals :func:`fused_proposals_rows_reference` bit for
+    bit; shapes as there."""
+    roi, masked = _decode_masked(rpn_locs, rpn_fg_scores, anchors, img_size,
+                                 min_size)
+    boxes, scores = sorted_rows_reference(roi, masked)
+    return greedy_nms_rows_reference(boxes, scores, n_post=n_post_nms,
+                                     iou_threshold=nms_iou)
+
+
 def fused_proposals_batched(rpn_locs: torch.Tensor,
                             rpn_fg_scores: torch.Tensor, anchors: torch.Tensor,
                             img_size, *, nms_iou: float, n_post_nms: int,
@@ -188,8 +250,9 @@ def fused_proposals_batched(rpn_locs: torch.Tensor,
     """Kernel 3: whole-table decode + clip + min-size mask + greedy NMS.
 
     Shapes as :func:`fused_proposals_rows_reference`.  On a CUDA tensor
-    with ``use_kernel`` this launches ``csrc/proposals.cu`` (or raises, for
-    instance above ``MAX_FUSED_ROWS`` anchors); on the CPU, or with
+    with ``use_kernel`` this launches ``csrc/proposals.cu`` and then
+    ``csrc/nms.cu`` (or raises, for instance above ``MAX_KERNEL_ROWS``
+    anchors); on the CPU, or with
     ``use_kernel=False``, it runs the plain version.  Same outputs either
     way, bit for bit.
     """
@@ -210,7 +273,7 @@ def fused_proposals(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,
                     anchors: torch.Tensor, img_size, *, nms_iou: float,
                     n_post_nms: int, min_size: float, use_kernel: bool = True):
     """Kernel 4: :func:`fused_proposals_batched` for one image, the same
-    kernel launched with ``B = 1``.
+    launches with ``B = 1``.
 
     ``rpn_locs [N, 4]``, ``rpn_fg_scores [N]``, ``anchors [N, 4]`` ->
     ``(rois [n_post, 4], scores [n_post], valid [n_post])``.
@@ -232,11 +295,14 @@ fused_proposals.launches = 0
 
 def _fused_launch(rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou,
                   n_post, min_size):
+    """Launch A (decode, mask, sort; ``csrc/proposals.cu``) and launch B
+    (kernel 1's walk, ``csrc/nms.cu``) over ``[B, N]`` anchors."""
     b, n, _ = rpn_locs.shape
-    if not 0 < n <= MAX_FUSED_ROWS:
+    if not 0 < n <= MAX_KERNEL_ROWS:
         raise ValueError(
-            f"the fused proposal kernel takes 1..{MAX_FUSED_ROWS} anchors per "
-            f"image (one block holds every score in registers), got {n}")
+            f"the fused proposal kernel takes 1..{MAX_KERNEL_ROWS} anchors per "
+            f"image (kernel 1's cluster holds every row in shared memory), "
+            f"got {n}")
     locs = rpn_locs.float().contiguous()
     scores = rpn_fg_scores.float().contiguous()
     anchors = anchors.float().contiguous()
@@ -244,28 +310,24 @@ def _fused_launch(rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou,
     _cuda.require(scores, "rpn_fg_scores", torch.float32, (b, n))
     _cuda.require(anchors, "anchors", torch.float32, (n, 4))
     dev = locs.device
-    out_boxes = torch.empty((b, n_post, 4), dtype=torch.float32, device=dev)
-    out_scores = torch.empty((b, n_post), dtype=torch.float32, device=dev)
-    out_valid = torch.empty((b, n_post), dtype=torch.bool, device=dev)
-    scratch = (torch.empty((b, n, 4), dtype=torch.float32, device=dev)
-               if n > MAX_FUSED_SMEM_ROWS else None)
-    fn = _fused_fn()
+    keys = torch.empty((b, n), dtype=torch.int64, device=dev)
+    sorted_boxes = torch.empty((b, n, 4), dtype=torch.float32, device=dev)
+    sorted_scores = torch.empty((b, n), dtype=torch.float32, device=dev)
+    fn = _sort_fn()
     img_h, img_w = img_size
     with torch.cuda.device(dev):
         status = fn(locs.data_ptr(), scores.data_ptr(), anchors.data_ptr(), b,
-                    n, n_post, nms_iou, min_size, float(img_h), float(img_w),
-                    out_boxes.data_ptr(), out_scores.data_ptr(),
-                    out_valid.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(),
+                    n, min_size, float(img_h), float(img_w), keys.data_ptr(),
+                    sorted_boxes.data_ptr(), sorted_scores.data_ptr(),
                     _cuda.stream_handle(locs))
-    _cuda.check(status, "proposals_launch")
-    return out_boxes, out_scores, out_valid
+    _cuda.check(status, "proposals_sort_launch")
+    return _nms_walk(sorted_boxes, sorted_scores, n_post, nms_iou)
 
 
-def _fused_fn():
-    fn = _cuda.library("proposals").proposals_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)
+def _sort_fn():
+    fn = _cuda.library("proposals").proposals_sort_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     return fn
 

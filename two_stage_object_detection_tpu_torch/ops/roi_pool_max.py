@@ -4,7 +4,18 @@ The counterpart of the JAX package's ``ops/pallas_roi.py``
 (``roi_pool_pallas``): RoIPool max with torchvision integer bins over a
 batch, plus the flat index ``y*W + x`` of the first maximum of each bin in
 row-major order (-1, value 0, for an empty bin).  On CUDA tensors it
-launches ``csrc/roi_pool.cu``; its plain version is
+launches ``csrc/roi_pool.cu`` on one of two routes, chosen by shape alone
+(:func:`roi_pool_plan`):
+
+* **slice** (every map whose one-vector slice fits in a block's shared
+  memory, H x W up to 12,928 pixels with 16-byte vectors; the RoI head's
+  38x38 map): a block per (channel slice, image, roi chunk) copies its
+  ``[H, W, slice]`` part of the map into shared memory once and pools
+  every roi of its chunk from there;
+* **direct** (larger maps): a block per (roi, image) reads each bin from
+  global memory, 4 channels a thread.
+
+Its plain version is
 :func:`~..ops.roi_pool.roi_pool_argmax`, which runs on the CPU, or on any
 device with ``use_kernel=False``.  Same outputs either way, bit for bit:
 max is exact in any float format.
@@ -20,6 +31,7 @@ that gradient equals the plain version's up to f32 summation order.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,6 +40,56 @@ from two_stage_object_detection_tpu_torch.ops.roi_pool import (
     roi_pool_argmax, scatter_argmax_grad)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# what a block may hold in dynamic shared memory on the H100 (232,448
+# bytes, less room for the slice kernel's static mbarrier), of which
+# EDGE_BYTES are kept for the bin edges of a chunk's rois (8 * P bytes a
+# roi) and the (ph, pw) of each bin (4 * P^2)
+SLICE_SMEM_BYTES = 232448 - 1024
+EDGE_BYTES = 24576
+H100_SMS = 132
+SLICE_THREADS = 1024
+
+
+def roi_pool_plan(b: int, h: int, w: int, c: int, r: int, elem_bytes: int,
+                  n_sm: int = H100_SMS, pooled: int = 7) -> dict:
+    """How kernel 5 covers a ``[b, h, w, c]`` map and ``r`` rois an image.
+
+    A pixel's channels go in vectors of 16 bytes (8 bf16 or 4 f32), or 8
+    (4 bf16) where ``c * elem_bytes`` is not a multiple of 16.  A slice is
+    ``nv`` vectors of every pixel; it must fit in ``SLICE_SMEM_BYTES -
+    EDGE_BYTES``, and where even one vector a pixel does not (H x W above
+    12,928 pixels with 16-byte vectors), the route is ``"direct"``.  Among
+    the slice counts that fit, the plan takes the one that gives the fewest
+    vectors a block times waves of ``n_sm`` blocks (ties: fewer slices),
+    then splits the rois into chunks while the grid is under ``n_sm``
+    blocks, and into more where one chunk's bin edges would not fit in
+    ``EDGE_BYTES``.  Returns ``{"route", "vec_bytes", "nv", "n_slices",
+    "n_chunks", "smem_bytes"}``.
+    """
+    vec = 16 if (c * elem_bytes) % 16 == 0 else 8
+    cv = c * elem_bytes // vec
+    max_nv = min((SLICE_SMEM_BYTES - EDGE_BYTES) // (h * w * vec),
+                 SLICE_THREADS)
+    max_rois = (EDGE_BYTES - 4 * pooled * pooled) // (8 * pooled)
+    if max_nv == 0 or max_rois < 1 or h * w >= 1 << 16:
+        return {"route": "direct", "vec_bytes": 0, "nv": 0, "n_slices": 0,
+                "n_chunks": 0, "smem_bytes": 0}
+    best = None
+    for n_slices in range(-(-cv // max_nv), cv + 1):
+        nv = -(-cv // n_slices)
+        if -(-cv // nv) != n_slices:
+            continue                       # the same nv as fewer slices
+        cost = -(-(b * n_slices) // n_sm) * nv
+        if best is None or cost < best[0]:
+            best = (cost, n_slices, nv)
+    _, n_slices, nv = best
+    n_chunks = max(-(-r // max_rois), min(r, n_sm // (b * n_slices)), 1)
+    per_chunk = -(-r // n_chunks)
+    return {"route": "slice", "vec_bytes": vec, "nv": nv,
+            "n_slices": n_slices, "n_chunks": -(-r // per_chunk),
+            "smem_bytes": (-(-(h * w * nv * vec) // 16) * 16
+                           + (per_chunk * 2 * pooled + pooled * pooled) * 4)}
 
 
 def _forward(feats: torch.Tensor, rois: torch.Tensor, output_size: int,
@@ -49,12 +111,16 @@ def _forward(feats: torch.Tensor, rois: torch.Tensor, output_size: int,
     pooled = torch.empty((b, r, p, p, c), dtype=torch.float32, device=rois.device)
     argmax = (torch.empty((b, r, p, p, c), dtype=torch.int32, device=rois.device)
               if with_argmax else None)
+    if r == 0 or b == 0:
+        return pooled, argmax
+    plan = _plan(rois.device.index, b, h, w, c, r, feats.element_size(), p)
     fn = _pool_fn()
     with torch.cuda.device(rois.device):
         status = fn(feats.data_ptr(), rois.data_ptr(), pooled.data_ptr(),
                     None if argmax is None else argmax.data_ptr(), b, h, w, c,
                     r, p, spatial_scale, _DTYPES[feats.dtype],
-                    _cuda.stream_handle(rois))
+                    plan["vec_bytes"], plan["nv"], plan["n_slices"],
+                    plan["n_chunks"], _cuda.stream_handle(rois))
     _cuda.check(status, "roi_pool_launch")
     roi_pool_max.launches += 1
     return pooled, argmax
@@ -112,10 +178,17 @@ def roi_pool_max(feats: torch.Tensor, rois: torch.Tensor, output_size: int = 7,
 roi_pool_max.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(device_index, b, h, w, c, r, elem_bytes, pooled):
+    n_sm = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return roi_pool_plan(b, h, w, c, r, elem_bytes, n_sm, pooled)
+
+
 def _pool_fn():
     fn = _cuda.library("roi_pool").roi_pool_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
