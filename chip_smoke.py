@@ -13,7 +13,12 @@ repeated; kernel 2 R=300 and R=128), kernel 3 (two launches: decode and
 sort in ``csrc/proposals.cu``, kernel 1's walk in ``csrc/nms.cu``) bit for
 bit at the single scale's 12,996 anchors (n_post 300 and 600), at the
 16,368 of a 256x256 FPN input and at the 65,472 of a 512x512 one (n_post
-600, B=4), and kernel 5 values and argmax at R=300 and R=128.  Then it
+600, B=4), kernel 5 values and argmax at R=300 and R=128, kernel 6 and
+kernel 5b (kernel 5's scatter backward) on both routes of their plan (the
+gradient slice in shared memory at B=16, 38x38x512; global atomics on a
+128x128 map at B=2) within their stated tolerance, and kernels 1 and 3 bit
+for bit above the 112,128 rows one walk launch holds (112,129 and 250,000
+rows at B=2, walked in chunks).  Then it
 serves requests through the port's ``Predictor`` on
 two paths, each at full width (600x600, 81 classes, 100 detections,
 bfloat16, seeded random weights), with every launch counter set to 0 just
@@ -630,118 +635,252 @@ def roi_pool_bwd_inputs(rng, dev, b=16, r=128, c=512, hw=38, img=600.0):
     return feats.to(dev), rois.to(dev), cot.to(dev)
 
 
+# kernel 6's and 5b's shapes: (route, B, H = W, C); the slice route at the
+# train step's B=16, 38x38x512 (timed, the rows of the kernels line), the
+# direct route on a small batch of a map too large for any slice
+BWD_SHAPES = (("slice", 16, 38, 512), ("direct", 2, 128, 64))
+
+
 def check_roi_pool_bwd(rng, dev):
-    """Kernel 6 and kernel 5's scatter backward at B=16, R=128, 38x38x512,
-    P=7, from f32 and bf16 maps, against their plain versions.  The kernels
-    add with atomics, in no fixed order: a cell may differ from the plain
-    version by f32 rounding of its partial sums, so the tolerance is 1e-5
-    of the cell's sum of |g| (plus, from a bf16 map, one bf16 ulp of the
-    result, 2^-7 relative: two f32 sums a rounding error apart may round to
-    neighbouring bf16 values)."""
+    """Kernel 6 and kernel 5b (kernel 5's scatter backward) at R=128, P=7,
+    on both routes of ``roi_pool_bwd_plan``: the slice route at B=16,
+    38x38x512 and the direct route at B=2, 128x128x64, from f32 and bf16
+    maps, against their plain versions.  The kernels' additions collide in
+    no fixed order (in shared memory on the slice route, global atomics on
+    the direct one): a cell may differ from the plain version by f32
+    rounding of its partial sums, so the tolerance is 1e-5 of the cell's
+    sum of |g| (plus, from a bf16 map, one bf16 ulp of the result, 2^-7
+    relative: two f32 sums a rounding error apart may round to neighbouring
+    bf16 values).  Each is timed on both routes; the slice route's numbers
+    are the kernels line's rows.  Returns the rows and each shape's
+    numbers."""
     from two_stage_object_detection_tpu_torch.ops.roi_pool import (
         roi_pool_grad_first_argmax, scatter_argmax_grad)
     from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
         roi_pool_bwd_recompute)
     from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
-        roi_pool_bwd_scatter, roi_pool_max)
-    feats32, rois, g = roi_pool_bwd_inputs(rng, dev)
-    b, h, w, c = feats32.shape
-    argmax = roi_pool_max(feats32, rois, with_argmax=True)[1]
-    n_empty = int((argmax < 0).sum())
-    require(n_empty > 0, "the rois leave no empty bin to test")
-    mass = scatter_argmax_grad(argmax, g.abs(), h, w)      # sum of |g| per cell
-    rows = []
+        roi_pool_bwd_plan, roi_pool_bwd_scatter, roi_pool_max)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, shapes = [], {}
+    for route, b, hw, c in BWD_SHAPES:
+        feats32, rois, g = roi_pool_bwd_inputs(rng, dev, b=b, c=c, hw=hw)
+        _, h, w, _ = feats32.shape
+        r = rois.shape[1]
+        label = f"{route} B={b} R={r} C={c} {h}x{w} P=7"
+        plans = {kind: roi_pool_bwd_plan(kind, b, h, w, c, r, elem, n_sm)
+                 for kind, elem in (("recompute", 2), ("scatter", 4))}
+        log(f"kernels roi_pool_bwd {label}: plans {plans}")
+        require(all(p["route"] == route for p in plans.values()),
+                f"roi_pool_bwd {label}: the plan takes another route")
+        argmax = roi_pool_max(feats32, rois, with_argmax=True)[1]
+        n_empty = int((argmax < 0).sum())
+        require(n_empty > 0, "the rois leave no empty bin to test")
+        mass = scatter_argmax_grad(argmax, g.abs(), h, w)   # sum of |g| a cell
 
-    # kernel 5's backward: the scatter alone
-    got = roi_pool_bwd_scatter(argmax, g, h, w)
-    want = scatter_argmax_grad(argmax, g, h, w)
-    torch.cuda.synchronize()
-    diff = (got - want).abs()
-    tol = 1e-5 * mass + 1e-6
-    err_scatter = float(diff.max())
-    log(f"kernel roi_pool_bwd_scatter B=16 R=128 C=512 38x38 P=7: max |diff| "
-        f"{err_scatter:.3e}, worst diff/tol {float((diff / tol).max()):.3f} "
-        f"(tolerance 1e-5 * sum|g| + 1e-6); {n_empty} empty cells dropped")
-    require(bool((diff <= tol).all()), "roi_pool_bwd_scatter outside tolerance")
-    require(bool((got != 0).any()), "roi_pool_bwd_scatter wrote nothing")
-
-    # kernel 6 from f32 and from bf16 maps (the values are exact in both)
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        feats = feats32.to(dtype)
-        got = roi_pool_bwd_recompute(feats, rois, g)
-        want = roi_pool_grad_first_argmax(feats, rois, g)
+        # kernel 5b: the scatter alone
+        got = roi_pool_bwd_scatter(argmax, g, h, w)
+        want = scatter_argmax_grad(argmax, g, h, w)
         torch.cuda.synchronize()
-        require(got.dtype == dtype and want.dtype == dtype,
-                "roi_pool_bwd_recompute: the result is not in the map's dtype")
-        diff = (got.float() - want.float()).abs()
+        diff = (got - want).abs()
         tol = 1e-5 * mass + 1e-6
-        if dtype == torch.bfloat16:
-            tol = tol + 2.0 ** -7 * want.float().abs()
-        errs[dtype] = float(diff.max())
-        log(f"kernel roi_pool_bwd_recompute {str(dtype)[6:]} map B=16 R=128 "
-            f"C=512 38x38 P=7: max |diff| {errs[dtype]:.3e}, worst diff/tol "
-            f"{float((diff / tol).max()):.3f}, zero cells of the map "
-            f"{float((feats32 == 0).float().mean()):.2f}")
+        err_scatter = float(diff.max())
+        log(f"kernel roi_pool_bwd_scatter {label}: max |diff| "
+            f"{err_scatter:.3e}, worst diff/tol "
+            f"{float((diff / tol).max()):.3f} (tolerance 1e-5 * sum|g| + "
+            f"1e-6); {n_empty} empty cells dropped")
         require(bool((diff <= tol).all()),
-                f"roi_pool_bwd_recompute {dtype} outside tolerance")
-        require(bool((got != 0).any()), "roi_pool_bwd_recompute wrote nothing")
-    del diff, tol, want, got
+                f"roi_pool_bwd_scatter {label} outside tolerance")
+        require(bool((got != 0).any()), "roi_pool_bwd_scatter wrote nothing")
 
-    feats = feats32.to(torch.bfloat16)       # the train path's dtype
-    nbytes6 = (feats.numel() * 2 * 2 + rois.numel() * 4 + g.numel() * 4)
-    ops6 = bin_pixels(rois, h, w) * c + g.numel()
-    ms6 = cuda_time_ms(lambda: roi_pool_bwd_recompute(feats, rois, g), 20)
-    plain6 = cuda_time_ms(lambda: roi_pool_grad_first_argmax(feats, rois, g),
-                          1, warmup=1)
-    t_bytes, t_ops = nbytes6 / HBM_BYTES_PER_S, ops6 / F32_FLOP_PER_S
-    bound6 = max(t_bytes, t_ops) * 1e3
-    by6 = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"kernel roi_pool_bwd_recompute bf16 B=16 R=128 C=512: {ms6:.4f} ms, "
-        f"plain {plain6:.3f} ms, bound {bound6:.5f} ms ({by6}: "
-        f"{nbytes6 / 1e6:.1f} MB, {ops6 / 1e9:.2f} G compares and adds)")
-    rows.append(dict(
-        name="roi_pool_bwd_recompute", route="cuda",
-        source="two_stage_object_detection_tpu_torch/csrc/roi_pool_bwd.cu",
-        replaces="two_stage_object_detection_tpu/ops/pallas_roi_bwd.py:42",
-        max_abs_err=max(errs.values()), ms=ms6, plain_ms=plain6,
-        bound_ms=bound6, bound_by=by6, library_ms=None))
+        # kernel 6 from f32 and from bf16 maps (the values are exact in both)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = feats32.to(dtype)
+            got = roi_pool_bwd_recompute(feats, rois, g)
+            want = roi_pool_grad_first_argmax(feats, rois, g)
+            torch.cuda.synchronize()
+            require(got.dtype == dtype and want.dtype == dtype,
+                    "roi_pool_bwd_recompute: the result is not in the map's "
+                    "dtype")
+            diff = (got.float() - want.float()).abs()
+            tol = 1e-5 * mass + 1e-6
+            if dtype == torch.bfloat16:
+                tol = tol + 2.0 ** -7 * want.float().abs()
+            errs[dtype] = float(diff.max())
+            log(f"kernel roi_pool_bwd_recompute {str(dtype)[6:]} map {label}: "
+                f"max |diff| {errs[dtype]:.3e}, worst diff/tol "
+                f"{float((diff / tol).max()):.3f}, zero cells of the map "
+                f"{float((feats32 == 0).float().mean()):.2f}")
+            require(bool((diff <= tol).all()),
+                    f"roi_pool_bwd_recompute {dtype} {label} outside tolerance")
+            require(bool((got != 0).any()),
+                    "roi_pool_bwd_recompute wrote nothing")
+        del diff, tol, want, got
 
-    # the scatter: index, cotangent read once, the f32 map written once; one
-    # add per element.  Its library yardstick is one index_add_ over the
-    # flattened map with the flat indices made beforehand (empty bins sent
-    # to one extra cell).
-    nbytes = argmax.numel() * 8 + b * h * w * c * 4
-    ops = argmax.numel()
-    ms = cuda_time_ms(lambda: roi_pool_bwd_scatter(argmax, g, h, w), 20)
-    plain_ms = cuda_time_ms(lambda: scatter_argmax_grad(argmax, g, h, w), 5,
-                            warmup=1)
-    idx = argmax.reshape(b, -1, c).long()
-    flat = ((torch.arange(b, device=dev)[:, None, None] * (h * w) + idx) * c
-            + torch.arange(c, device=dev))
-    flat = torch.where(idx < 0, b * h * w * c, flat).reshape(-1)
-    gflat = g.reshape(-1)
-    lib = torch.zeros(b * h * w * c + 1, device=dev).index_add_(0, flat, gflat)
-    lib_err = float((lib[:-1].reshape(b, h, w, c)
-                     - scatter_argmax_grad(argmax, g, h, w)).abs().max())
-    require(lib_err <= 1e-2, f"the index_add_ yardstick computes something "
-            f"else ({lib_err})")
-    del lib
-    library_ms = cuda_time_ms(lambda: torch.zeros(
-        b * h * w * c + 1, device=dev).index_add_(0, flat, gflat), 5, warmup=1)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"kernel roi_pool_bwd_scatter B=16 R=128 C=512: {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound "
-        f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB)")
-    rows.append(dict(
-        name="roi_pool_bwd_scatter", route="cuda",
-        source="two_stage_object_detection_tpu_torch/csrc/roi_pool_bwd.cu",
-        replaces="two_stage_object_detection_tpu/ops/pallas_roi.py:151",
-        max_abs_err=err_scatter, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms))
-    return rows
+        feats = feats32.to(torch.bfloat16)       # the train path's dtype
+        nbytes6 = (feats.numel() * 2 * 2 + rois.numel() * 4 + g.numel() * 4)
+        ops6 = bin_pixels(rois, h, w) * c + g.numel()
+        ms6 = cuda_time_ms(lambda: roi_pool_bwd_recompute(feats, rois, g), 20)
+        plain6 = cuda_time_ms(
+            lambda: roi_pool_grad_first_argmax(feats, rois, g), 1, warmup=1)
+        t_bytes, t_ops = nbytes6 / HBM_BYTES_PER_S, ops6 / F32_FLOP_PER_S
+        bound6 = max(t_bytes, t_ops) * 1e3
+        by6 = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"kernel roi_pool_bwd_recompute bf16 {label}: {ms6:.4f} ms, "
+            f"plain {plain6:.3f} ms, bound {bound6:.5f} ms ({by6}: "
+            f"{nbytes6 / 1e6:.1f} MB, {ops6 / 1e9:.2f} G compares and adds)")
+
+        # 5b: index, cotangent read once, the f32 map written once; one add
+        # per element.  Its library yardstick is one index_add_ over the
+        # flattened map with the flat indices made beforehand (empty bins
+        # sent to one extra cell).
+        nbytes = argmax.numel() * 8 + b * h * w * c * 4
+        ops = argmax.numel()
+        ms = cuda_time_ms(lambda: roi_pool_bwd_scatter(argmax, g, h, w), 20)
+        plain_ms = cuda_time_ms(lambda: scatter_argmax_grad(argmax, g, h, w),
+                                5, warmup=1)
+        idx = argmax.reshape(b, -1, c).long()
+        flat = ((torch.arange(b, device=dev)[:, None, None] * (h * w) + idx)
+                * c + torch.arange(c, device=dev))
+        flat = torch.where(idx < 0, b * h * w * c, flat).reshape(-1)
+        gflat = g.reshape(-1)
+        lib = torch.zeros(b * h * w * c + 1, device=dev).index_add_(0, flat,
+                                                                   gflat)
+        lib_err = float((lib[:-1].reshape(b, h, w, c)
+                         - scatter_argmax_grad(argmax, g, h, w)).abs().max())
+        require(lib_err <= 1e-2, f"the index_add_ yardstick computes "
+                f"something else ({lib_err})")
+        del lib
+        library_ms = cuda_time_ms(lambda: torch.zeros(
+            b * h * w * c + 1, device=dev).index_add_(0, flat, gflat), 5,
+            warmup=1)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"kernel roi_pool_bwd_scatter {label}: {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB)")
+        shapes[label] = dict(
+            plans=plans, recompute=dict(
+                ms=ms6, plain_ms=plain6, bound_ms=bound6, bound_by=by6,
+                bytes=nbytes6, max_abs_err={str(k)[6:]: v
+                                            for k, v in errs.items()}),
+            scatter=dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                         max_abs_err=err_scatter))
+        if route != "slice":
+            continue
+        rows.append(dict(
+            name="roi_pool_bwd_recompute", route="cuda",
+            source="two_stage_object_detection_tpu_torch/csrc/roi_pool_bwd.cu",
+            replaces="two_stage_object_detection_tpu/ops/pallas_roi_bwd.py:42",
+            max_abs_err=max(errs.values()), ms=ms6, plain_ms=plain6,
+            bound_ms=bound6, bound_by=by6, library_ms=None))
+        rows.append(dict(
+            name="roi_pool_bwd_scatter", route="cuda",
+            source="two_stage_object_detection_tpu_torch/csrc/roi_pool_bwd.cu",
+            replaces="two_stage_object_detection_tpu/ops/pallas_roi.py:151",
+            max_abs_err=err_scatter, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        del feats32, feats, rois, g, argmax, mass, flat, gflat
+        torch.cuda.empty_cache()
+    return rows, shapes
+
+
+# ------------------------------------------------- kernels 1 and 3, chunks
+# above the rows one walk launch holds (112,128): (rows, case) at B=2, n_post
+# 300; "crossing": the best rows are near-duplicates of 6 boxes, so the
+# walk's first chunk keeps at most 6 and the kept set crosses into later
+# chunks; "first_chunk": the first chunk fills n_post
+ABOVE_CAP = ((112129, "first_chunk"), (112129, "crossing"),
+             (250000, "first_chunk"), (250000, "crossing"))
+
+
+def crowded(rng, b: int, n: int, frac: float):
+    """``n`` random boxes of 16..216 px over a 600 px image and scores in
+    [0, 0.5), except the best ``frac`` of the rows: 1 px jitters of 6 boxes
+    of 100 px (each kept one suppresses the rest) scoring [0.5, 1); every
+    8th row's score masked (-1e9).  ``[b, n, 4]``, ``[b, n]`` f32 numpy."""
+    xy = rng.rand(b, n, 2) * 400.0
+    boxes = np.concatenate([xy, xy + rng.rand(b, n, 2) * 200.0 + 16.0], -1)
+    scores = rng.rand(b, n) * 0.5
+    n_dup = int(frac * n)
+    base = rng.rand(b, 6, 2) * 400.0
+    pick = np.take_along_axis(base, rng.randint(0, 6, (b, n_dup))[..., None], 1)
+    boxes[:, :n_dup] = (np.concatenate([pick, pick + 100.0], -1)
+                        + rng.rand(b, n_dup, 4))
+    scores[:, :n_dup] += 0.5
+    scores[:, 7::8] = -1e9
+    return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+def check_above_cap(rng, dev):
+    """Kernels 1 and 3 above the rows one launch of the walk holds, B=2,
+    n_post 300, bit for bit against their plain versions, timed: kernel 1 on
+    score-sorted rows, kernel 3 on anchors decoded with zero offsets (so its
+    boxes are the anchors).  Returns each shape's numbers."""
+    from two_stage_object_detection_tpu_torch.ops.proposals import (
+        _decode_masked, fused_proposals_batched, fused_proposals_rows_reference,
+        greedy_nms, greedy_nms_rows_reference, nms_chunks,
+        sorted_rows_reference)
+    b, n_post, img = 2, 300, (600, 600)
+    kw = dict(nms_iou=0.7, n_post_nms=n_post, min_size=16.0)
+    shapes = {}
+    for k, case in ABOVE_CAP:
+        frac = 0.7 if case == "crossing" else 0.0
+        boxes, scores = crowded(rng, b, k, frac)
+        rows0 = nms_chunks(k)[0][1]
+        # kernel 3: the rows are anchors, decoded with zero offsets
+        anchors = torch.from_numpy(boxes[0]).to(dev)
+        locs = torch.zeros((b, k, 4), device=dev)
+        fg = torch.from_numpy(scores).to(dev)
+        order = np.argsort(-scores, axis=1, kind="stable")
+        s_boxes = torch.from_numpy(np.take_along_axis(
+            np.broadcast_to(boxes[:1], boxes.shape), order[..., None], 1)).to(dev)
+        s_scores = torch.from_numpy(np.take_along_axis(scores, order, 1)).to(dev)
+        for name, run, plain, first_rows in (
+                ("greedy_nms",
+                 lambda: greedy_nms(s_boxes, s_scores, n_post=n_post,  # noqa: E731
+                                    iou_threshold=0.7),
+                 lambda: greedy_nms_rows_reference(             # noqa: E731
+                     s_boxes, s_scores, n_post=n_post, iou_threshold=0.7),
+                 lambda: (s_boxes, s_scores)),                  # noqa: E731
+                ("fused_proposals_batched",
+                 lambda: fused_proposals_batched(locs, fg, anchors, img,  # noqa: E731
+                                                 **kw),
+                 lambda: fused_proposals_rows_reference(        # noqa: E731
+                     locs, fg, anchors, img, **kw),
+                 lambda: sorted_rows_reference(*_decode_masked(  # noqa: E731
+                     locs, fg, anchors, img, 16.0)))):
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            n_diff = sum(int((g != w).sum()) for g, w in zip(got, want))
+            fb, fs = first_rows()
+            first = greedy_nms_rows_reference(
+                fb[:, :rows0], fs[:, :rows0], n_post=n_post,
+                iou_threshold=0.7)[2].sum(1).tolist()
+            kept = got[2].sum(1).tolist()
+            ms = cuda_time_ms(run, 5)
+            log(f"kernel {name} B={b} rows={k} n_post={n_post} ({case}, "
+                f"{len(nms_chunks(k))} walk launches): {n_diff} elements "
+                f"differ from plain; kept {kept}, the first chunk alone "
+                f"{first}; {ms:.4f} ms")
+            require(n_diff == 0, f"{name} rows={k} {case}: outputs differ from "
+                    "the plain version (must be bitwise equal)")
+            require(min(kept) == n_post, f"{name} rows={k}: kept fewer than "
+                    "n_post")
+            if case == "crossing":
+                require(max(first) <= 6, f"{name} rows={k}: the first chunk "
+                        "is not crowded")
+            else:
+                require(min(first) == n_post, f"{name} rows={k}: the first "
+                        "chunk does not fill n_post")
+            shapes[f"{name} rows{k} {case}"] = dict(
+                ms=ms, kept=kept, first_chunk_kept=first,
+                walk_launches=len(nms_chunks(k)))
+        del locs, fg, anchors, s_boxes, s_scores
+        torch.cuda.empty_cache()
+    return shapes
 
 
 # ------------------------------------------------------------ main path
@@ -1256,7 +1395,9 @@ def main() -> int:
     fused_rows, fused_shapes = check_fused(rng, dev)
     kernels = [nms_row, align_row, *fused_rows]
     pool_row, pool_shapes = check_roi_pool(rng, dev)
-    kernels += [pool_row, *check_roi_pool_bwd(rng, dev)]
+    bwd_rows, bwd_shapes = check_roi_pool_bwd(rng, dev)
+    kernels += [pool_row, *bwd_rows]
+    cap_shapes = check_above_cap(rng, dev)
     torch.cuda.empty_cache()
 
     paths = {"flagship": (Config(fpn=True, backbone="resnet50",
@@ -1312,6 +1453,8 @@ def main() -> int:
                        "train_modes_launches": mode_launches,
                        "fused_proposals_shapes": fused_shapes,
                        "roi_pool_max_shapes": pool_shapes,
+                       "roi_pool_bwd_shapes": bwd_shapes,
+                       "above_row_cap_shapes": cap_shapes,
                        "greedy_nms_shapes": nms_shapes,
                        "windowed_align_shapes": align_shapes}, f,
                       indent=1)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels 1, 2, 3 and 5 of the PyTorch port in two checkouts of the
+"""Time kernels 1, 2, 3, 5, 6 and 5b of the PyTorch port in two checkouts of the
 repository on the same GPU, in turns within one call, so that two designs
 are compared under the same card, power limit and host load.
 
@@ -15,12 +15,16 @@ checkout: it builds that checkout's kernels and times, with CUDA events,
 * ``fused_proposals_batched`` (kernel 3) at B=16 over the 12,996 anchors
   of ``Config()``, n_post 300 (predict) and 600 (train), 20 launches;
 * ``roi_pool_max`` (kernel 5) at B=16, 38x38x512 bf16, P=7: R=300 with and
-  without the index store, and R=128 with it, 20 launches.
+  without the index store, and R=128 with it, 20 launches;
+* ``roi_pool_bwd_recompute`` (kernel 6, from a bf16 map) and
+  ``roi_pool_bwd_scatter`` (kernel 5b) at B=16, R=128, 38x38x512, P=7,
+  f32 cotangent, 20 launches.
 
 The inputs come from this script's own ``chip_smoke.py`` (``nms_inputs``,
-``align_inputs``, ``fused_inputs``, ``roi_pool_inputs``) with a fixed seed
-per shape, so both checkouts get the same data; a checksum of each output
-shows that they compute the same thing.
+``align_inputs``, ``fused_inputs``, ``roi_pool_inputs``,
+``roi_pool_bwd_inputs``) with a fixed seed per shape, so both checkouts get
+the same data; a checksum of each output shows that they compute the same
+thing (kernels 2, 6 and 5b up to the rounding of their sums).
 The last line is one JSON object with every turn.
 """
 
@@ -44,8 +48,10 @@ def worker() -> None:
     from two_stage_object_detection_tpu_torch.ops import _cuda
     from two_stage_object_detection_tpu_torch.ops.proposals import (
         fused_proposals_batched, greedy_nms)
+    from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
+        roi_pool_bwd_recompute)
     from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
-        roi_pool_max)
+        roi_pool_bwd_scatter, roi_pool_max)
     from two_stage_object_detection_tpu_torch.ops.windowed_align import (
         windowed_roi_align_batched)
 
@@ -97,6 +103,19 @@ def worker() -> None:
             + (float(got[1].double().sum()) if with_argmax else 0.0)}
         del feats, got
         torch.cuda.empty_cache()
+    feats32, rois, g = cs.roi_pool_bwd_inputs(np.random.RandomState(6), dev)
+    feats = feats32.to(torch.bfloat16)
+    argmax = roi_pool_max(feats32, rois, with_argmax=True)[1]
+    h, w = feats.shape[1:3]
+    for name, run in (
+            ("roi_pool_bwd_recompute_R128",
+             lambda: roi_pool_bwd_recompute(feats, rois, g)),
+            ("roi_pool_bwd_scatter_R128",
+             lambda: roi_pool_bwd_scatter(argmax, g, h, w))):
+        got = run()
+        out[name] = {"ms": cs.cuda_time_ms(run, 20),
+                     "checksum": float(got.double().sum())}
+        del got
     print("AB_RESULT " + json.dumps(out), flush=True)
 
 
@@ -128,9 +147,10 @@ def main() -> int:
         sums = [t[name]["checksum"] for t in turns]
         spread = (max(sums) - min(sums)) / max(max(map(abs, sums)), 1e-30)
         print(f"{name}: output checksums {sums} (relative spread "
-              f"{spread:.2e}; kernel 2 rounds its f32 sums to bf16, so two "
-              "designs may differ by a bf16 ulp; kernels 1, 3 and 5 must "
-              "agree exactly)")
+              f"{spread:.2e}; kernel 2 rounds its f32 sums to bf16 and "
+              "kernels 6 and 5b add in no fixed order, so two designs may "
+              "differ by their rounding; kernels 1, 3 and 5 must agree "
+              "exactly)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

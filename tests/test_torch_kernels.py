@@ -21,15 +21,15 @@ import torch
 from two_stage_object_detection_tpu_torch.config import Config
 from two_stage_object_detection_tpu_torch.ops.anchors import make_fpn_anchors
 from two_stage_object_detection_tpu_torch.ops.proposals import (
-    MAX_KERNEL_ROWS, fused_proposals, fused_proposals_batched,
+    MAX_KERNEL_ROWS, _decode_masked, fused_proposals, fused_proposals_batched,
     fused_proposals_rows_reference, greedy_nms, greedy_nms_rows_reference,
-    proposals_batched)
+    nms_chunks, proposals_batched, sorted_rows_reference)
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
     roi_pool_argmax, roi_pool_grad_first_argmax, scatter_argmax_grad)
 from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
     roi_pool_bwd_recompute, roi_pool_fast)
 from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
-    roi_pool_bwd_scatter, roi_pool_max, roi_pool_plan)
+    roi_pool_bwd_plan, roi_pool_bwd_scatter, roi_pool_max, roi_pool_plan)
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     windowed_roi_align_batched)
 
@@ -100,11 +100,59 @@ def test_greedy_nms_kernel_rejects_bad_input(dev):
     with pytest.raises(ValueError, match="float32"):
         greedy_nms(boxes, torch.zeros((1, 8), device=dev), n_post=2,
                    iou_threshold=0.5)
-    k = MAX_KERNEL_ROWS + 1
-    with pytest.raises(ValueError, match=f"1..{MAX_KERNEL_ROWS} rows"):
-        greedy_nms(torch.zeros((1, k, 4), device=dev),
-                   torch.zeros((1, k), device=dev), n_post=2,
-                   iou_threshold=0.5)
+
+
+def _crowded_rows(rng, b, k, n_dup):
+    """Score-sorted rows whose ``n_dup`` best are 1 px jitters of 6 boxes
+    (each kept one suppresses the rest), then distinct boxes; the last
+    tenth masked."""
+    xy = rng.rand(b, k, 2) * 560.0
+    boxes = np.concatenate([xy, xy + rng.rand(b, k, 2) * 60 + 4], -1)
+    base = rng.rand(b, 6, 2) * 400.0
+    pick = np.take_along_axis(base, rng.randint(0, 6, (b, n_dup))[..., None], 1)
+    boxes[:, :n_dup] = np.concatenate([pick, pick + 100.0], -1) + rng.rand(b, n_dup, 4)
+    scores = np.concatenate([0.5 + rng.rand(b, n_dup) * 0.5,
+                             rng.rand(b, k - n_dup) * 0.5], 1)
+    scores[:, -k // 10:] = -1e9
+    order = np.argsort(-scores, axis=1, kind="stable")
+    boxes = np.take_along_axis(boxes, order[..., None], 1).astype(np.float32)
+    scores = np.take_along_axis(scores, order, 1).astype(np.float32)
+    return torch.from_numpy(boxes), torch.from_numpy(scores)
+
+
+@pytest.mark.parametrize("k", [MAX_KERNEL_ROWS + 1, 250000])
+@pytest.mark.parametrize("case", ["first_chunk", "crossing"])
+def test_greedy_nms_kernel_above_the_row_cap(rng, dev, k, case):
+    """Kernel 1 above the rows one launch holds walks in chunks
+    (``nms_chunks``: 2 launches at 112,129 rows, 3 at 250,000) and equals
+    its plain version bit for bit, one counted launch: where ``n_post`` is
+    filled inside the first chunk, and where the first chunk keeps only 6
+    rows (near-duplicates) so that the kept set crosses into later chunks,
+    whose rows are first cleared against the earlier chunks' boxes."""
+    b, n_post = 2, 300
+    if case == "crossing":
+        boxes, scores = _crowded_rows(rng, b, k, n_dup=int(0.6 * k))
+    else:
+        boxes, scores = _sorted_rows(rng, b, k)
+    boxes, scores = boxes.to(dev), scores.to(dev)
+    chunks = nms_chunks(k)
+    assert len(chunks) == (2 if k == MAX_KERNEL_ROWS + 1 else 3)
+    before = greedy_nms.launches
+    got = greedy_nms(boxes, scores, n_post=n_post, iou_threshold=0.7)
+    want = greedy_nms_rows_reference(boxes, scores, n_post=n_post,
+                                     iou_threshold=0.7)
+    torch.cuda.synchronize()
+    assert greedy_nms.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rows0 = chunks[0][1]
+    first = greedy_nms_rows_reference(boxes[:, :rows0], scores[:, :rows0],
+                                      n_post=n_post, iou_threshold=0.7)[2]
+    if case == "crossing":
+        assert bool((first.sum(1) <= 6).all())
+    else:
+        assert bool((first.sum(1) == n_post).all())
+    assert bool((got[2].sum(1) == n_post).all())
 
 
 @pytest.mark.parametrize("dtype,c,r,p,s", [
@@ -241,19 +289,47 @@ def test_fpn_256_predict_proposals_take_kernel_3(rng, dev):
     assert int(got[2].sum()) > 0
 
 
-def test_fused_proposals_kernel_raises_above_its_row_cap(rng, dev):
-    """Kernel 3 takes every table of the whole-table route at the default
-    ``n_train_pre_nms`` (N < 6 * 12,000) and raises, naming its cap, just
-    above ``MAX_KERNEL_ROWS``; nothing is launched."""
-    assert MAX_KERNEL_ROWS >= 6 * Config().n_train_pre_nms - 1
-    locs, fg, anchors = (t.to(dev) for t in
-                         _proposal_data(rng, 1, MAX_KERNEL_ROWS + 1))
+@pytest.mark.parametrize("n", [MAX_KERNEL_ROWS + 1, 250000])
+@pytest.mark.parametrize("case", ["first_chunk", "crossing"])
+def test_fused_proposals_kernel_above_the_row_cap(rng, dev, n, case):
+    """Kernel 3 above the rows one walk launch holds: launch A sorts 7
+    (112,129 rows) or 16 (250,000) chunks of 16,384 keys, more than the 8
+    it aims for, and the walk runs in chunks; equal to the plain version
+    bit for bit, one counted launch.  ``"first_chunk"``: ``n_post`` is
+    filled inside the walk's first chunk; ``"crossing"``: the best 70% of
+    the anchors are 1 px jitters of 6 boxes, so the first chunk keeps at
+    most 6 and the later ones the rest."""
+    b, n_post = 2, 300
+    locs, fg, anchors = _proposal_data(rng, b, n)
+    if case == "crossing":
+        n_dup = int(0.7 * n)
+        base = rng.rand(6, 2) * 400.0
+        xy = base[rng.randint(0, 6, n_dup)] + rng.rand(n_dup, 2)
+        anchors[:n_dup] = torch.from_numpy(np.concatenate(
+            [xy, xy + 100.0 + rng.rand(n_dup, 2)], -1).astype(np.float32))
+        locs[:, :n_dup] = 0.0
+        fg[:, :n_dup] = torch.from_numpy(
+            (0.5 + rng.rand(b, n_dup) * 0.5).astype(np.float32))
+        fg[:, n_dup:] *= 0.5
+    locs, fg, anchors = locs.to(dev), fg.to(dev), anchors.to(dev)
+    kw = dict(nms_iou=0.7, n_post_nms=n_post, min_size=16.0)
     before = fused_proposals_batched.launches
-    with pytest.raises(ValueError,
-                       match=f"1..{MAX_KERNEL_ROWS} anchors per image"):
-        fused_proposals_batched(locs, fg, anchors, (600, 600), nms_iou=0.7,
-                                n_post_nms=8, min_size=16.0)
-    assert fused_proposals_batched.launches == before
+    got = fused_proposals_batched(locs, fg, anchors, (600, 600), **kw)
+    want = fused_proposals_rows_reference(locs, fg, anchors, (600, 600), **kw)
+    torch.cuda.synchronize()
+    assert fused_proposals_batched.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rows0 = nms_chunks(n)[0][1]
+    boxes, scores = sorted_rows_reference(*_decode_masked(
+        locs, fg, anchors, (600, 600), 16.0))
+    first = greedy_nms_rows_reference(boxes[:, :rows0], scores[:, :rows0],
+                                      n_post=n_post, iou_threshold=0.7)[2]
+    if case == "crossing":
+        assert bool((first.sum(1) <= 6).all())
+    else:
+        assert bool((first.sum(1) == n_post).all())
+    assert bool((got[2].sum(1) == n_post).all())
 
 
 @pytest.mark.parametrize("dtype,c", [(torch.float32, 8), (torch.float32, 300),
@@ -382,6 +458,94 @@ def test_roi_pool_backward_kernels_through_autograd(rng, dev):
     torch.testing.assert_close(roi_pool_bwd_scatter(argmax, g, 12, 10),
                                scatter_argmax_grad(argmax, g, 12, 10),
                                rtol=0, atol=1e-4)
+
+
+def _bwd_case(rng, dev, b, h, w, c, dtype, r=40):
+    """A ReLU-like ``[b, h, w, c]`` map (half zeros, coarse values, a tied
+    patch); ``r`` rois over it at stride 16, roi 0 off the map and roi 1
+    with empty first bins; a cotangent whose third roi is all zero."""
+    feats = torch.from_numpy((np.maximum(rng.randint(-8, 8, size=(b, h, w, c)),
+                                         0) / 4.0).astype(np.float32))
+    feats[:, 2:9, 1:6] = 0.75
+    xy = rng.rand(b, r, 2) * np.array([w, h]) * 16 * 1.1 - 16
+    rois = np.concatenate([xy, xy + rng.rand(b, r, 2) * np.array([w, h])
+                           * 10 + 2], -1)
+    rois[:, 0] = [-400, -300, -200, -100]
+    rois[:, 1, :2] = -40
+    g = rng.randn(b, r, 7, 7, c).astype(np.float32)
+    g[:, 2] = 0.0
+    return (feats.to(dev, dtype),
+            torch.from_numpy(rois.astype(np.float32)).to(dev),
+            torch.from_numpy(g).to(dev))
+
+
+def _bwd_tol(feats, rois, g, want):
+    """1e-5 of each cell's sum of |g| + 1e-6, plus one bf16 ulp of the
+    result from a bf16 map: the adds collide in no fixed order."""
+    argmax = roi_pool_argmax(feats, rois, 7, 1.0 / 16)[1]
+    mass = scatter_argmax_grad(argmax, g.abs(), *feats.shape[1:3])
+    tol = 1e-5 * mass + 1e-6
+    if feats.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.float().abs()
+    return argmax, tol
+
+
+# (b, h, w, c, dtype, route): the RoI head's map in bf16 and f32, 8-byte
+# vectors of 4 bf16 with a ragged last slice of one vector (C=260 bf16:
+# plain loads, not bulk copies), the smallest C, and a map too large for
+# any slice
+BWD_ROUTES = [(2, 38, 38, 512, torch.bfloat16, "slice"),
+              (2, 38, 38, 512, torch.float32, "slice"),
+              (4, 38, 38, 260, torch.bfloat16, "slice"),
+              (2, 12, 10, 4, torch.float32, "slice"),
+              (1, 130, 120, 8, torch.bfloat16, "direct"),
+              (1, 130, 120, 8, torch.float32, "direct")]
+
+
+@pytest.mark.parametrize("b,h,w,c,dtype,route", BWD_ROUTES)
+def test_roi_pool_bwd_kernels_match_plain_on_each_route(rng, dev, b, h, w, c,
+                                                        dtype, route):
+    """Kernel 6 and kernel 5b on the route the plan gives, against their
+    plain versions within the tolerance of ``_bwd_tol``: empty bins and an
+    all-zero cotangent roi add nothing; kernel 6 returns the map's dtype,
+    5b f32; one launch each is counted."""
+    elem = torch.finfo(dtype).bits // 8
+    for kind in ("recompute", "scatter"):
+        assert roi_pool_bwd_plan(kind, b, h, w, c, 40, elem if kind ==
+                                 "recompute" else 4)["route"] == route
+    feats, rois, g = _bwd_case(rng, dev, b, h, w, c, dtype)
+    counts = (roi_pool_bwd_recompute.launches, roi_pool_bwd_scatter.launches)
+    got6 = roi_pool_bwd_recompute(feats, rois, g, 7, 1.0 / 16)
+    want6 = roi_pool_grad_first_argmax(feats, rois, g, 7, 1.0 / 16)
+    argmax, tol = _bwd_tol(feats, rois, g, want6)
+    got5 = roi_pool_bwd_scatter(argmax, g, h, w)
+    want5 = scatter_argmax_grad(argmax, g, h, w)
+    torch.cuda.synchronize()
+    assert (roi_pool_bwd_recompute.launches, roi_pool_bwd_scatter.launches) \
+        == (counts[0] + 1, counts[1] + 1)
+    assert got6.dtype == dtype and got5.dtype == torch.float32
+    assert bool(((got6.float() - want6.float()).abs() <= tol).all())
+    tol5 = 1e-5 * scatter_argmax_grad(argmax, g.abs(), h, w) + 1e-6
+    assert bool(((got5 - want5).abs() <= tol5).all())
+    assert bool((want6 != 0).any()) and bool((argmax < 0).any())
+
+
+@pytest.mark.parametrize("b,h,w,c,dtype,route", BWD_ROUTES)
+def test_roi_pool_bwd_kernels_through_autograd_on_each_route(
+        rng, dev, b, h, w, c, dtype, route):
+    """``roi_pool_fast`` (backward: kernel 6) and ``roi_pool_max``
+    (backward: kernel 5b over the saved argmax) give the plain versions'
+    gradient on each route, in the map's dtype."""
+    feats, rois, g = _bwd_case(rng, dev, b, h, w, c, dtype)
+    want = roi_pool_grad_first_argmax(feats, rois, g, 7, 1.0 / 16)
+    _, tol = _bwd_tol(feats, rois, g, want)
+    for pool in (lambda f: roi_pool_fast(f, rois, 7, 1.0 / 16),
+                 lambda f: roi_pool_max(f, rois, 7, 1.0 / 16)[0]):
+        f = feats.clone().requires_grad_(True)
+        (pool(f) * g).sum().backward()
+        torch.cuda.synchronize()
+        assert f.grad.dtype == dtype
+        assert bool(((f.grad.float() - want.float()).abs() <= tol).all())
 
 
 def test_roi_pool_kernel_skips_the_index_store(rng, dev):

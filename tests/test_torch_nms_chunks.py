@@ -1,0 +1,142 @@
+"""PyTorch port: kernel 1's walk in chunks, on the CPU.
+
+Kernel 1 (``csrc/nms.cu``) holds at most ``MAX_KERNEL_ROWS`` (112,128) rows
+an image in one launch's shared memory.  Above that ``ops/proposals.py``
+walks the score-sorted rows in chunks (``nms_chunks``), one launch each:
+a launch first clears its rows against every box the earlier chunks kept,
+then walks its own rows into the slots still free.  Kernel 3's launch B is
+the same walk.  Here the plain chunked walk
+(``greedy_nms_chunked_reference``, chunk size as a parameter) is held bit
+for bit against the plain one-pass steps and against the JAX package's
+``_batched_nms_kernel`` run interpreted; then the chunk planner.  The
+kernel itself runs only on the card (``tests/test_torch_kernels.py``,
+``chip_smoke.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from two_stage_object_detection_tpu.ops.pallas_proposals import (
+    _truncated_nms_call)
+from two_stage_object_detection_tpu_torch.ops import proposals as tp
+
+T = torch.from_numpy
+THR = 0.7
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes on one CPU; torch's own thread
+    pool in each would oversubscribe it many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rows(rng, b, k, case, n_dup=0):
+    """Score-sorted rows (stable, ties by lower index), the last tenth
+    masked.  ``case``: ``"first_chunk"`` (distinct boxes, coarse scores: the
+    first chunk alone fills a small ``n_post``); ``"crossing"`` (the
+    ``n_dup`` best rows are 1 px jitters of 6 boxes, so the first chunk
+    keeps at most 6 and the later rows fill the rest); ``"signed_zeros"``
+    (all scores but every 7th -0.0 or +0.0, which the plain argmax holds
+    equal)."""
+    xy = rng.rand(b, k, 2) * 200.0
+    boxes = np.concatenate([xy, xy + rng.rand(b, k, 2) * 60.0 + 4.0], -1)
+    scores = rng.randint(0, 30, size=(b, k)) / 30.0
+    if case == "crossing":
+        base = rng.rand(b, 6, 2) * 200.0
+        pick = np.take_along_axis(base, rng.randint(0, 6, (b, n_dup))[..., None], 1)
+        boxes[:, :n_dup] = (np.concatenate([pick, pick + 60.0], -1)
+                            + rng.rand(b, n_dup, 4))
+        scores[:, :n_dup] = 0.5 + rng.rand(b, n_dup) * 0.5
+        scores[:, n_dup:] = rng.rand(b, k - n_dup) * 0.5
+    elif case == "signed_zeros":
+        scores = np.where(rng.rand(b, k) < 0.5, -0.0, 0.0)
+        scores[:, ::7] = rng.randint(0, 3, size=scores[:, ::7].shape) / 3.0
+    scores[:, k - k // 10:] = -1e9
+    order = np.argsort(-scores, axis=1, kind="stable")
+    return (np.take_along_axis(boxes, order[..., None], 1).astype(np.float32),
+            np.take_along_axis(scores, order, 1).astype(np.float32))
+
+
+def _case(rng, chunk, case):
+    """(boxes, scores, n_post) of ``case`` over three and a bit chunks."""
+    k = 3 * chunk + 37
+    n_post = {"first_chunk": 10, "crossing": k // 4, "signed_zeros": k // 3}[case]
+    boxes, scores = _rows(rng, 2, k, case, n_dup=chunk + chunk // 2)
+    return boxes, scores, n_post
+
+
+def _first_chunk_kept(boxes, scores, chunk, n_post):
+    return tp.greedy_nms_rows_reference(
+        T(boxes[:, :chunk]), T(scores[:, :chunk]), n_post=n_post,
+        iou_threshold=THR)[2].sum(1)
+
+
+@pytest.mark.parametrize("case", ["first_chunk", "crossing", "signed_zeros"])
+@pytest.mark.parametrize("chunk", [64, 100, 1000])
+def test_chunked_walk_equals_plain_steps(rng, chunk, case):
+    """Chunk by chunk equals the one-pass steps bit for bit (sign of zero
+    included): where ``n_post`` is filled inside the first chunk, where the
+    kept set crosses chunk boundaries (the first chunk keeps fewer than
+    ``n_post``, the later ones clear their rows against its boxes), and on
+    -0.0/+0.0 ties."""
+    boxes, scores, n_post = _case(rng, chunk, case)
+    got = tp.greedy_nms_chunked_reference(T(boxes), T(scores), n_post=n_post,
+                                          iou_threshold=THR, chunk=chunk)
+    want = tp.greedy_nms_rows_reference(T(boxes), T(scores), n_post=n_post,
+                                        iou_threshold=THR)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+        assert torch.equal(torch.signbit(g.float()), torch.signbit(w.float()))
+    first = _first_chunk_kept(boxes, scores, chunk, n_post)
+    kept = want[2].sum(1)
+    if case == "first_chunk":
+        assert bool((first == n_post).all())
+    elif case == "crossing":
+        assert bool((first <= 6).all()) and bool((kept > first).all())
+        assert bool((kept == n_post).all())
+    else:
+        out = want[1][want[2]]
+        assert bool(((out == 0) & torch.signbit(out)).any())
+
+
+@pytest.mark.parametrize("case", ["first_chunk", "crossing", "signed_zeros"])
+@pytest.mark.parametrize("chunk", [64, 100, 1000])
+def test_chunked_walk_equals_interpreted_pallas_kernel(rng, chunk, case):
+    """The chunked walk equals the JAX package's ``_batched_nms_kernel``
+    run interpreted: equal valid masks, scores (-0.0 equal to +0.0, as the
+    kernel's one-hot sums give) and boxes."""
+    boxes, scores, n_post = _case(rng, chunk, case)
+    jb, js, jv = _truncated_nms_call(jnp.asarray(boxes), jnp.asarray(scores),
+                                     nms_iou=THR, n_post_nms=n_post,
+                                     interpret=True)
+    tb, ts, tv = tp.greedy_nms_chunked_reference(
+        T(boxes), T(scores), n_post=n_post, iou_threshold=THR, chunk=chunk)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    assert int(tv.sum()) > 0
+
+
+@pytest.mark.parametrize("k,n_chunks", [(tp.MAX_KERNEL_ROWS, 1),
+                                        (tp.MAX_KERNEL_ROWS + 1, 2),
+                                        (250000, 3)])
+def test_nms_chunks_plan(k, n_chunks):
+    """The fewest launches that each hold at most ``MAX_KERNEL_ROWS`` rows:
+    consecutive, covering every row once, of equal size in whole 64-row
+    tiles but the last, each within kernel 1's per-launch cluster bounds."""
+    chunks = tp.nms_chunks(k)
+    assert len(chunks) == n_chunks == -(-k // tp.MAX_KERNEL_ROWS)
+    assert chunks[0][0] == 0
+    for (c0, rows), nxt in zip(chunks, chunks[1:] + [(k, 0)]):
+        assert 0 < rows <= tp.MAX_KERNEL_ROWS and c0 + rows == nxt[0]
+        least, most = tp.nms_cluster_bounds(rows)
+        assert 1 <= least <= most <= tp.NMS_MAX_CLUSTER
+    sizes = [rows for _, rows in chunks]
+    assert all(s == sizes[0] and s % tp.NMS_TILE == 0 for s in sizes[:-1])
+    assert sizes[-1] <= sizes[0]

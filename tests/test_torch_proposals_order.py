@@ -170,9 +170,12 @@ def test_nms_cluster_floor(k, least):
 
 @pytest.mark.parametrize("k", [tp.MAX_KERNEL_ROWS + 1, 200000])
 def test_nms_cluster_bounds_raise_above_the_cap(k):
-    """Every table the whole-table train route reaches at the default
-    ``n_train_pre_nms`` (N < 72,000) is under the cap; above it the
-    bounds, and so kernels 1 and 3, raise with the cap in the message."""
+    """The bounds are per launch: one launch of kernel 1's walk holds up
+    to ``MAX_KERNEL_ROWS`` rows an image (every table the whole-table train
+    route reaches at the default ``n_train_pre_nms``, N < 72,000, is one
+    launch), and the bounds raise above it, with the cap in the message.
+    Kernels 1 and 3 take larger tables in chunks of at most that many rows
+    (``nms_chunks``, ``tests/test_torch_nms_chunks.py``)."""
     assert tp.MAX_KERNEL_ROWS >= 71999
     with pytest.raises(ValueError, match=f"1..{tp.MAX_KERNEL_ROWS} rows"):
         tp.nms_cluster_bounds(k)

@@ -38,7 +38,8 @@
 // pass.  A cluster spreads an image, and its boxes, over up to 8 SMs.  A
 // block's shared memory holds at most 219 tiles (1,032 bytes a tile), so
 // an image of K rows needs at least ceil(K / 64 / 219) blocks and 8 blocks
-// take up to 112,128 rows (ops/proposals.py:nms_cluster_bounds).  The
+// take up to 112,128 rows a launch (ops/proposals.py:nms_cluster_bounds;
+// more rows go in chunks, below).  The
 // launcher takes the largest cluster of which the card holds the whole
 // batch at once, but never one below that floor (nms_pick_cluster): an
 // H100 holds fewer than 16 clusters of 8 1024-thread blocks, so B=16 gets
@@ -46,6 +47,16 @@
 //
 // Kernel 3 (csrc/proposals.cu) calls this walk too, over its whole table
 // once launch A has sorted it, with K = N.
+//
+// More rows than 8 blocks hold (ops/proposals.py:nms_chunks): greedy NMS
+// over sorted rows splits into chunks with no change to its result, since
+// a row is kept exactly when no earlier kept row overlaps it by more than
+// the threshold.  The wrapper launches the walk once a chunk, in order,
+// each launch within its own cluster bounds; a launch reads the count kept
+// so far (`kept_count`, zeroed by the wrapper and kept on the device: the
+// host never reads it) and first clears its rows against the boxes already
+// in the outputs, with the same IoU code, then walks its tiles and
+// appends.  A launch that finds `n_post` already kept returns at once.
 //
 // Exactness: the IoU is computed with __fmul_rn/__fadd_rn/__fsub_rn in the
 // order inter / (area + barea - inter + 1e-8), with area = (x2-x1)*(y2-y1),
@@ -137,7 +148,40 @@ __device__ __forceinline__ void tile_suppression(const float4* tb, float thr,
   reinterpret_cast<unsigned char*>(sup)[i * 8 + c] = (unsigned char)bits;
 }
 
+// Clear the alive bit of every row in alive words [w0, w1) that one of the
+// `cnt` boxes in kept_box suppresses: one row a thread, one 32-row alive
+// word a warp.  kept_box holds earlier rows, so the IoU is taken as the
+// plain version takes it, with the kept box as the selected one.
+__device__ __forceinline__ void clear_rows(const float4* box_s,
+                                           uint32_t* alive, int w0, int w1,
+                                           const float4* kept_box,
+                                           const float* kept_area, int cnt,
+                                           float thr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int w = w0 + warp; w < w1; w += kWarps) {
+    const unsigned aw = alive[w];
+    if (aw == 0u) continue;   // uniform in the warp
+    bool dead = false;
+    if ((aw >> lane) & 1u) {
+      const float4 b = box_s[w * 32 + lane];
+      const float ab = area_rn(b);
+      // no early exit: few rows die per tile, and independent tests keep
+      // more loads in flight
+#pragma unroll 4
+      for (int m = 0; m < cnt; ++m) {
+        dead |= iou_above(kept_box[m], kept_area[m], b, ab, thr);
+      }
+    }
+    const unsigned d = __ballot_sync(kFull, dead);
+    if (lane == 0) alive[w] = aw & ~d;
+  }
+}
+
 // grid (cluster size, B), cluster (cluster size, 1, 1), kThreads threads.
+// The launch walks rows [0, k) of each image's `stride` rows (a chunk: the
+// pointers start at the chunk's first row).  With `kept_count`, the count
+// each image kept in earlier chunks (the outputs' first slots) is read
+// first and the new count written last.
 // Dynamic shared memory: the block's tiles' boxes [tiles * 64] float4, then
 // their alive bits [tiles * 2] uint32 (bit l of word w: local row 32w + l).
 //
@@ -149,11 +193,11 @@ __device__ __forceinline__ void tile_suppression(const float4* tb, float thr,
 // tile t + 1 computes that tile's suppression bits.
 __global__ void __launch_bounds__(kThreads, 1)
 nms_cluster_kernel(const float4* __restrict__ boxes,
-                   const float* __restrict__ scores, int k, int n_post,
-                   float thr, int tiles_per_block,
+                   const float* __restrict__ scores, int k, int stride,
+                   int n_post, float thr, int tiles_per_block,
                    float4* __restrict__ out_boxes,
                    float* __restrict__ out_scores,
-                   bool* __restrict__ out_valid) {
+                   bool* __restrict__ out_valid, int* __restrict__ kept_count) {
   extern __shared__ __align__(16) unsigned char smem[];
   float4* box_s = reinterpret_cast<float4*>(smem);
   uint32_t* alive =
@@ -175,11 +219,15 @@ nms_cluster_kernel(const float4* __restrict__ boxes,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_tiles = (k + kTile - 1) / kTile;
   const int my_tiles = rank < n_tiles ? (n_tiles - rank + cs - 1) / cs : 0;
-  const float4* bb = boxes + (size_t)img * k;
-  const float* sc = scores + (size_t)img * k;
+  const float4* bb = boxes + (size_t)img * stride;
+  const float* sc = scores + (size_t)img * stride;
   float4* ob = out_boxes + (size_t)img * n_post;
   float* os = out_scores + (size_t)img * n_post;
   bool* ov = out_valid + (size_t)img * n_post;
+  // kept in earlier chunks: the same in every block of the cluster, so a
+  // full image leaves before any cluster barrier, all blocks alike
+  const int prior = kept_count != nullptr ? kept_count[img] : 0;
+  if (prior >= n_post) return;
 
   // load my tiles (local tile l is tile l * cs + rank) and their alive bits
   if (threadIdx.x == 0) {
@@ -212,7 +260,20 @@ nms_cluster_kernel(const float4* __restrict__ boxes,
   const int n_work = (last + kTile) / kTile;   // tiles up to the last valid row
   const int my_work = rank < n_work ? (n_work - rank + cs - 1) / cs : 0;
 
-  int n_kept = 0;   // the same in every thread of the cluster
+  // earlier chunks' kept boxes, 64 at a time from the outputs, clear my rows
+  for (int m0 = 0; m0 < prior && my_work > 0; m0 += kTile) {
+    const int cnt = min(kTile, prior - m0);
+    if (threadIdx.x < cnt) {
+      const float4 b = ob[m0 + threadIdx.x];
+      kept_box[threadIdx.x] = b;
+      kept_area[threadIdx.x] = area_rn(b);
+    }
+    __syncthreads();
+    clear_rows(box_s, alive, 0, 2 * my_work, kept_box, kept_area, cnt, thr);
+    __syncthreads();
+  }
+
+  int n_kept = prior;   // the same in every thread of the cluster
   for (int t = 0; t < n_work && n_kept < n_post; ++t) {
     const int owner = t % cs, buf = t & 1;
     if (owner == rank && warp == 0) {
@@ -272,34 +333,21 @@ nms_cluster_kernel(const float4* __restrict__ boxes,
     n_kept += cnt;
     if (n_kept >= n_post) break;
     if (cnt > 0) {
-      // my tiles after t: one row a thread, one 32-row alive word a warp
+      // my tiles after t
       const int lt0 = t >= rank ? (t - rank) / cs + 1 : 0;
-      for (int w = 2 * lt0 + warp; w < 2 * my_work; w += kWarps) {
-        const unsigned aw = alive[w];
-        if (aw == 0u) continue;   // uniform in the warp
-        bool dead = false;
-        if ((aw >> lane) & 1u) {
-          const float4 b = box_s[w * 32 + lane];
-          const float ab = area_rn(b);
-          // no early exit: few rows die per tile, and independent tests
-          // keep more loads in flight
-#pragma unroll 4
-          for (int m = 0; m < cnt; ++m) {
-            dead |= iou_above(kept_box[m], kept_area[m], b, ab, thr);
-          }
-        }
-        const unsigned d = __ballot_sync(kFull, dead);
-        if (lane == 0) alive[w] = aw & ~d;
-      }
+      clear_rows(box_s, alive, 2 * lt0, 2 * my_work, kept_box, kept_area, cnt,
+                 thr);
     }
     __syncthreads();
   }
   if (rank == 0) {
+    // slots a later chunk may still fill start zeroed and invalid
     for (int s = n_kept + threadIdx.x; s < n_post; s += kThreads) {
       ob[s] = make_float4(0.f, 0.f, 0.f, 0.f);
       os[s] = 0.f;
       ov[s] = false;
     }
+    if (kept_count != nullptr && threadIdx.x == 0) kept_count[img] = n_kept;
   }
   cluster.sync();   // no block leaves while another may read its shared memory
 }
@@ -362,15 +410,18 @@ extern "C" int nms_pick_cluster(int batch, int k, int max_cluster,
   return best;
 }
 
-// `cluster`: blocks per image, 1..min(8, ceil(k / 64)) (nms_pick_cluster);
-// launch_config refuses one whose blocks cannot hold their rows.
-// Returns a cudaError_t code.
+// One launch over rows [0, k) of each image, `stride` rows apart (boxes and
+// scores point at the chunk's first row).  `cluster`: blocks per image,
+// 1..min(8, ceil(k / 64)) (nms_pick_cluster); launch_config refuses one
+// whose blocks cannot hold their rows.  `kept_count` ([batch] int32, zeroed
+// before the first chunk, or null for a single launch): read first,
+// written last.  Returns a cudaError_t code.
 extern "C" int nms_launch(const void* boxes, const void* scores, int batch,
-                          int k, int n_post, float thr, int cluster,
-                          void* out_boxes, void* out_scores, void* out_valid,
-                          void* stream) {
+                          int k, int stride, int n_post, float thr,
+                          int cluster, void* out_boxes, void* out_scores,
+                          void* out_valid, void* kept_count, void* stream) {
   const int n_tiles = (k + kTile - 1) / kTile;
-  if (batch < 1 || k < 1 || n_post < 0 || cluster < 1 ||
+  if (batch < 1 || k < 1 || stride < k || n_post < 0 || cluster < 1 ||
       cluster > kMaxCluster || cluster > n_tiles) {
     return (int)cudaErrorInvalidValue;
   }
@@ -383,9 +434,9 @@ extern "C" int nms_launch(const void* boxes, const void* scores, int batch,
   }
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, nms_cluster_kernel, static_cast<const float4*>(boxes),
-      static_cast<const float*>(scores), k, n_post, thr, per_block,
+      static_cast<const float*>(scores), k, stride, n_post, thr, per_block,
       static_cast<float4*>(out_boxes), static_cast<float*>(out_scores),
-      static_cast<bool*>(out_valid));
+      static_cast<bool*>(out_valid), static_cast<int*>(kept_count));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

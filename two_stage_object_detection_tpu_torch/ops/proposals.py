@@ -23,6 +23,11 @@ two routes (:func:`proposals_batched` picks one as
   per-image form, kernel 4 (:func:`fused_proposals`), is the same launches
   with ``B = 1``; like the JAX package's ``_fused_kernel`` it is on neither
   the predict nor the train path.
+
+Both kernels take any number of rows an image.  Kernel 1's walk holds up to
+``MAX_KERNEL_ROWS`` (112,128) rows a launch in shared memory; above that it
+walks the sorted rows in chunks (:func:`nms_chunks`), one launch each, every
+launch first clearing its rows against the boxes earlier chunks kept.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from two_stage_object_detection_tpu_torch.ops.nms import NEG_INF, topk_stable
 # kernel keeps in static shared memory (4,884 bytes).  So a block holds at
 # most NMS_MAX_TILES_PER_BLOCK tiles (219), an image of K rows needs at
 # least ceil(K / 64 / 219) blocks, and 8 blocks hold MAX_KERNEL_ROWS rows
-# (112,128): the cap of kernels 1 and 3 alike.
+# (112,128): the most one launch walks.  More rows go in chunks.
 NMS_TILE = 64
 NMS_MAX_CLUSTER = 8
 BLOCK_SMEM_BYTES = 232448
@@ -94,11 +99,85 @@ def greedy_nms_rows_reference(boxes: torch.Tensor, scores: torch.Tensor, *,
     return out_boxes, out_scores, out_valid
 
 
+def greedy_nms_chunked_reference(boxes: torch.Tensor, scores: torch.Tensor,
+                                 *, n_post: int, iou_threshold: float,
+                                 chunk: int):
+    """Kernel 1's chunked walk in plain PyTorch, with the chunk size as a
+    parameter; the tests hold it against :func:`greedy_nms_rows_reference`.
+
+    The sorted rows go ``chunk`` at a time.  Each chunk's rows are first
+    cleared against every box earlier chunks kept (their IoU taken with the
+    kept box as the selected one, as a step takes it), then walked with
+    :func:`greedy_nms_rows_reference`'s steps into the slots still free.
+    A row is kept exactly when no earlier kept row overlaps it by more than
+    the threshold, so the result is the same bit for bit.  Shapes as there.
+    """
+    b, k, _ = boxes.shape
+    dev = boxes.device
+    rows = torch.arange(b, device=dev)
+    thr = torch.tensor(iou_threshold, dtype=torch.float32, device=dev)
+    out_boxes = torch.zeros((b, n_post, 4), dtype=boxes.dtype, device=dev)
+    out_scores = torch.zeros((b, n_post), dtype=scores.dtype, device=dev)
+    out_valid = torch.zeros((b, n_post), dtype=torch.bool, device=dev)
+    n_kept = torch.zeros(b, dtype=torch.int64, device=dev)
+
+    def iou_above(sel, x1, y1, x2, y2, area):
+        ix1 = torch.maximum(x1, sel[:, 0:1])
+        iy1 = torch.maximum(y1, sel[:, 1:2])
+        ix2 = torch.minimum(x2, sel[:, 2:3])
+        iy2 = torch.minimum(y2, sel[:, 3:4])
+        inter = (torch.clamp(ix2 - ix1, min=0.0)
+                 * torch.clamp(iy2 - iy1, min=0.0))
+        sel_area = (sel[:, 2] - sel[:, 0]) * (sel[:, 3] - sel[:, 1])
+        return inter / (area + sel_area[:, None] - inter + 1e-8) > thr
+
+    for c0 in range(0, k, chunk):
+        cb = boxes[:, c0:c0 + chunk]
+        x1, y1, x2, y2 = cb.unbind(-1)
+        area = (x2 - x1) * (y2 - y1)
+        s_alive = scores[:, c0:c0 + chunk].clone()
+        for m in range(int(n_kept.max())):
+            sup = iou_above(out_boxes[:, m], x1, y1, x2, y2, area)
+            s_alive = torch.where(sup & (n_kept > m)[:, None], NEG_INF, s_alive)
+        while bool((n_kept < n_post).any()):
+            i = torch.argmax(s_alive, dim=1)
+            sc = s_alive[rows, i]
+            take = (sc > NEG_INF / 2) & (n_kept < n_post)
+            if not bool(take.any()):
+                break
+            sel = cb[rows, i]
+            sup = iou_above(sel, x1, y1, x2, y2, area)
+            sup[rows, i] = True
+            s_alive = torch.where(sup & take[:, None], NEG_INF, s_alive)
+            slot = n_kept.clamp(max=n_post - 1)
+            t = take[:, None]
+            out_boxes[rows, slot] = torch.where(t, sel, out_boxes[rows, slot])
+            out_scores[rows, slot] = torch.where(take, sc,
+                                                 out_scores[rows, slot])
+            out_valid[rows, slot] |= take
+            n_kept += take.to(torch.int64)
+    return out_boxes, out_scores, out_valid
+
+
+def nms_chunks(k: int) -> list[tuple[int, int]]:
+    """Kernel 1's launches over ``k`` sorted rows an image, as ``(first
+    row, rows)``: one launch up to ``MAX_KERNEL_ROWS`` rows, else the fewest
+    chunks that each hold at most that many, of equal size in whole tiles
+    (the last one the rest)."""
+    if k < 1:
+        raise ValueError(f"greedy_nms kernel takes at least 1 row, got {k}")
+    n = -(-k // MAX_KERNEL_ROWS)
+    tiles = -(-k // (n * NMS_TILE))          # tiles a chunk, rounded up
+    size = tiles * NMS_TILE
+    return [(c0, min(size, k - c0)) for c0 in range(0, k, size)]
+
+
 def nms_cluster_bounds(k: int) -> tuple[int, int]:
-    """Blocks of kernel 1's cluster for ``k`` rows per image, ``(least,
-    most)``: the fewest whose shared memory holds the rows, and one per tile
-    of ``NMS_TILE`` rows up to ``NMS_MAX_CLUSTER``.  Raises outside
-    ``1..MAX_KERNEL_ROWS``."""
+    """Blocks of kernel 1's cluster for a launch over ``k`` rows per image,
+    ``(least, most)``: the fewest whose shared memory holds the rows, and
+    one per tile of ``NMS_TILE`` rows up to ``NMS_MAX_CLUSTER``.  Raises
+    outside ``1..MAX_KERNEL_ROWS``, the rows one launch holds
+    (:func:`nms_chunks` cuts larger tables)."""
     if not 0 < k <= MAX_KERNEL_ROWS:
         raise ValueError(f"greedy_nms kernel takes 1..{MAX_KERNEL_ROWS} rows "
                          f"per image, got {k}")
@@ -117,9 +196,11 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
 
     The rows must be sorted by score, descending, ties by lower index (what
     :func:`~..ops.nms.topk_stable` gives).  On a CUDA tensor with
-    ``use_kernel`` this launches ``csrc/nms.cu`` (or raises); on the CPU, or
-    with ``use_kernel=False``, it runs :func:`greedy_nms_rows_reference`.
-    Same outputs either way, bit for bit.
+    ``use_kernel`` this launches ``csrc/nms.cu`` (or raises): once for up
+    to ``MAX_KERNEL_ROWS`` rows, once a chunk of :func:`nms_chunks` above
+    that.  On the CPU, or with ``use_kernel=False``, it runs
+    :func:`greedy_nms_rows_reference`.  Same outputs either way, bit for
+    bit.
     """
     if not (use_kernel and boxes.is_cuda):
         return greedy_nms_rows_reference(boxes, scores, n_post=n_post,
@@ -136,21 +217,28 @@ greedy_nms.launches = 0
 
 
 def _nms_walk(boxes, scores, n_post, iou_threshold):
-    """Launch kernel 1 (``csrc/nms.cu``) on checked ``[B, K]`` rows, counted
-    by no wrapper: :func:`greedy_nms` and kernel 3 count their own calls."""
+    """Launch kernel 1 (``csrc/nms.cu``) on checked ``[B, K]`` rows, once a
+    chunk of :func:`nms_chunks`, counted by no wrapper: :func:`greedy_nms`
+    and kernel 3 count their own calls.  Between chunks the count each image
+    kept stays on the device."""
     b, k, _ = boxes.shape
     dev = boxes.device
-    cluster = _nms_cluster(dev.index, b, k)
+    chunks = nms_chunks(k)
     out_boxes = torch.empty((b, n_post, 4), dtype=torch.float32, device=dev)
     out_scores = torch.empty((b, n_post), dtype=torch.float32, device=dev)
     out_valid = torch.empty((b, n_post), dtype=torch.bool, device=dev)
+    kept = (torch.zeros((b,), dtype=torch.int32, device=dev)
+            if len(chunks) > 1 else None)
     fn = _nms_fn()
     with torch.cuda.device(dev):
-        status = fn(boxes.data_ptr(), scores.data_ptr(), b, k, n_post,
-                    iou_threshold, cluster, out_boxes.data_ptr(),
-                    out_scores.data_ptr(), out_valid.data_ptr(),
-                    _cuda.stream_handle(boxes))
-    _cuda.check(status, "nms_launch")
+        for c0, rows in chunks:
+            status = fn(boxes.data_ptr() + c0 * 16, scores.data_ptr() + c0 * 4,
+                        b, rows, k, n_post, iou_threshold,
+                        _nms_cluster(dev.index, b, rows), out_boxes.data_ptr(),
+                        out_scores.data_ptr(), out_valid.data_ptr(),
+                        None if kept is None else kept.data_ptr(),
+                        _cuda.stream_handle(boxes))
+            _cuda.check(status, "nms_launch")
     return out_boxes, out_scores, out_valid
 
 
@@ -168,8 +256,8 @@ def _nms_cluster(device_index: int, b: int, k: int) -> int:
 
 def _nms_fn():
     fn = _cuda.library("nms").nms_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
 
@@ -251,10 +339,10 @@ def fused_proposals_batched(rpn_locs: torch.Tensor,
 
     Shapes as :func:`fused_proposals_rows_reference`.  On a CUDA tensor
     with ``use_kernel`` this launches ``csrc/proposals.cu`` and then
-    ``csrc/nms.cu`` (or raises, for instance above ``MAX_KERNEL_ROWS``
-    anchors); on the CPU, or with
-    ``use_kernel=False``, it runs the plain version.  Same outputs either
-    way, bit for bit.
+    ``csrc/nms.cu`` (or raises): kernel 1's walk once for up to
+    ``MAX_KERNEL_ROWS`` anchors, once a chunk of :func:`nms_chunks` above
+    that.  On the CPU, or with ``use_kernel=False``, it runs the plain
+    version.  Same outputs either way, bit for bit.
     """
     if not (use_kernel and rpn_locs.is_cuda):
         return fused_proposals_rows_reference(
@@ -296,13 +384,12 @@ fused_proposals.launches = 0
 def _fused_launch(rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou,
                   n_post, min_size):
     """Launch A (decode, mask, sort; ``csrc/proposals.cu``) and launch B
-    (kernel 1's walk, ``csrc/nms.cu``) over ``[B, N]`` anchors."""
+    (kernel 1's walk, ``csrc/nms.cu``, in chunks above ``MAX_KERNEL_ROWS``)
+    over ``[B, N]`` anchors."""
     b, n, _ = rpn_locs.shape
-    if not 0 < n <= MAX_KERNEL_ROWS:
-        raise ValueError(
-            f"the fused proposal kernel takes 1..{MAX_KERNEL_ROWS} anchors per "
-            f"image (kernel 1's cluster holds every row in shared memory), "
-            f"got {n}")
+    if n < 1:
+        raise ValueError(f"the fused proposal kernel takes at least 1 anchor "
+                         f"per image, got {n}")
     locs = rpn_locs.float().contiguous()
     scores = rpn_fg_scores.float().contiguous()
     anchors = anchors.float().contiguous()

@@ -7,10 +7,15 @@ crediting each bin's pooled cotangent to the bin's first maximum in
 row-major order, which it finds again from the map.  Unlike kernel 5's own
 backward it reads no saved argmax, so nothing of size ``[B, R, P, P, C]``
 lives between the forward and the backward pass.  On CUDA tensors it
-launches ``csrc/roi_pool_bwd.cu``; its plain version is
-:func:`~..ops.roi_pool.roi_pool_grad_first_argmax`.  The kernel's additions
-are atomic, so the two agree up to f32 summation order (about 1e-5
-relative), not bit for bit.
+launches ``csrc/roi_pool_bwd.cu`` on the route of
+:func:`~..ops.roi_pool_max.roi_pool_bwd_plan`: **slice** (the RoI head's
+38x38 map), a block per (channel slice, image) holds the map's slice and
+its f32 gradient in shared memory, walks every roi of the image and writes
+the slice once in the map's dtype; **direct** (maps too large for that), a
+block per (roi, image) adds into a zeroed f32 map with global atomics.  Its
+plain version is :func:`~..ops.roi_pool.roi_pool_grad_first_argmax`.  The
+kernel's additions collide in no fixed order, so the two agree up to f32
+summation order (about 1e-5 relative), not bit for bit.
 
 :func:`roi_pool_fast` is the JAX function of that name: RoIPool max whose
 backward is kernel 6.  :func:`roi_pool_recompute` is the same forward with
@@ -30,7 +35,8 @@ import torch
 from two_stage_object_detection_tpu_torch.ops import _cuda
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
     roi_pool_grad_first_argmax, roi_pool_grad_structured, roi_pool_grad_xla)
-from two_stage_object_detection_tpu_torch.ops.roi_pool_max import roi_pool_max
+from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
+    bwd_plan, roi_pool_max)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_MODES = ("xla", "structured", "pallas")
@@ -61,18 +67,25 @@ def roi_pool_bwd_recompute(feats: torch.Tensor, rois: torch.Tensor,
     _cuda.require(feats, "feats", feats.dtype, (b, h, w, c))
     _cuda.require(rois, "rois", torch.float32, (b, r, 4))
     _cuda.require(g, "g", torch.float32, (b, r, p, p, c))
-    dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=g.device)
+    plan = bwd_plan("recompute", g.device.index, b, h, w, c, r,
+                    feats.element_size(), p)
+    slice_route = plan["route"] == "slice"
+    dfeat = (torch.empty((b, h, w, c), dtype=feats.dtype, device=g.device)
+             if slice_route else
+             torch.zeros((b, h, w, c), dtype=torch.float32, device=g.device))
     fn = _cuda.library("roi_pool_bwd").roi_pool_bwd_recompute_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(g.device):
         status = fn(feats.data_ptr(), rois.data_ptr(), g.data_ptr(),
                     dfeat.data_ptr(), b, h, w, c, r, p, spatial_scale,
-                    _DTYPES[feats.dtype], _cuda.stream_handle(g))
+                    _DTYPES[feats.dtype], plan["vec_bytes"], plan["nv"],
+                    plan["n_slices"], plan["rois_per_pass"],
+                    _cuda.stream_handle(g))
     _cuda.check(status, "roi_pool_bwd_recompute_launch")
     roi_pool_bwd_recompute.launches += 1
-    return dfeat.to(feats.dtype)
+    return dfeat if slice_route else dfeat.to(feats.dtype)
 
 
 roi_pool_bwd_recompute.launches = 0

@@ -22,10 +22,13 @@ max is exact in any float format.
 
 :func:`roi_pool_max` is differentiable in the map: its backward adds each
 pooled cotangent at the saved argmax and drops the empty bins
-(:func:`roi_pool_bwd_scatter`, a second hand-written kernel, in
-``csrc/roi_pool_bwd.cu``; plain version
-:func:`~..ops.roi_pool.scatter_argmax_grad`).  The additions are atomic, so
-that gradient equals the plain version's up to f32 summation order.
+(:func:`roi_pool_bwd_scatter`, kernel 5b, in ``csrc/roi_pool_bwd.cu``;
+plain version :func:`~..ops.roi_pool.scatter_argmax_grad`).  On the RoI
+head's map a block adds one channel slice of an image in shared memory and
+writes it once; maps too large for that take atomic adds into a zeroed map
+(:func:`roi_pool_bwd_plan`, which also plans kernel 6).  The additions
+collide in no fixed order, so that gradient equals the plain version's up
+to f32 summation order.
 """
 
 from __future__ import annotations
@@ -90,6 +93,77 @@ def roi_pool_plan(b: int, h: int, w: int, c: int, r: int, elem_bytes: int,
             "n_slices": n_slices, "n_chunks": -(-r // per_chunk),
             "smem_bytes": (-(-(h * w * nv * vec) // 16) * 16
                            + (per_chunk * 2 * pooled + pooled * pooled) * 4)}
+
+
+BWD_KINDS = ("recompute", "scatter")
+
+
+def roi_pool_bwd_plan(kind: str, b: int, h: int, w: int, c: int, r: int,
+                      elem_bytes: int, n_sm: int = H100_SMS,
+                      pooled: int = 7) -> dict:
+    """How the RoIPool backward kernels cover a ``[b, h, w, c]`` map.
+
+    ``kind`` ``"recompute"`` is kernel 6 (``ops/roi_pool_bwd.py``), whose
+    block holds the map's slice (``elem_bytes`` a channel) in vectors of 16
+    bytes (8 where ``c * elem_bytes`` is not a multiple of 16), its f32
+    gradient, and the bin edges of up to ``rois_per_pass`` rois (8 * P
+    bytes each; all ``r`` where ``EDGE_BYTES`` hold them) and each bin's
+    (ph, pw) (4 * P^2).  ``"scatter"`` is kernel 5b
+    (:func:`roi_pool_bwd_scatter`), whose block holds the f32 gradient
+    slice alone, in vectors of 4 channels.  A slice is ``nv`` vectors of
+    every pixel; kernel 6's gradient keeps one float more a pixel (an odd
+    stride, so that a warp's adds spread over the banks).  It must fit in
+    ``SLICE_SMEM_BYTES``; where even one vector does not (or the map has
+    65,536 pixels or more), the route is ``"direct"``: the kernels before
+    the slice, with global atomics into a zeroed f32 map.
+
+    The grid is one block a slice and image (``n_slices`` x ``b``), with no
+    roi chunks, so nothing is flushed across blocks.  Among the widths that
+    fit, the plan takes the one whose busiest SM holds the fewest vectors,
+    waves of ``n_sm`` blocks (one a SM: a slice takes most of its shared
+    memory) times ``nv``; ties go to fewer slices.  As one-vector slices
+    are always a choice, that is ``ceil(b * cv / n_sm)`` vectors, ``cv``
+    the vectors of a pixel.  Returns ``{"route", "vec_bytes", "nv",
+    "n_slices", "rois_per_pass", "smem_bytes"}``.
+    """
+    if kind not in BWD_KINDS:
+        raise ValueError(f"kind must be one of {BWD_KINDS}, got {kind!r}")
+    hw = h * w
+
+    if kind == "recompute":
+        vec = 16 if (c * elem_bytes) % 16 == 0 else 8
+        ch = vec // elem_bytes
+        rois_per_pass = max(1, min(r, (EDGE_BYTES - 4 * pooled * pooled)
+                                   // (8 * pooled)))
+        fixed = (rois_per_pass * 2 * pooled + pooled * pooled) * 4
+
+        def smem(nv):
+            grad = -(-(hw * (nv * ch + 1) * 4) // 16) * 16
+            return -(-(hw * nv * vec) // 16) * 16 + grad + fixed
+    else:
+        vec, ch, rois_per_pass = 16, 4, 0
+
+        def smem(nv):
+            return hw * nv * 16
+    cv = c // ch
+    max_nv = min(cv, SLICE_THREADS)
+    while max_nv > 0 and smem(max_nv) > SLICE_SMEM_BYTES:
+        max_nv -= 1
+    if max_nv == 0 or hw >= 1 << 16:
+        return {"route": "direct", "vec_bytes": 0, "nv": 0, "n_slices": 0,
+                "rois_per_pass": 0, "smem_bytes": 0}
+    best = None
+    for n_slices in range(-(-cv // max_nv), cv + 1):
+        nv = -(-cv // n_slices)
+        if -(-cv // nv) != n_slices:
+            continue                       # the same nv as fewer slices
+        cost = -(-(b * n_slices) // n_sm) * nv
+        if best is None or cost < best[0]:
+            best = (cost, n_slices, nv)
+    _, n_slices, nv = best
+    return {"route": "slice", "vec_bytes": vec, "nv": nv,
+            "n_slices": n_slices, "rois_per_pass": rois_per_pass,
+            "smem_bytes": smem(nv)}
 
 
 def _forward(feats: torch.Tensor, rois: torch.Tensor, output_size: int,
@@ -184,6 +258,13 @@ def _plan(device_index, b, h, w, c, r, elem_bytes, pooled):
     return roi_pool_plan(b, h, w, c, r, elem_bytes, n_sm, pooled)
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_plan(kind, device_index, b, h, w, c, r, elem_bytes, pooled):
+    """:func:`roi_pool_bwd_plan` for the card of ``device_index``."""
+    n_sm = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return roi_pool_bwd_plan(kind, b, h, w, c, r, elem_bytes, n_sm, pooled)
+
+
 def _pool_fn():
     fn = _cuda.library("roi_pool").roi_pool_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
@@ -195,12 +276,15 @@ def _pool_fn():
 
 def roi_pool_bwd_scatter(argmax: torch.Tensor, g: torch.Tensor, h: int,
                          w: int, use_kernel: bool = True) -> torch.Tensor:
-    """Kernel 5's backward: add ``g`` at each bin's argmax.
+    """Kernel 5b, kernel 5's backward: add ``g`` at each bin's argmax.
 
     ``argmax [B, R, P, P, C]`` int32 (-1: empty bin, dropped), ``g`` of the
     same shape, f32 -> ``dfeat [B, H, W, C]`` f32.  On CUDA tensors with
-    ``use_kernel`` it launches ``csrc/roi_pool_bwd.cu`` (atomic adds: equal
-    to the plain version up to f32 summation order); otherwise it runs
+    ``use_kernel`` it launches ``csrc/roi_pool_bwd.cu`` on the route of
+    :func:`roi_pool_bwd_plan` (``"slice"``: a block adds one channel slice
+    of an image in shared memory and writes it once; ``"direct"``: atomic
+    adds into a zeroed map); either way equal to the plain version up to f32
+    summation order.  Otherwise it runs
     :func:`~..ops.roi_pool.scatter_argmax_grad`.
     """
     if not (use_kernel and g.is_cuda):
@@ -210,13 +294,18 @@ def roi_pool_bwd_scatter(argmax: torch.Tensor, g: torch.Tensor, h: int,
         raise ValueError(f"roi_pool_bwd kernel takes C a multiple of 4, got {c}")
     _cuda.require(argmax, "argmax", torch.int32)
     _cuda.require(g, "g", torch.float32, argmax.shape)
-    dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=g.device)
+    r, p = argmax.shape[1], argmax.shape[2]
+    plan = bwd_plan("scatter", g.device.index, b, h, w, c, r, 4, p)
+    alloc = torch.empty if plan["route"] == "slice" else torch.zeros
+    dfeat = alloc((b, h, w, c), dtype=torch.float32, device=g.device)
     fn = _cuda.library("roi_pool_bwd").roi_pool_bwd_scatter_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(g.device):
         status = fn(argmax.data_ptr(), g.data_ptr(), dfeat.data_ptr(), b,
-                    argmax[0].numel() // c, c, h * w, _cuda.stream_handle(g))
+                    argmax[0].numel() // c, c, h * w, plan["nv"],
+                    plan["n_slices"], _cuda.stream_handle(g))
     _cuda.check(status, "roi_pool_bwd_scatter_launch")
     roi_pool_bwd_scatter.launches += 1
     return dfeat
