@@ -51,6 +51,23 @@ nothing else.  Last, two micro-steps each of ``roi_bwd="xla"`` and
 ``"structured"`` run at batch 2, side routes whose launches are printed on
 their own.
 
+Last, the drivers phase runs the flagship through the port's CLI
+(``__main__.main``, in this process) over the host data pipeline, on a data
+root that lists the three committed JPEGs of ``tests/data/real_coco`` 32
+times for training and 16 for evaluation: ``train`` for two epochs at batch
+16 with ``grad_accum_steps=2`` and an eval after each (counters set to 0
+just before; kernels 1 and 2 must launch, the losses be finite, both
+checkpoints be written and ``_last`` hold step 4 and 2 updates), ``eval`` of
+the best checkpoint in both protocols (four finite values, mAPs in [0, 1]),
+and a ``Predictor.from_checkpoint`` serving one 3-image u8 request.  Between
+train and eval, the same ``train`` runs on a root of 128 training images
+(8 micro-steps an epoch, an eval after epoch 1 only), and then its train
+loader runs alone, with thread and with process workers.  It prints the
+decoder and the loader's copy scheme it found, each train loop's images per
+second over epoch 2 with its time a micro-step beside the bare b=16
+micro-step of the train phase, the loader's rate alone, and each eval
+pass's seconds.  Its launches stay out of the kernels line.
+
 Every check raises on failure, so any failed phase exits nonzero.
 
 Output: progress lines; the card's ``nvidia-smi`` name and power limit; one
@@ -66,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -1362,6 +1380,251 @@ def train_modes(cfg, rng):
     return launched, times
 
 
+# ------------------------------------------------------------ drivers
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "data", "real_coco")
+DRIVER_IMAGES = {"train2017": 32, "val2017": 16}
+# the timed loop: 8 micro-steps at b=16 an epoch, so that the first batch's
+# fill is an eighth of the epoch and not a half
+LONG_IMAGES = {"train2017": 128, "val2017": 16}
+# the drivers' --set overrides, shared by the CLI runs and the loader alone
+DRIVER_SETS = ["batch_size=16", "grad_accum_steps=2", "num_epochs=2",
+               "train_ratio=1.0", "eval_ratio=1.0"]
+
+
+def driver_data_root(root: str, counts=DRIVER_IMAGES) -> str:
+    """A COCO-layout root over the three committed JPEGs of
+    ``tests/data/real_coco``: each split lists them again and again under
+    distinct image ids (``counts`` a split), and its image folder links to
+    the fixture's."""
+    with open(os.path.join(FIXTURE, "annotations",
+                           "instances_train2017.json")) as f:
+        base = json.load(f)
+    os.makedirs(os.path.join(root, "annotations"))
+    for split, n in counts.items():
+        images, anns = [], []
+        for k in range(n):
+            img = base["images"][k % len(base["images"])]
+            images.append({**img, "id": k + 1})
+            anns += [{**a, "id": len(anns) + 1, "image_id": k + 1}
+                     for a in base["annotations"] if a["image_id"] == img["id"]]
+        with open(os.path.join(root, "annotations",
+                               f"instances_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": base["categories"]}, f)
+        os.symlink(os.path.join(FIXTURE, "train2017"),
+                   os.path.join(root, split))
+    return root
+
+
+class Records(logging.Handler):
+    """Keeps the log records of the port's drivers that carry ``seconds``
+    (the train loop's epochs, the eval passes)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        if hasattr(record, "seconds"):
+            self.records.append(record)
+
+
+def run_cli(argv):
+    """``__main__.main(argv)`` in this process; returns what it printed."""
+    import contextlib
+    import io
+
+    from two_stage_object_detection_tpu_torch.__main__ import main as cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(argv)
+    require(rc == 0, f"{argv[0]} exited {rc}")
+    return out.getvalue()
+
+
+def loader_alone(root: str):
+    """The train loader of the drivers' CLI runs alone (decode,
+    augmentation, pinned copies to the card; no train step), in each worker
+    mode, over the long root: images per second over its first epoch (it
+    starts the workers and fills the first batch) and over its second."""
+    from two_stage_object_detection_tpu_torch.__main__ import _load_cfg
+    from two_stage_object_detection_tpu_torch.train import build_loaders
+
+    rates = {}
+    for mode in ("thread", "process"):
+        c = _load_cfg(argparse.Namespace(
+            config=None, flagship=True,
+            set=[*DRIVER_SETS, f"worker_mode={mode}"]))
+        train_loader, eval_loader, _ = build_loaders(c, root)
+        rates[mode] = []
+        try:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                n = sum(b["image"].shape[0] for b in train_loader)
+                torch.cuda.synchronize()
+                rates[mode].append(n / (time.perf_counter() - t0))
+        finally:
+            train_loader.close()
+            eval_loader.close()
+    log(f"drivers host pipeline alone (the train loader, {c.num_workers} "
+        f"workers on {os.cpu_count()} cores, {n // c.batch_size} "
+        f"{c.batch_size}-image batches an epoch to the card): " + ", ".join(
+            f"{m} workers {r[1]:.1f} img/s in epoch 2 (epoch 1: {r[0]:.1f})"
+            for m, r in rates.items()))
+    return {m: {"epoch_1": r[0], "epoch_2": r[1]} for m, r in rates.items()}
+
+
+def drivers(cfg, smi: str, bare_step_ms: float):
+    """The drivers phase, on the flagship at full width: ``train`` (two
+    epochs of 32 images at b=16, ``grad_accum_steps=2``, an eval sweep after
+    each) through the CLI over the host pipeline, with every launch counter
+    set to 0 just before and read just after; then ``eval`` of the best
+    checkpoint in both protocols, and a ``Predictor`` from it serving one
+    3-image u8 request."""
+    import tempfile
+
+    from two_stage_object_detection_tpu_torch.data import native
+    from two_stage_object_detection_tpu_torch.data.coco import load_coco
+    from two_stage_object_detection_tpu_torch.data.pipeline import (
+        DetectionDataset, DevicePut)
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state)
+    from two_stage_object_detection_tpu_torch.serving import Predictor
+    from two_stage_object_detection_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    records = Records()
+    logging.getLogger("two_stage_object_detection_tpu_torch").addHandler(records)
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__}"
+    except ImportError:
+        pil = "no PIL"
+    decoder = ("native (native/preprocess.cpp, libjpeg/libpng)"
+               if native.available() else pil)
+    log(f"drivers: decoder: {decoder}")
+    log(f"drivers: Loader copy scheme: {DevicePut.scheme}")
+    wrappers = counters()
+    out = {"decoder": decoder, "copy_scheme": DevicePut.scheme}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = driver_data_root(os.path.join(tmp, "data"))
+        weights = os.path.join(tmp, "weights")
+        sets = [a for kv in DRIVER_SETS for a in ("--set", kv)]
+        common = ["--flagship", "--data-root", root, "--weights", weights,
+                  *sets]
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        run_cli(["train", *common, "--eval-period", "1", "--no-viz"])
+        train_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        epochs = [r for r in records.records if hasattr(r, "epoch")]
+        require(len(epochs) == 2, f"{len(epochs)} epochs logged, not 2")
+        for r in epochs:
+            require(bool(np.isfinite(r.loss)), f"epoch {r.epoch}: loss {r.loss}")
+        for name in (ckpt.BEST, ckpt.LAST):
+            require(os.path.exists(os.path.join(weights, name, ckpt.STATE_FILE)),
+                    f"train wrote no {name}")
+        with open(os.path.join(weights, "train_meta.json")) as f:
+            best_loss = json.load(f)["min_eval_loss"]
+        require(bool(np.isfinite(best_loss)), f"best eval loss {best_loss}")
+        for name in ("greedy_nms", "windowed_align"):
+            require(launches[name] > 0, f"the drivers' train never launched "
+                    f"{name}")
+        _, state = create_train_state(cfg, seed=0)
+        require(ckpt.restore_checkpoint(weights, state, name=ckpt.LAST)
+                is not None, "LAST does not restore")
+        require(state.step == 4 and state.updates == 2,
+                f"LAST holds step {state.step}, updates {state.updates}")
+        del state
+        e2 = epochs[1]
+        loop_step_ms = e2.seconds / e2.micro_steps * 1e3
+        log(f"drivers train (flagship, 600x600, b=16, grad_accum_steps=2, 2 "
+            f"epochs of {DRIVER_IMAGES['train2017']} images, an eval of "
+            f"{DRIVER_IMAGES['val2017']} after each): {train_s:.1f} s in all; "
+            f"mean losses {[round(r.loss, 4) for r in epochs]}; best eval "
+            f"loss {best_loss:.4f}; kernel launches {launches}")
+        log(f"drivers train loop, epoch 2: {e2.images / e2.seconds:.1f} img/s "
+            f"({e2.images} images in {e2.seconds:.3f} s, host pipeline and "
+            f"copies included); {loop_step_ms:.1f} ms a micro-step inside the "
+            f"loop against {bare_step_ms:.1f} ms for the bare b=16 micro-step "
+            f"of the train phase (epoch 1: {e2.images / epochs[0].seconds:.1f}"
+            " img/s)")
+        out.update(train_s=train_s, launches_train=launches,
+                   epoch_s=[r.seconds for r in epochs],
+                   epoch_loss=[r.loss for r in epochs],
+                   loop_img_per_s=e2.images / e2.seconds,
+                   loop_step_ms=loop_step_ms, bare_step_ms=bare_step_ms,
+                   best_eval_loss=best_loss)
+
+        # the timed loop: the same train over 128 images, an eval of 16
+        # after epoch 1 only; then its loader alone
+        long_root = driver_data_root(os.path.join(tmp, "long"), LONG_IMAGES)
+        n = len(records.records)
+        run_cli(["train", "--flagship", "--data-root", long_root, "--weights",
+                 os.path.join(tmp, "long_weights"), *sets,
+                 "--eval-period", "100", "--no-viz"])
+        long = [r for r in records.records[n:] if hasattr(r, "epoch")]
+        require(len(long) == 2 and all(np.isfinite(r.loss) for r in long),
+                f"the long train logged {[(r.epoch, r.loss) for r in long]}")
+        l2 = long[1]
+        long_step_ms = l2.seconds / l2.micro_steps * 1e3
+        log(f"drivers train loop, long root, epoch 2: "
+            f"{l2.images / l2.seconds:.1f} img/s ({l2.micro_steps} micro-steps"
+            f", {l2.images} images in {l2.seconds:.3f} s); {long_step_ms:.1f} "
+            f"ms a micro-step against {bare_step_ms:.1f} ms bare (epoch 1: "
+            f"{long[0].images / long[0].seconds:.1f} img/s)")
+        out.update(long_epoch_s=[r.seconds for r in long],
+                   long_micro_steps=[r.micro_steps for r in long],
+                   long_loop_img_per_s=l2.images / l2.seconds,
+                   long_loop_step_ms=long_step_ms)
+        out["loader_alone_img_per_s"] = loader_alone(long_root)
+
+        out["eval"] = {}
+        for flag, protocol in (([], "train-graph"), (["--predict"], "predict")):
+            for fn in wrappers.values():
+                fn.launches = 0
+            n = len(records.records)
+            sweep = json.loads(run_cli(["eval", *common, "--checkpoint", "best",
+                                        *flag]))
+            seconds = [r.seconds for r in records.records[n:]
+                       if getattr(r, "protocol", None) == protocol]
+            require(len(seconds) == 1, f"eval {protocol}: no timing record")
+            vals = [sweep[k] for k in ("mAP50", "mAP95", "mAP50_95")]
+            require(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals),
+                    f"eval {protocol}: mAPs {vals}")
+            require(bool(np.isfinite(sweep["eval_loss"])),
+                    f"eval {protocol}: eval_loss {sweep['eval_loss']}")
+            ev_launch = {k: f.launches for k, f in wrappers.items() if f.launches}
+            require(ev_launch.get("greedy_nms", 0) > 0
+                    and ev_launch.get("windowed_align", 0) > 0,
+                    f"eval {protocol} did not launch kernels 1 and 2")
+            log(f"drivers eval --checkpoint best ({protocol}): {sweep}; the "
+                f"pass over {DRIVER_IMAGES['val2017']} images took "
+                f"{seconds[0]:.3f} s; kernel launches {ev_launch}")
+            out["eval"][protocol] = {**sweep, "seconds": seconds[0],
+                                     "launches": ev_launch}
+
+        pred = Predictor.from_checkpoint(weights, cfg, wire="u8")
+        idx = load_coco(os.path.join(root, "annotations",
+                                     "instances_val2017.json"),
+                        os.path.join(root, "val2017"), seed=None)
+        ds = DetectionDataset(idx, cfg.input_size, train=False,
+                              uint8_images=True)
+        request = np.stack([ds[i]["image"] for i in range(3)])
+        det = pred(request)
+        n_det = check_outputs(det, 3, cfg)
+        log(f"drivers Predictor.from_checkpoint (best) answered a 3-image u8 "
+            f"request: {n_det} valid detections")
+        out["predictor_detections"] = n_det
+    logging.getLogger("two_stage_object_detection_tpu_torch").removeHandler(
+        records)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"drivers phase: {out['phase_s']:.1f} s in all; card: {smi}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the measured numbers here")
@@ -1434,6 +1697,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     mode_launches, mode_ms = train_modes(Config(), rng)
     torch.cuda.empty_cache()
+    driver = drivers(paths["flagship"][0], smi,
+                     train_perf["flagship"]["warm_step_ms"])
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1451,6 +1717,7 @@ def main() -> int:
                        "train": train_perf, "train_f32_parity": train_par,
                        "train_modes_ms": mode_ms,
                        "train_modes_launches": mode_launches,
+                       "drivers": driver,
                        "fused_proposals_shapes": fused_shapes,
                        "roi_pool_max_shapes": pool_shapes,
                        "roi_pool_bwd_shapes": bwd_shapes,

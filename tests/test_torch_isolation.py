@@ -30,9 +30,11 @@ print(len(mods), bad)
 """
 
 
-def test_port_imports_no_jax_or_jax_package():
+def _import_all(forbidden):
+    """Import every module of the port in a fresh interpreter where the
+    ``forbidden`` packages cannot be imported."""
     root = Path(port.__file__).resolve().parent.parent
-    out = subprocess.run([sys.executable, "-c", _PROBE.format(forbidden=FORBIDDEN)],
+    out = subprocess.run([sys.executable, "-c", _PROBE.format(forbidden=forbidden)],
                          capture_output=True, text=True, cwd=root, timeout=300)
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.strip().split(" ", 1)
@@ -40,6 +42,21 @@ def test_port_imports_no_jax_or_jax_package():
     expected = {m.name for m in pkgutil.walk_packages(port.__path__,
                                                       port.__name__ + ".")}
     assert int(n_mods) == len(expected) >= 15
+    return expected
+
+
+def test_port_imports_no_jax_or_jax_package():
+    _import_all(FORBIDDEN)
+
+
+def test_port_imports_without_pil_matplotlib_or_tqdm():
+    """The card's machine may lack PIL, matplotlib and tqdm: every module,
+    the drivers included, imports without them (each is imported inside
+    the function that uses it)."""
+    mods = _import_all(FORBIDDEN + ("PIL", "matplotlib", "tqdm"))
+    assert {port.__name__ + m for m in (".train", ".evaluate", ".infer",
+                                        ".__main__", ".utils.draw",
+                                        ".data.pipeline")} <= mods
 
 
 def test_chip_smoke_imports_no_jax():

@@ -1,0 +1,96 @@
+"""Standalone evaluation driver: score a checkpoint on the val set.
+
+The port's copy of the JAX package's ``evaluate.py``.  It loads a saved
+checkpoint and runs the full mAP@[.5:.95] sweep on the validation
+annotations — through either the reference's trainer-graph protocol or the
+true inference path — without touching the training loop (the reference
+can only evaluate inside a training run, ``train/train.py:94-117``).
+
+Not ported: the device-resident eval set (``cache_device=True``), which
+waits for ``data/device_cache.py`` (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Optional
+
+from two_stage_object_detection_tpu_torch.config import Config, load_config
+from two_stage_object_detection_tpu_torch.data.coco import load_coco
+from two_stage_object_detection_tpu_torch.data.pipeline import (
+    DetectionDataset, DevicePut, Loader)
+from two_stage_object_detection_tpu_torch.eval.evaluator import evaluate_sweep
+from two_stage_object_detection_tpu_torch.nets.trainer import create_train_state
+from two_stage_object_detection_tpu_torch.utils import checkpoint as ckpt
+
+log = logging.getLogger(__name__)
+
+
+def build_eval_loader(cfg: Config, data_root: str = "data"):
+    """Validation loader (COCO layout, reference
+    ``dataset/data_organise.py:13-15``) -> ``(loader, eval_index)``; its
+    batches land on ``cfg.device``."""
+    if cfg.cache_device:
+        raise NotImplementedError(
+            "cache_device=True needs data/device_cache.py, which is not "
+            "ported yet (ROADMAP.md, 'Modules to port')")
+    eval_idx = load_coco(
+        os.path.join(data_root, "annotations", "instances_val2017.json"),
+        os.path.join(data_root, "val2017"), ratio=cfg.eval_ratio)
+    ds = DetectionDataset(eval_idx, cfg.input_size, cfg.max_gt_boxes,
+                          train=False, cache=cfg.cache_decoded,
+                          cache_max_bytes=cfg.cache_max_bytes,
+                          uint8_images=cfg.transfer_uint8)
+    return Loader(ds, cfg.batch_size, shuffle=False,
+                  num_workers=cfg.num_workers, prefetch=cfg.prefetch_factor,
+                  device_put=DevicePut(cfg.device),
+                  worker_mode=cfg.worker_mode,
+                  persistent_workers=cfg.persistent_workers), eval_idx
+
+
+def evaluate_checkpoint(weights_dir: str = "weights",
+                        cfg: Optional[Config] = None,
+                        data_root: str = "data", name: Optional[str] = None,
+                        use_predict: bool = False,
+                        coco_summary: bool = False, seed: int = 0) -> dict:
+    """Score ``FasterRCNNTrainer_{best,last}`` weights on the val set.
+
+    Returns the :func:`~.eval.evaluator.evaluate_sweep` dict —
+    ``mAP50`` / ``mAP95`` / ``mAP50_95`` / ``eval_loss`` (plus ``coco``
+    when ``coco_summary=True``).  Raises ``FileNotFoundError`` when the
+    checkpoint is missing.
+
+    ``use_predict=False`` scores through the trainer graph (the
+    reference's eval protocol, ``nets/frcnn_training.py:347-370``);
+    ``True`` scores the true inference path (score threshold + per-class
+    NMS — what deployment actually serves).  The pass's time (loader, device
+    and host metric work) is logged, and kept on the record as ``seconds``.
+    """
+    cfg = cfg or load_config()
+    _, state = create_train_state(cfg, seed=seed)
+    if ckpt.restore_checkpoint(weights_dir, state, name=name or ckpt.BEST,
+                               params_only=True) is None:
+        raise FileNotFoundError(
+            f"no checkpoint {name or ckpt.BEST!r} under {weights_dir!r}")
+    loader, _ = build_eval_loader(cfg, data_root)
+    try:
+        t0 = time.perf_counter()
+        sweep = evaluate_sweep(state, lambda: loader, cfg,
+                               use_predict=use_predict,
+                               coco_summary=coco_summary)
+        seconds = time.perf_counter() - t0
+    finally:
+        loader.close()
+    protocol = "predict" if use_predict else "train-graph"
+    log.info("eval[%s]: mAP@0.5 %.4f  mAP@[.5:.95] %.4f  mAP@0.95 %.4f  "
+             "loss %.4f  (%.3f s)", protocol, sweep["mAP50"],
+             sweep["mAP50_95"], sweep["mAP95"], sweep["eval_loss"], seconds,
+             extra={"protocol": protocol, "seconds": seconds})
+    return sweep
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    evaluate_checkpoint()

@@ -7,8 +7,14 @@ bucket, and the results truncated back.  Fixed buckets keep the set of
 shapes the device sees small.  ``__call__`` returns a dict of numpy
 ``boxes/scores/labels/valid``.
 
+:meth:`Predictor.from_checkpoint` loads the port's own checkpoints
+(``utils/checkpoint.py``: ``torch.save`` files under
+``FasterRCNNTrainer_{best,last}``); :meth:`Predictor.from_jax_variables`
+takes the JAX package's flax variables as numpy trees.
+
 Not ported yet: the yuv420 wire, ``calibrate``, ``mesh``/``spatial``,
-``int8_scales``, ``DynamicBatcher``, export, and loading Orbax checkpoints.
+``int8_scales``, ``DynamicBatcher``, export, and reading the JAX package's
+Orbax checkpoints or the reference's ``.pth`` files directly (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -64,6 +70,24 @@ class Predictor:
             load_jax_variables)
         model = FasterRCNN(cfg, device=device)
         load_jax_variables(model, params, batch_stats)
+        return cls(cfg, model, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, weights_dir: str, cfg: Config, name: str = None,
+                        device=None, **kw) -> "Predictor":
+        """Serve the parameters and batch-norm statistics of the port's
+        ``FasterRCNNTrainer_{best,last}`` checkpoint (``name``, default
+        best) under ``weights_dir``; raises ``FileNotFoundError`` when there
+        is none."""
+        from two_stage_object_detection_tpu_torch.nets.trainer import (
+            create_train_state)
+        from two_stage_object_detection_tpu_torch.utils import (
+            checkpoint as ckpt)
+        model, state = create_train_state(cfg, device=device)
+        if ckpt.restore_checkpoint(weights_dir, state, name=name or ckpt.BEST,
+                                   params_only=True) is None:
+            raise FileNotFoundError(
+                f"no checkpoint {name or ckpt.BEST!r} under {weights_dir!r}")
         return cls(cfg, model, **kw)
 
     def _plan(self, n: int):

@@ -1,0 +1,274 @@
+"""Training driver.
+
+The port's copy of the JAX package's ``train.py``, with its surface:
+epoch loop with tqdm, gradient accumulation, a periodic eval sweep over IoU
+thresholds 0.5:0.05:0.95 -> mAP@{.5,.95,.5:.95}, best/last checkpoints,
+preemption and exact resume, and the EMA-smoothed loss plots.  Batches come
+from the host pipeline (:mod:`.data.pipeline`) and are copied to the card
+from pinned memory (:class:`~.data.pipeline.DevicePut`).
+
+Not ported: multi-device meshes and spatial sharding (``parallel/``), the
+device-resident dataset (``cache_device=True``, ``data/device_cache.py``)
+and on-device augmentation (``device_augment=True``,
+``data/device_transforms.py``); each raises ``NotImplementedError`` naming
+its ROADMAP.md entry.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from two_stage_object_detection_tpu_torch.config import (
+    Config, load_config, resolve_device)
+from two_stage_object_detection_tpu_torch.data.coco import load_coco
+from two_stage_object_detection_tpu_torch.data.pipeline import (
+    DetectionDataset, DevicePut, Loader)
+from two_stage_object_detection_tpu_torch.eval.evaluator import evaluate_sweep
+from two_stage_object_detection_tpu_torch.nets.trainer import (
+    create_train_state, train_step)
+from two_stage_object_detection_tpu_torch.utils import checkpoint as ckpt
+from two_stage_object_detection_tpu_torch.utils.preemption import (
+    PreemptionGuard)
+from two_stage_object_detection_tpu_torch.utils.utils import (
+    set_seed, update_ema)
+
+log = logging.getLogger(__name__)
+
+_ROADMAP = "ROADMAP.md, 'Modules to port'"
+
+
+def _unported(what: str, module: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} needs {module}, which is not ported "
+                               f"yet ({_ROADMAP})")
+
+
+def step_generator(seed: int, epoch: int, step: int, device) -> torch.Generator:
+    """The sampling generator of micro-step ``step`` of ``epoch``: a fixed
+    function of ``(seed, epoch, step)``, as the JAX package's
+    ``fold_in(fold_in(rng, epoch), step)``, so that a resumed run draws what
+    an uninterrupted one draws."""
+    s = np.random.SeedSequence((seed, epoch, step)).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(s) >> 1)
+
+
+def build_loaders(cfg: Config, data_root: str = "data"):
+    """COCO loaders following the reference's path layout
+    (``dataset/data_organise.py:13-15``:
+    ``data/annotations/instances_{split}2017.json``), each placing its
+    batches on ``cfg.device`` (:class:`DevicePut`).  Returns
+    ``(train_loader, eval_loader, eval_index)``.
+    """
+    if cfg.cache_device:
+        raise _unported("cache_device=True", "data/device_cache.py")
+    if cfg.device_augment:
+        raise _unported("device_augment=True", "data/device_transforms.py")
+    train_idx = load_coco(
+        os.path.join(data_root, "annotations", "instances_train2017.json"),
+        os.path.join(data_root, "train2017"), ratio=cfg.train_ratio)
+    eval_idx = load_coco(
+        os.path.join(data_root, "annotations", "instances_val2017.json"),
+        os.path.join(data_root, "val2017"), ratio=cfg.eval_ratio)
+    train_ds = DetectionDataset(train_idx, cfg.input_size, cfg.max_gt_boxes,
+                                train=cfg.augment,
+                                cache=cfg.cache_decoded,
+                                cache_max_bytes=cfg.cache_max_bytes,
+                                uint8_images=cfg.transfer_uint8)
+    eval_ds = DetectionDataset(eval_idx, cfg.input_size, cfg.max_gt_boxes,
+                               train=False,
+                               cache=cfg.cache_decoded,
+                               cache_max_bytes=cfg.cache_max_bytes,
+                               uint8_images=cfg.transfer_uint8)
+    put = DevicePut(resolve_device(cfg.device))
+    mk = lambda ds, shuffle: Loader(
+        ds, cfg.batch_size, shuffle=shuffle, num_workers=cfg.num_workers,
+        prefetch=cfg.prefetch_factor, device_put=put,
+        worker_mode=cfg.worker_mode,
+        persistent_workers=cfg.persistent_workers)
+    return mk(train_ds, True), mk(eval_ds, False), eval_idx
+
+
+def train(visualization: bool = True, cfg: Optional[Config] = None,
+          data_root: str = "data", weights_dir: str = "weights",
+          pre_train: bool = False, resume: bool = False,
+          eval_period: int = 10, seed: int = 42, mesh="auto",
+          spatial: bool = False, guard: Optional[PreemptionGuard] = None):
+    """Run the full training loop (reference ``train()`` signature kept).
+
+    ``mesh``: ``"auto"`` or ``None`` train on ``cfg.device``, one device;
+    an explicit mesh, and ``spatial=True``, raise until ``parallel/`` is
+    ported.
+
+    ``resume``: restore the full train state (parameters, batch-norm
+    statistics, optimiser moments, counters) from the ``_last`` checkpoint
+    and continue inside the epoch that was interrupted: the epoch's
+    deterministic batch order is replayed, the batches already applied are
+    skipped, the loader's epoch clock is restored, and every micro-step
+    draws its sampling from :func:`step_generator`, so the resumed run
+    equals an uninterrupted one.  ``pre_train`` restores the ``_best``
+    parameters and statistics only, with a fresh optimiser
+    (``train/train.py:60-72``).
+
+    ``guard``: a :class:`~.utils.preemption.PreemptionGuard` (one is created
+    if omitted).  SIGTERM, or ``guard.request()``, stops the loop at the
+    next step boundary, saves ``_last`` and returns.
+
+    ``cfg.fused_accum``: the JAX package runs each accumulation cycle as one
+    dispatch (``train_macro_step``, a ``lax.scan`` of ``grad_accum_steps``
+    calls of its train step).  Here the same micro-steps run as
+    ``train_step`` calls whatever its value, so the result is the same.
+
+    Each epoch logs its loop time (host pipeline, copies and micro-steps,
+    ending in a synchronisation; the eval after it excluded) and its mean
+    loss, with the numbers as record attributes ``epoch``, ``micro_steps``,
+    ``images``, ``seconds`` and ``loss``.
+    """
+    cfg = cfg or load_config()
+    if mesh not in ("auto", None) or spatial:
+        raise _unported("a device mesh or spatial sharding", "parallel/")
+    dev = resolve_device(cfg.device)
+    set_seed(seed)
+
+    train_loader, eval_loader, _ = build_loaders(cfg, data_root)
+    try:
+        return _run(visualization, cfg, dev, train_loader, eval_loader,
+                    weights_dir, pre_train, resume, eval_period, seed,
+                    guard or PreemptionGuard())
+    finally:
+        train_loader.close()
+        eval_loader.close()
+
+
+def _run(visualization, cfg, dev, train_loader, eval_loader, weights_dir,
+         pre_train, resume, eval_period, seed, guard):
+    steps_per_epoch = max(len(train_loader), 1)
+    _, state = create_train_state(cfg, seed=seed,
+                                  steps_per_epoch=steps_per_epoch, device=dev)
+    os.makedirs(weights_dir, exist_ok=True)
+
+    start_epoch = 0
+    skip_steps = 0   # applied micro-steps of the resumed (partial) epoch
+    min_eval_loss = float("inf")   # global best (the reference resets this
+    # every eval round, train/train.py:95,120 — quirk #9, fixed)
+    meta_path = os.path.join(weights_dir, "train_meta.json")
+    if resume:
+        if ckpt.restore_checkpoint(weights_dir, state, name=ckpt.LAST) is not None:
+            # TrainState.step counts micro-steps; continue inside the epoch
+            # that was interrupted, skipping the batches already applied
+            start_epoch = min(state.step // steps_per_epoch, cfg.num_epochs)
+            if start_epoch < cfg.num_epochs:
+                skip_steps = state.step % steps_per_epoch
+            if os.path.exists(meta_path):
+                with open(meta_path) as f:
+                    min_eval_loss = float(
+                        json.load(f).get("min_eval_loss", float("inf")))
+            log.info("✅ Resumed full train state at step %d (epoch %d, "
+                     "best eval loss %.4f)", state.step, start_epoch,
+                     min_eval_loss)
+    elif pre_train:
+        if ckpt.restore_checkpoint(weights_dir, state, name=ckpt.BEST,
+                                   params_only=True) is not None:
+            log.info("✅ Successfully loaded pretrained model")
+
+    try:
+        from tqdm import tqdm
+    except ImportError:  # pragma: no cover
+        tqdm = lambda it, **kw: it
+
+    train_loss, eval_loss = [], []
+    mAP50_list, mAP50_95_list, mAP95_list = [], [], []
+
+    def _eval_and_checkpoint():
+        nonlocal min_eval_loss
+        sweep = evaluate_sweep(state, lambda: eval_loader, cfg)
+        mAP50_list.append(sweep["mAP50"])
+        mAP95_list.append(sweep["mAP95"])
+        mAP50_95_list.append(sweep["mAP50_95"])
+        eval_loss.append(sweep["eval_loss"])
+        if sweep["eval_loss"] < min_eval_loss:
+            min_eval_loss = sweep["eval_loss"]
+            ckpt.save_checkpoint(weights_dir, state, name=ckpt.BEST)
+            log.info("✅ Best model saved to %s", weights_dir)
+        log.info("eval: mAP_50%%: %.4f, mAP_50%%_95%%: %.4f, mAP_95%%: %.4f",
+                 sweep["mAP50"], sweep["mAP50_95"], sweep["mAP95"])
+        # periodic full-state save so ``resume=True`` can recover a crashed
+        # or preempted run; the write overlaps the next epoch's steps
+        ckpt.save_checkpoint(weights_dir, state, name=ckpt.LAST, wait=False)
+        with open(meta_path, "w") as f:
+            json.dump({"min_eval_loss": min_eval_loss}, f)
+
+    preempted = False
+    train_loader.epoch = start_epoch   # restore the shuffle-order clock
+    with guard:
+        for epoch in range(start_epoch, cfg.num_epochs):
+            # losses stay on the device during the epoch and come to the
+            # host once at its end
+            pending = []
+            skip = skip_steps if epoch == start_epoch else 0
+            t0 = time.perf_counter()
+            loop = tqdm(train_loader, total=steps_per_epoch,
+                        desc=f"Epoch {epoch + 1}/{cfg.num_epochs}",
+                        colour="green")
+            for i, batch in enumerate(loop):
+                if i < skip:    # already applied before the preemption
+                    continue
+                if guard.should_stop():
+                    preempted = True
+                    break
+                state, losses = train_step(
+                    state, batch, step_generator(seed, epoch, i, dev))
+                pending.append(losses["total"])
+            losses = torch.stack(pending).cpu().tolist() if pending else []
+            seconds = time.perf_counter() - t0
+            train_loss.extend(losses)
+            n_img = len(losses) * cfg.batch_size
+            mean = float(np.mean(losses)) if losses else float("nan")
+            log.info("epoch %d: %d micro-steps (%d images) in %.3f s, host "
+                     "pipeline included = %.1f img/s; mean loss %.4f",
+                     epoch + 1, len(losses), n_img, seconds, n_img / seconds,
+                     mean, extra={"epoch": epoch + 1, "micro_steps": len(losses),
+                                  "images": n_img, "seconds": seconds,
+                                  "loss": mean})
+            if preempted:
+                break
+            if epoch % eval_period == 0:
+                _eval_and_checkpoint()
+
+        ckpt.save_checkpoint(weights_dir, state, name=ckpt.LAST)
+        if preempted:
+            log.warning("⚠️ Preempted at step %d — full state saved to %s; "
+                        "train(resume=True) continues this run",
+                        state.step, weights_dir)
+        else:
+            log.info("✅ Last model saved to %s", weights_dir)
+
+    if visualization and train_loss:
+        from two_stage_object_detection_tpu_torch.utils.draw import (
+            plot_training_metrics)
+        ema_alpha = 0.01
+        ema_train = []
+        for i, v in enumerate(train_loss):
+            ema_train.append(v if i == 0 else update_ema(v, ema_alpha, ema_train[-1]))
+        ema_eval = []
+        for i, v in enumerate(eval_loss):
+            ema_eval.append(v if i == 0 else update_ema(v, ema_alpha, ema_eval[-1]))
+        plot_training_metrics(
+            epoch_num=cfg.num_epochs, step_num=list(range(len(train_loss))),
+            train_loss=train_loss, ema_train_loss=ema_train,
+            eval_loss=eval_loss, ema_eval_loss=ema_eval,
+            mAP50_list=mAP50_list, mAP50_95_list=mAP50_95_list,
+            mAP95_list=mAP95_list)
+
+    return state
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    train()

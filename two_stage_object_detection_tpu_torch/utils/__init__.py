@@ -1,1 +1,2 @@
-"""Weight carry-over from the JAX package."""
+"""Checkpoints, preemption, plots, seeding, and weight carry-over from the
+JAX package."""

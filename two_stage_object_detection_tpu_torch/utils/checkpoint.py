@@ -1,0 +1,142 @@
+"""Checkpoint save/restore (``torch.save``).
+
+The counterpart of the JAX package's ``utils/checkpoint.py`` (Orbax there):
+the same names, ``FasterRCNNTrainer_best`` / ``FasterRCNNTrainer_last``,
+each one directory under the weights directory, and the full train state in
+it: the model's parameters and buffers (batch-norm running statistics
+included), the optimiser's state dict (AdamW moments and step counts), the
+gradients summed so far in the running accumulation cycle (the parameters'
+``.grad``; optax keeps them in its ``MultiSteps`` state, which Orbax saves),
+and the :class:`~..nets.trainer.TrainState` counters ``step`` and
+``updates``, so that a restart resumes exactly, mid-cycle too.
+
+A write goes to a temporary file in the checkpoint's directory and is moved
+over the old file with ``os.replace``, so a reader finds the old checkpoint
+or the new one, never a torn one.  ``wait=False`` copies the state to host
+memory on the caller's thread and writes it on a background thread, as
+Orbax's async save does; :func:`wait_for_saves` joins it (and raises what
+the write raised).  At most one such write is in flight: a second save
+waits for the first.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+import threading
+from typing import Any, Optional
+
+import torch
+
+BEST = "FasterRCNNTrainer_best"    # keep the reference's naming contract
+LAST = "FasterRCNNTrainer_last"
+STATE_FILE = "state.pt"
+
+# the in-flight ``wait=False`` write: (thread, [exception or None])
+_inflight: Optional[tuple] = None
+_inflight_lock = threading.Lock()
+
+
+def _to_host(obj: Any) -> Any:
+    """A copy of ``obj`` with every tensor copied to host memory (a copy
+    even of CPU tensors: the train step goes on updating the originals)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _snapshot(state) -> dict:
+    return {"model": _to_host(state.model.state_dict()),
+            "optimizer": _to_host(state.optimizer.state_dict()),
+            "accum": {n: _to_host(p.grad)
+                      for n, p in state.model.named_parameters()
+                      if p.grad is not None},
+            "step": int(state.step), "updates": int(state.updates)}
+
+
+def _write(payload: dict, full: str) -> None:
+    os.makedirs(full, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=".tmp_", suffix=".pt", dir=full)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(full, STATE_FILE))
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def save_checkpoint(path: str, state, name: str = LAST,
+                    wait: bool = True) -> str:
+    """Save a :class:`~..nets.trainer.TrainState` under ``path/name``.
+
+    ``wait=True`` (default) returns once the file is in place.
+    ``wait=False`` returns once the state is copied to host memory and
+    writes it on a background thread, overlapping the write with the next
+    train steps; call :func:`wait_for_saves` before relying on the file.
+    Returns the checkpoint's directory.
+    """
+    global _inflight
+    full = os.path.abspath(os.path.join(path, name))
+    wait_for_saves()                     # one async save in flight at a time
+    payload = _snapshot(state)
+    if wait:
+        _write(payload, full)
+        return full
+    error: list = [None]
+
+    def run():
+        try:
+            _write(payload, full)
+        except BaseException as e:       # handed to wait_for_saves
+            error[0] = e
+
+    t = threading.Thread(target=run, name="checkpoint-save", daemon=False)
+    with _inflight_lock:
+        _inflight = (t, error)
+    t.start()
+    return full
+
+
+def wait_for_saves() -> None:
+    """Block until any ``wait=False`` save is on disk; re-raise its error."""
+    global _inflight
+    with _inflight_lock:
+        pending, _inflight = _inflight, None
+    if pending is not None:
+        t, error = pending
+        t.join()
+        if error[0] is not None:
+            raise error[0]
+
+
+def restore_checkpoint(path: str, state, name: str = BEST,
+                       params_only: bool = False):
+    """Restore ``path/name`` into ``state`` in place; ``None`` if absent.
+
+    ``params_only`` restores the parameters and batch-norm statistics only:
+    the optimiser and the counters stay as they are (the reference's
+    ``pre_train=True``: weights restored, optimiser fresh).  Returns
+    ``state``.
+    """
+    wait_for_saves()                    # a pending async save may be this file
+    file = os.path.join(os.path.abspath(os.path.join(path, name)), STATE_FILE)
+    if not os.path.exists(file):
+        return None
+    payload = torch.load(file, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(payload["model"])
+    if not params_only:
+        state.optimizer.load_state_dict(payload["optimizer"])
+        for n, p in state.model.named_parameters():
+            g = payload["accum"].get(n)
+            p.grad = None if g is None else g.to(p.device)
+        state.step = int(payload["step"])
+        state.updates = int(payload["updates"])
+    return state
