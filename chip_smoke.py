@@ -68,6 +68,38 @@ second over epoch 2 with its time a micro-step beside the bare b=16
 micro-step of the train phase, the loader's rate alone, and each eval
 pass's seconds.  Its launches stay out of the kernels line.
 
+Then three phases for the routes without a hand kernel of their own, each
+at full width with random weights from seed 0:
+
+* RoI routes: the flagship with ``fpn_roi_window=0`` (dense RoIAlign over
+  P2..P5, blended by level) and the single-scale ``Config()`` with
+  ``roi_pool_mode="align"`` and ``"mean"``.  For each, a b=16 predict
+  through a ``Predictor`` (finite outputs, valid counts in range, its
+  ``roi_head`` stage time beside the kernel route's), an f32 (TF32 off)
+  predict on the card against the same on the CPU from the card's
+  features (the tolerances of the f32 parity above), and two b=16 train
+  micro-steps (finite losses, the parameters moved, peak memory), counters
+  set to 0 just before each: kernel 1 (flagship) or kernel 3 (single scale)
+  must launch, and kernel 2 on the dense route, kernel 5 on ``align`` and
+  ``mean``, must not.
+* Device augmentation: ``augment_batch`` at b=16, 600x600 on the card,
+  timed, and ``apply_augment`` of the same draws on the card against the
+  CPU (images within 1e-4, boxes exact).
+* Resident train loop: the flagship through the CLI over the 128-image root
+  of the drivers phase with ``cache_device``, ``device_augment``,
+  ``transfer_uint8`` and ``fused_accum`` on: the epoch records must name the
+  resident loop, which they do only when the train loader is the cache (so
+  a fallback to the streaming loader fails the run); its epoch-2 rate and
+  time a micro-step beside the streaming loop's and the bare micro-step's,
+  the cache's bytes on the card, and ``eval`` over the cached eval set in
+  both protocols with its seconds.  Then one epoch of the same loop over a
+  cache of 32 images runs under the sync debug mode and ``torch.profiler``:
+  it fails on any synchronising call, and on as many host-to-device copies
+  as micro-steps, and prints the card's idle share over the epoch.
+
+Their launches are printed on their own lines and stay out of the kernels
+line.
+
 Every check raises on failure, so any failed phase exits nonzero.
 
 Output: progress lines; the card's ``nvidia-smi`` name and power limit; one
@@ -1419,14 +1451,15 @@ def driver_data_root(root: str, counts=DRIVER_IMAGES) -> str:
 
 class Records(logging.Handler):
     """Keeps the log records of the port's drivers that carry ``seconds``
-    (the train loop's epochs, the eval passes)."""
+    (the train loop's epochs, the eval passes) or ``cache_bytes`` (a
+    dataset placed on the card)."""
 
     def __init__(self):
         super().__init__(logging.INFO)
         self.records = []
 
     def emit(self, record):
-        if hasattr(record, "seconds"):
+        if hasattr(record, "seconds") or hasattr(record, "cache_bytes"):
             self.records.append(record)
 
 
@@ -1625,6 +1658,387 @@ def drivers(cfg, smi: str, bare_step_ms: float):
     return out
 
 
+# ------------------------------------------------------------ RoI routes
+def cpu_parity(cfg, rng, label: str):
+    """The route's f32 predict with TF32 off on the card against the same
+    model on the CPU, from the card's features at b=2 (the backbone is not
+    the route): the proposals, the box head on the card's rois and the
+    detections, with the tolerances of :func:`f32_parity`."""
+    from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
+    torch.backends.cudnn.deterministic = True
+    c32 = cfg.replace(compute_dtype="float32", score_thresh=0.0)
+    gpu = FasterRCNN(c32, seed=1)
+    cpu = FasterRCNN(c32, device="cpu", seed=1)
+    h, w = cfg.input_size
+    x = torch.from_numpy(rng.rand(2, h, w, 3).astype(np.float32)).to(gpu.device)
+    with torch.inference_mode():
+        feats = gpu.features(x)
+        feats_c = (tuple(f.cpu() for f in feats) if isinstance(feats, tuple)
+                   else feats.cpu())
+        rpn = gpu.rpn_head(feats)
+        p_g = gpu.proposals(*rpn, (h, w))
+        p_c = cpu.proposals(*(t.cpu() for t in rpn), (h, w))
+        rows = ((p_g[2].cpu() == p_c[2])
+                & ((p_g[0].cpu() - p_c[0]).abs().amax(-1) <= 1e-2))
+        prop_agree = float(rows.float().mean())
+        head_g = gpu.roi_head(feats, p_g[0], (h, w))
+        head_c = cpu.roi_head(feats_c, p_g[0].cpu(), (h, w))
+        d_g, d_c = gpu.detect(feats, (h, w)), cpu.detect(feats_c, (h, w))
+    head_err = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-6))
+                   for a, b in zip(head_g, head_c))
+    vb, vs, vl, vv = (t.cpu().numpy() for t in d_g)
+    wb, ws, wl, wv = (t.numpy() for t in d_c)
+    same = ((vv == wv) & (vl == wl) & (np.abs(vs - ws) <= 1e-4)
+            & (np.abs(vb - wb).max(-1) <= 1e-2))
+    frac = float(same[wv | vv].mean()) if (wv | vv).any() else 1.0
+    log(f"{label} f32 (TF32 off) card against CPU: {prop_agree:.4f} of "
+        f"proposal rows agree (tolerance 0.95; {int(p_g[2].sum())} valid); "
+        f"head outputs max rel diff {head_err:.2e} (tolerance 1e-4); "
+        f"{int(vv.sum())}/{int(wv.sum())} detections, {frac:.3f} of slots "
+        "agree (tolerance 0.95)")
+    require(prop_agree >= 0.95, f"{label}: card and CPU proposals differ")
+    require(head_err <= 1e-4, f"{label}: f32 head outputs differ beyond 1e-4")
+    require(int(vv.sum()) > 0, f"{label}: no f32 detections to compare")
+    require(frac >= 0.95, f"{label}: f32 detections differ")
+    torch.backends.cudnn.deterministic = False
+    return {"proposal_rows_agree": prop_agree, "head_rel_err": head_err,
+            "det_agree": frac}
+
+
+def roi_route(cfg, rng, label: str, expect, absent, kernel_roi_ms: float):
+    """One RoI route at full width: a b=16 predict through a Predictor and
+    two b=16 train micro-steps (``grad_accum_steps=2``), each with the
+    counters set to 0 just before; the kernels in ``expect`` must launch in
+    both, those in ``absent`` in neither; and :func:`cpu_parity`."""
+    from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state, train_step)
+    from two_stage_object_detection_tpu_torch.serving import Predictor
+
+    model = FasterRCNN(cfg, seed=0)
+    h, w = cfg.input_size
+    images = rng.rand(16, h, w, 3).astype(np.float32)
+    x16 = torch.from_numpy(images).to(model.device)
+    server = Predictor(cfg, model, batch_sizes=(16,), wire="f32")
+    model.predict(x16)                       # cuDNN's choice, outside the count
+    torch.cuda.synchronize()
+    wrappers = counters()
+
+    def launched(what):
+        got = {name: fn.launches for name, fn in wrappers.items()}
+        for name in expect:
+            require(got[name] > 0, f"{label} {what} never launched {name}")
+        for name in absent:
+            require(got[name] == 0, f"{label} {what} launched {name}")
+        return {k: v for k, v in got.items() if v}
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    n_det = check_outputs(server(images), 16, cfg)
+    predict_launches = launched("predict")
+    with torch.inference_mode():
+        feats = model.features(x16)
+        n_prop = int(model.proposals(*model.rpn_head(feats), (h, w))[2].sum())
+    del feats
+    require(0 < n_prop <= 16 * cfg.n_test_post_nms,
+            f"{label}: {n_prop} valid proposals")
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(lambda: model.predict(x16), 5)
+    peak = torch.cuda.max_memory_allocated()
+    stages = stage_times(model, x16)
+    log(f"{label} predict b=16: {n_det} valid detections, {n_prop} valid "
+        f"proposals of {16 * cfg.n_test_post_nms}; {ms:.2f} ms on the device; "
+        f"peak memory {peak / 1e9:.2f} GB; kernel launches {predict_launches}")
+    log(f"{label} predict b=16 by stage (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; roi_head {stages['roi_head']:.2f} against {kernel_roi_ms:.2f} "
+        "on the kernel route of the same model")
+    del model, server, x16
+    torch.cuda.empty_cache()
+    parity = cpu_parity(cfg, rng, label)
+    torch.cuda.empty_cache()
+
+    model, state = create_train_state(cfg.replace(grad_accum_steps=2), seed=0,
+                                      steps_per_epoch=8)
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    batches = [train_batch(rng, cfg, 16) for _ in range(2)]
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    snap = snapshot(model)
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = train_step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+        moved = n_changed(model, snap)[0]
+        require(all(np.isfinite(v) for v in losses[-1].values()),
+                f"{label} train: a loss of micro-step {i} is not finite")
+        require((moved > 0) == (i == 1), f"{label} train: parameters "
+                f"{'did not move' if i else 'moved'} at micro-step {i}")
+    train_peak = torch.cuda.max_memory_allocated()
+    train_launches = launched("train")
+    require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            f"{label} train: a parameter is not finite")
+    log(f"{label} train: 2 micro-steps at b=16 (one update); step ms "
+        f"{[round(t, 1) for t in step_ms]}; total losses "
+        f"{[round(v['total'], 4) for v in losses]}; peak memory "
+        f"{train_peak / 1e9:.2f} GB; kernel launches {train_launches}")
+    del model, state
+    torch.cuda.empty_cache()
+    return {"predict_b16_ms": ms, "peak_mem_gb": peak / 1e9, "stages_ms": stages,
+            "kernel_route_roi_head_ms": kernel_roi_ms,
+            "predict_launches": predict_launches, "detections": n_det,
+            "proposals": n_prop, "cpu_parity": parity, "train_step_ms": step_ms,
+            "train_losses": losses, "train_peak_mem_gb": train_peak / 1e9,
+            "train_launches": train_launches}
+
+
+# ------------------------------------------------------ device augmentation
+def device_augment(rng):
+    """``augment_batch`` at b=16, 600x600 on the card (CUDA events), and
+    ``apply_augment`` of one record of draws on the card against the CPU."""
+    from two_stage_object_detection_tpu_torch.data.device_transforms import (
+        SCALES, apply_augment, augment_batch, draw_augment)
+    cfg_img = 600
+    images = torch.from_numpy(rng.rand(16, cfg_img, cfg_img, 3)
+                              .astype(np.float32)).cuda()
+    side = rng.uniform(32.0, 300.0, size=(16, 100, 2))
+    xy = rng.rand(16, 100, 2) * (cfg_img - side)
+    boxes = torch.from_numpy(np.concatenate([xy, xy + side], -1)
+                             .astype(np.float32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ms = cuda_time_ms(lambda: augment_batch(images, boxes, gen), 10)
+    draws = draw_augment(16, torch.Generator(device="cuda").manual_seed(1))
+    gi, gb = apply_augment(images, boxes, draws)
+    ci, cb = apply_augment(images.cpu(), boxes.cpu(),
+                           {k: v.cpu() for k, v in draws.items()})
+    err = float((gi.cpu() - ci).abs().max())
+    scales = sorted({SCALES[int(j)] for j in draws["jitter"].cpu()})
+    # two f32 matrix products an image, and each image read and written once
+    flops = 2 * 16 * 2 * cfg_img ** 3 * 3
+    bound_ms = max(2 * images.numel() * 4 / HBM_BYTES_PER_S,
+                   flops / F32_FLOP_PER_S) * 1e3
+    log(f"device augmentation: augment_batch b=16 600x600 {ms:.3f} ms (bound "
+        f"{bound_ms:.3f} ms, the jitter's {flops / 1e9:.1f} GFLOP in f32); "
+        f"card against CPU on one record of draws: images max abs diff "
+        f"{err:.2e} (tolerance 1e-4), boxes equal; scales drawn {scales}")
+    require(err <= 1e-4, f"augment_batch: card and CPU differ by {err}")
+    require(torch.equal(gb.cpu(), cb), "augment_batch: boxes differ")
+    require(bool(torch.isfinite(gi).all()), "augment_batch: not finite")
+    return {"ms": ms, "bound_ms": bound_ms, "max_abs_err": err,
+            "scales": scales}
+
+
+# ------------------------------------------------------ resident train loop
+RESIDENT_SETS = ["cache_device=true", "device_augment=true",
+                 "transfer_uint8=true", "fused_accum=true"]
+
+
+def resident(smi: str, stream: dict, bare_step_ms: float, augment_ms: float):
+    """The flagship through the CLI with the dataset on the card: ``train``
+    over the drivers' 128-image root (two epochs, an eval after the first)
+    with every launch counter set to 0 just before, then ``eval`` of its
+    best checkpoint over the cached eval set in both protocols."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    records = Records()
+    logging.getLogger("two_stage_object_detection_tpu_torch").addHandler(records)
+    wrappers = counters()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = driver_data_root(os.path.join(tmp, "long"), LONG_IMAGES)
+        weights = os.path.join(tmp, "weights")
+        # the command line of README.md: one --set with the four pairs
+        sets = [a for kv in DRIVER_SETS for a in ("--set", kv)]
+        common = ["--flagship", "--data-root", root, "--weights", weights,
+                  *sets, "--set", *RESIDENT_SETS]
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        run_cli(["train", *common, "--eval-period", "100", "--no-viz"])
+        train_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in wrappers.items() if f.launches}
+        epochs = [r for r in records.records if hasattr(r, "epoch")]
+        caches = [r for r in records.records if hasattr(r, "cache_bytes")]
+        require(len(epochs) == 2 and all(np.isfinite(r.loss) for r in epochs),
+                f"the resident train logged {[(r.epoch, r.loss) for r in epochs]}")
+        require(all(r.loop == "resident" for r in epochs),
+                f"the train loop was {[r.loop for r in epochs]}, not resident")
+        require(len(caches) == 2, f"{len(caches)} datasets placed on the card")
+        require(launches.get("greedy_nms", 0) > 0
+                and launches.get("windowed_align", 0) > 0,
+                f"the resident train did not launch kernels 1 and 2: {launches}")
+        e2 = epochs[1]
+        step_ms = e2.seconds / e2.micro_steps * 1e3
+        rate = e2.images / e2.seconds
+        log(f"resident: datasets on the card: " + ", ".join(
+            f"{r.cache_images} images, {r.cache_bytes / 1e6:.1f} MB"
+            for r in caches))
+        log(f"resident train (flagship, b=16, grad_accum_steps=2, "
+            f"{LONG_IMAGES['train2017']} images, augmentation on the card): "
+            f"{train_s:.1f} s in all; kernel launches {launches}")
+        log(f"resident train loop, epoch 2: {rate:.1f} img/s ({e2.micro_steps} "
+            f"micro-steps, {e2.images} images in {e2.seconds:.3f} s), "
+            f"{step_ms:.1f} ms a micro-step; the streaming loop of the drivers "
+            f"phase {stream['long_loop_img_per_s']:.1f} img/s "
+            f"({stream['long_loop_step_ms']:.1f} ms); the bare micro-step "
+            f"{bare_step_ms:.1f} ms + augment_batch {augment_ms:.2f} ms = "
+            f"{16e3 / (bare_step_ms + augment_ms):.1f} img/s (epoch 1: "
+            f"{epochs[0].images / epochs[0].seconds:.1f} img/s)")
+        out.update(train_s=train_s, launches_train=launches,
+                   cache_bytes=[r.cache_bytes for r in caches],
+                   cache_images=[r.cache_images for r in caches],
+                   epoch_s=[r.seconds for r in epochs],
+                   epoch_loss=[r.loss for r in epochs], loop_img_per_s=rate,
+                   loop_step_ms=step_ms, bare_step_ms=bare_step_ms,
+                   augment_ms=augment_ms,
+                   stream_loop_img_per_s=stream["long_loop_img_per_s"])
+        out["eval"] = {}
+        for flag, protocol in (([], "train-graph"), (["--predict"], "predict")):
+            n = len(records.records)
+            sweep = json.loads(run_cli(["eval", *common, "--checkpoint", "best",
+                                        *flag]))
+            seconds = [r.seconds for r in records.records[n:]
+                       if getattr(r, "protocol", None) == protocol]
+            placed = [r for r in records.records[n:]
+                      if hasattr(r, "cache_bytes")]
+            require(len(seconds) == 1 and len(placed) == 1,
+                    f"eval {protocol}: not one timed pass over a cached set")
+            vals = [sweep[k] for k in ("mAP50", "mAP95", "mAP50_95")]
+            require(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals)
+                    and np.isfinite(sweep["eval_loss"]),
+                    f"eval {protocol}: {sweep}")
+            log(f"resident eval --checkpoint best ({protocol}, "
+                f"{placed[0].cache_images} images on the card): {sweep}; the "
+                f"pass took {seconds[0]:.3f} s")
+            out["eval"][protocol] = {**sweep, "seconds": seconds[0]}
+        out["loop_probe"] = loop_probe(root)
+    logging.getLogger("two_stage_object_detection_tpu_torch").removeHandler(
+        records)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"resident phase: {out['phase_s']:.1f} s in all; card: {smi}")
+    return out
+
+
+def loop_probe(root: str):
+    """Whether the resident loop waits for the card: one epoch of
+    ``train.train_epoch``, the loop ``train()`` runs, over a quarter of the
+    128 training images held on the card (two b=16 micro-steps, one
+    accumulation cycle, augmented there), after one epoch to warm up,
+    under PyTorch's sync debug mode and ``torch.profiler``.
+
+    The debug mode sees the synchronising calls PyTorch makes (``.item()``,
+    a blocking copy, ``torch.cuda.synchronize``), not a raw CUDA call in
+    compiled code; the trace sees every CUDA runtime call, so each counts
+    what the other may miss.  It fails unless both count 0 in the epoch and
+    the trace holds fewer host-to-device copies than micro-steps (the
+    epoch's one index copy: no batch comes from the host).  Returns the
+    counts and the card's idle share over the epoch: the time from the
+    epoch's start on the host to the end of its last device event that no
+    kernel, copy or fill covers."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from two_stage_object_detection_tpu_torch.__main__ import _load_cfg
+    from two_stage_object_detection_tpu_torch.data.coco import load_coco
+    from two_stage_object_detection_tpu_torch.data.device_cache import (
+        DeviceDatasetCache)
+    from two_stage_object_detection_tpu_torch.data.pipeline import (
+        DetectionDataset)
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state)
+    from two_stage_object_detection_tpu_torch.train import (
+        step_generator, train_epoch)
+    from two_stage_object_detection_tpu_torch.utils.preemption import (
+        PreemptionGuard)
+
+    cfg = _load_cfg(argparse.Namespace(config=None, flagship=True,
+                                       set=DRIVER_SETS + RESIDENT_SETS))
+    idx = load_coco(os.path.join(root, "annotations",
+                                 "instances_train2017.json"),
+                    os.path.join(root, "train2017"), ratio=0.25, seed=None)
+    ds = DetectionDataset(idx, cfg.input_size, cfg.max_gt_boxes,
+                          decode_only=True, uint8_images=True)
+    cache = DeviceDatasetCache(ds, cfg.batch_size, device=cfg.device)
+    require(all(v.is_cuda for v in cache.data.values()),
+            "the probe's cache is not on the card")
+    _, state = create_train_state(cfg, seed=0, steps_per_epoch=len(cache))
+    guard = PreemptionGuard()
+
+    def epoch(e):
+        return train_epoch(state, cache, 0, True,
+                           lambda s: step_generator(0, e, s, cache.device),
+                           guard)
+
+    epoch(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function("resident_epoch"):
+                    pending, _ = epoch(1)
+                torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steps = len(pending)
+    require(steps == len(cache) == 2, f"the probe ran {steps} micro-steps")
+    require(all(bool(torch.isfinite(t)) for t in pending),
+            "the probe's losses are not finite")
+    sites = sorted({f"{os.path.relpath(w.filename)}:{w.lineno}"
+                    for w in caught if "synchroniz" in str(w.message)})
+    n_debug = sum("synchroniz" in str(w.message) for w in caught)
+
+    events = prof.events()
+    win = [e for e in events if e.name == "resident_epoch"
+           and e.device_type == DeviceType.CPU]
+    require(len(win) == 1, f"{len(win)} traced epoch ranges")
+    t0, t1 = win[0].time_range.start, win[0].time_range.end
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and t0 <= e.time_range.start <= t1]
+    syncs = sorted({e.name for e in host if "Synchronize" in e.name})
+    n_sync = sum("Synchronize" in e.name for e in host)
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.time_range.start >= t0
+           and not getattr(e, "is_user_annotation", False)]
+    htod = [e for e in dev if e.name.startswith("Memcpy HtoD")]
+    dtoh = [e for e in dev if e.name.startswith("Memcpy DtoH")]
+    require(dev, "the trace holds no device event in the epoch")
+    end = max(t1, max(e.time_range.end for e in dev))
+    busy, at = 0.0, t0
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        s, f = max(e.time_range.start, at), e.time_range.end
+        if f > s:
+            busy += f - s
+            at = f
+    idle = 1.0 - busy / (end - t0)
+    log(f"resident epoch ({steps} micro-steps of train_epoch) under the sync "
+        f"debug mode: {n_debug} synchronising calls at {sites}; traced: "
+        f"{n_sync} synchronising runtime calls {syncs}, {len(htod)} "
+        f"host-to-device and {len(dtoh)} device-to-host copies, "
+        f"{len(dev)} device events; the card idle {idle:.1%} of "
+        f"{(end - t0) / 1e3:.1f} ms (busy {busy / 1e3 / steps:.1f} ms a "
+        f"micro-step)")
+    require(n_debug == 0, f"the resident epoch synchronised at {sites}")
+    require(n_sync == 0, f"the resident epoch called {syncs}")
+    require(len(htod) < steps, f"{len(htod)} host-to-device copies in "
+            f"{steps} micro-steps: batches came from the host")
+    return {"debug_syncs": n_debug, "sites": sites, "runtime_syncs": n_sync,
+            "htod_copies": len(htod), "dtoh_copies": len(dtoh),
+            "device_events": len(dev), "window_ms": (end - t0) / 1e3,
+            "busy_ms_per_step": busy / 1e3 / steps, "idle_share": idle}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the measured numbers here")
@@ -1701,6 +2115,28 @@ def main() -> int:
                      train_perf["flagship"]["warm_step_ms"])
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    routes = {}
+    route_paths = {
+        "flagship dense": (paths["flagship"][0].replace(fpn_roi_window=0),
+                           ("greedy_nms",), ("windowed_align",), "flagship"),
+        "single-scale align": (Config(roi_pool_mode="align"),
+                               ("fused_proposals_batched",),
+                               ("roi_pool_max",), "single-scale"),
+        "single-scale mean": (Config(roi_pool_mode="mean"),
+                              ("fused_proposals_batched",),
+                              ("roi_pool_max",), "single-scale")}
+    for label, (cfg, expect, absent, kernel_route) in route_paths.items():
+        routes[label] = roi_route(cfg, rng, label, expect, absent,
+                                  perf[kernel_route]["stages_ms"]["roi_head"])
+    routes_s = time.perf_counter() - t0
+    log(f"RoI routes phase: {routes_s:.1f} s")
+    augment = device_augment(rng)
+    torch.cuda.empty_cache()
+    resident_run = resident(smi, driver, train_perf["flagship"]["warm_step_ms"],
+                            augment["ms"])
+    torch.cuda.empty_cache()
+
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1717,7 +2153,9 @@ def main() -> int:
                        "train": train_perf, "train_f32_parity": train_par,
                        "train_modes_ms": mode_ms,
                        "train_modes_launches": mode_launches,
-                       "drivers": driver,
+                       "drivers": driver, "roi_routes": routes,
+                       "roi_routes_s": routes_s, "device_augment": augment,
+                       "resident": resident_run,
                        "fused_proposals_shapes": fused_shapes,
                        "roi_pool_max_shapes": pool_shapes,
                        "roi_pool_bwd_shapes": bwd_shapes,

@@ -107,17 +107,20 @@ def test_predictor_rejects_bad_requests(carried):
 
 
 def test_unported_routes_raise(carried):
-    """What the port does not do yet raises and names it: the single-scale
-    ``align`` / ``mean`` RoI pooling, the dense FPN route
-    (``fpn_roi_window=0``) and the yuv420 wire.  (``device_augment``:
-    ``tests/test_torch_train.py``.)"""
-    for mode in ("align", "mean"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FasterRCNN(Config(**{**KW, "fpn": False, "backbone": "hardnet39",
-                                 "roi_pool_mode": mode}), device="cpu")
+    """What the port does not do yet raises and names it: the yuv420 wire.
+    The routes that raised before they were ported now build and predict:
+    the single-scale ``align`` / ``mean`` RoI pooling and the dense FPN
+    route (``fpn_roi_window=0``); their parity with the JAX package is in
+    ``tests/test_torch_roi_routes.py``."""
+    x = torch.from_numpy(np.random.RandomState(5).rand(1, 64, 64, 3)
+                         .astype(np.float32))
+    for kw in ({"fpn": False, "backbone": "hardnet39", "roi_pool_mode": "align"},
+               {"fpn": False, "backbone": "hardnet39", "roi_pool_mode": "mean"},
+               {"fpn_roi_window": 0}):
+        model = FasterRCNN(Config(**{**KW, **kw}), device="cpu")
+        boxes, scores, labels, valid = model.predict(x)
+        assert boxes.shape == (1, 8, 4) and valid.shape == (1, 8)
+        assert bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all())
     _, _, pred = carried
-    dense = FasterRCNN(Config(**{**KW, "fpn_roi_window": 0}), device="cpu")
-    with pytest.raises(NotImplementedError, match="fpn_roi_window=0"):
-        dense.predict(torch.zeros((1, 64, 64, 3)))
     with pytest.raises(ValueError, match="yuv420 is not ported"):
         Predictor(pred.cfg, pred.model, wire="yuv420")

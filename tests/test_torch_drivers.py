@@ -22,7 +22,7 @@ from two_stage_object_detection_tpu.__main__ import (
     _load_cfg as j_load_cfg, _parse_override as j_parse_override)
 from two_stage_object_detection_tpu.config import Config as JConfig
 from two_stage_object_detection_tpu_torch.__main__ import (
-    _load_cfg, _parse_override, main)
+    _load_cfg, _parse_override, _parser, main)
 from two_stage_object_detection_tpu_torch.config import Config
 from two_stage_object_detection_tpu_torch.data.synthetic import (
     generate_synthetic_coco)
@@ -236,16 +236,30 @@ def test_flagship_preset_equals_jax(sets):
             assert getattr(got, f.name) == getattr(want, f.name), f.name
 
 
+def test_one_set_takes_several_pairs():
+    """``--set a=1 b=2`` is ``--set a=1 --set b=2`` (the resident loop's
+    command line in README.md)."""
+    pairs = ["cache_device=true", "device_augment=true",
+             "transfer_uint8=true", "fused_accum=true"]
+    one = _parser().parse_args(["train", "--flagship", "--set", *pairs,
+                                "--no-viz"])
+    each = _parser().parse_args(
+        ["train", "--flagship", *[a for kv in pairs for a in ("--set", kv)]])
+    assert one.set == each.set == pairs and one.no_viz
+    cfg = _load_cfg(one)
+    assert cfg == _load_cfg(each)
+    assert (cfg.fpn and cfg.cache_device and cfg.device_augment
+            and cfg.transfer_uint8 and cfg.fused_accum)
+
+
 def test_unported_options_raise(data_root, tmp_path):
+    """A mesh, ``spatial`` and the ``serve`` / ``export`` commands raise
+    and name their ROADMAP.md entry.  (``cache_device`` and
+    ``device_augment`` are ported: ``tests/test_torch_device_cache.py``.)"""
     for kw, what in ((dict(spatial=True), "parallel/"),
                      (dict(mesh=object()), "parallel/")):
         with pytest.raises(NotImplementedError, match=what):
             train(False, CFG, data_root, str(tmp_path), **kw)
-    for field, what in (("cache_device", "device_cache"),
-                        ("device_augment", "device_transforms")):
-        with pytest.raises(NotImplementedError, match=what):
-            train(False, CFG.replace(**{field: True}), data_root,
-                  str(tmp_path))
     for cmd in ("serve", "export"):
         with pytest.raises(SystemExit, match="ROADMAP.md"):
             main([cmd, "--port", "8000"])

@@ -46,7 +46,9 @@ def _import_all(forbidden):
 
 
 def test_port_imports_no_jax_or_jax_package():
-    _import_all(FORBIDDEN)
+    mods = _import_all(FORBIDDEN)
+    assert {port.__name__ + m for m in (".data.device_transforms",
+                                        ".data.device_cache")} <= mods
 
 
 def test_port_imports_without_pil_matplotlib_or_tqdm():

@@ -178,7 +178,8 @@ def test_fpn_roi_head_matches_flax(rng):
     """Windowed predict route: level assignment with span-aware bumps,
     windowed RoIAlign, fc1 over (p, q, c), fc2, cls_loc/score: <= 1e-4.
     The hybrid train route (``use_window=False``) has the same forward; the
-    dense route (``window=0``) still raises."""
+    dense route (``window=0``) runs on the same weights (its parity with
+    JAX: ``tests/test_torch_roi_routes.py``)."""
     c, img = 16, (64, 64)
     pyr = [rng.rand(2, s, s, c).astype(np.float32) for s in (16, 8, 4, 2, 1)]
     x1 = rng.rand(2, 10, 2) * 40
@@ -197,6 +198,9 @@ def test_fpn_roi_head_matches_flax(rng):
         hl, hs = thead([T(p).permute(0, 3, 1, 2) for p in pyr], T(rois), img,
                        use_window=False)
     assert torch.equal(hl, gl) and torch.equal(hs, gs)
-    with pytest.raises(NotImplementedError, match="fpn_roi_window=0"):
-        tfpn.FPNRoIHead(4, channels=c, fc_dim=32, window=0)(
-            [T(p).permute(0, 3, 1, 2) for p in pyr], T(rois), img)
+    dense = tfpn.FPNRoIHead(4, channels=c, fc_dim=32, window=0)
+    load_jax_variables(dense, _np_tree(v["params"]))
+    with torch.no_grad():
+        dl, ds = dense([T(p).permute(0, 3, 1, 2) for p in pyr], T(rois), img)
+    assert dl.shape == gl.shape and ds.shape == gs.shape
+    assert bool(torch.isfinite(dl).all() and torch.isfinite(ds).all())

@@ -81,6 +81,21 @@ def test_geometry_matches_jax(rng):
 
 
 # ------------------------------------------------------------- anchors
+def test_device_constant_is_one_shared_tensor_per_device():
+    """``device_constant``: the values exactly, one tensor per ``(values,
+    dtype, device)`` however the device is spelled, another per dtype, and
+    made outside inference mode even when first asked for inside it."""
+    a = tg.device_constant([0.1, 0.2], torch.float32, "cpu")
+    assert a is tg.device_constant((0.1, 0.2), torch.float32,
+                                   torch.device("cpu"))
+    assert torch.equal(a, torch.tensor([0.1, 0.2]))
+    b = tg.device_constant([0.1, 0.2], torch.float64, "cpu")
+    assert b is not a and b.dtype == torch.float64
+    with torch.inference_mode():
+        c = tg.device_constant([0.125], torch.float32, "cpu")
+    assert not c.is_inference()
+
+
 def test_fpn_anchor_table_equals_jax_at_600():
     kw = dict(fpn=True, input_size=(600, 600))
     want = ja.make_fpn_anchors(JConfig(**kw))

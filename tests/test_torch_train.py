@@ -69,7 +69,16 @@ MODELS = {
     "flagship": dict(COMMON, fpn=True, backbone="resnet50", loc_normalize=True,
                      fpn_channels=32, fpn_fc_dim=64),
 }
-JAX_EXTRA = {"single_scale": dict(pallas="on"), "flagship": {}}
+# the RoI pooling routes without a hand kernel, whose detectors
+# tests/test_torch_roi_routes.py holds against JAX with this file's checks
+ROUTES = {
+    "single_align": dict(COMMON, roi_pool_mode="align"),
+    "single_mean": dict(COMMON, roi_pool_mode="mean"),
+    "flagship_dense": dict(MODELS["flagship"], fpn_roi_window=0),
+}
+JAX_EXTRA = {"single_scale": dict(pallas="on"), "flagship": {},
+             "single_align": dict(pallas="on"),
+             "single_mean": dict(pallas="on"), "flagship_dense": {}}
 STEPS_PER_EPOCH = 4          # t_max = 5 * 4 // 2 = 10 updates
 
 
@@ -222,8 +231,9 @@ class Pair:
     jitted JAX ``train_forward`` value-and-grad."""
 
     def __init__(self, name):
-        self.cfg = Config(**MODELS[name], device="cpu")
-        self.jcfg = JConfig(**MODELS[name], **JAX_EXTRA[name])
+        kw = {**MODELS, **ROUTES}[name]
+        self.cfg = Config(**kw, device="cpu")
+        self.jcfg = JConfig(**kw, **JAX_EXTRA[name])
         self.jm = JFasterRCNN(self.jcfg)
         shapes = unfreeze(jax.eval_shape(self.jm.init, jax.random.PRNGKey(0),
                                          jnp.zeros((1, 64, 64, 3))))
@@ -273,6 +283,12 @@ def test_train_forward_and_gradients_match_jax(pair):
     tolerance of the module docstring on weights that keep ``MARGIN`` from
     every decision, the new running statistics within 1e-5; and the
     trainer-parity predictions."""
+    check_train_forward_and_gradients(pair)
+
+
+def check_train_forward_and_gradients(pair):
+    """The checks of :func:`test_train_forward_and_gradients_match_jax` on
+    ``pair``."""
     batch = pair.batch
     (_, (j_stats, j_losses)), j_grads = pair.jax_step(pair.params, pair.stats,
                                                       batch)
@@ -431,8 +447,9 @@ def test_learning_rate_schedule_matches_optax():
 
 def test_train_state_surface_and_unported_options():
     """``create_train_state`` builds the model in eval mode on the device
-    asked for, seeded; ``train_step`` takes u8 images and a generator;
-    ``device_augment`` raises until the device transforms are ported."""
+    asked for, seeded; ``train_step`` takes u8 images and a generator, and
+    with ``device_augment`` augments on the device and takes a finite step
+    (``tests/test_torch_device_transforms.py`` holds it against JAX)."""
     cfg = Config(**MODELS["single_scale"], device="cpu")
     model, state = create_train_state(cfg, seed=3, steps_per_epoch=4,
                                       init_image_size=(64, 64))
@@ -448,8 +465,9 @@ def test_train_state_surface_and_unported_options():
     state, losses = train_step(state, batch, generator=gen)
     assert model.training and np.isfinite(float(losses["total"]))
     assert set(losses) == {"rpn_loc", "rpn_cls", "roi_loc", "roi_cls", "total"}
-    with pytest.raises(NotImplementedError, match="device_augment"):
-        train_step(state, batch, device_augment=True)
+    state, aug_losses = train_step(state, batch, generator=gen,
+                                   device_augment=True)
+    assert np.isfinite(float(aug_losses["total"])) and state.step == 2
     params, stats = to_jax_variables(model)
     twin, _ = create_train_state(cfg, seed=9)
     load_jax_variables(twin, params, stats)

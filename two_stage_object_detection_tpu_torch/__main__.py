@@ -8,7 +8,8 @@ The port's copy of the JAX package's CLI:
 
 Shared flags: ``--config`` (reference-format ``config.json``),
 ``--set key=value`` (override any :class:`~.config.Config` field from the
-command line, e.g. ``--set device=cpu --set backbone=hardnet39s``),
+command line, e.g. ``--set device=cpu --set backbone=hardnet39s``, or
+several after one ``--set``: ``--set device=cpu backbone=hardnet39s``),
 ``--flagship``, ``--data-root`` and ``--weights``.  Every command runs on
 ``Config.device``, ``"cuda"`` unless ``--set device=cpu``, and raises when
 no GPU is there.  ``--compile-cache`` has no counterpart here (it is XLA's
@@ -74,8 +75,9 @@ def _load_cfg(args) -> Config:
 def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--config", default=None,
                    help="config.json path (reference key surface)")
-    p.add_argument("--set", action="append", metavar="KEY=VALUE",
-                   help="override any Config field (repeatable)")
+    p.add_argument("--set", action="extend", nargs="+", metavar="KEY=VALUE",
+                   help="override any Config field (repeatable, and one "
+                        "--set takes several pairs)")
     p.add_argument("--flagship", action="store_true",
                    help="use the recommended production preset: FPN + "
                         "resnet50 + loc_normalize (--set overrides on top)")
@@ -83,7 +85,7 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--weights", default="weights")
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="two_stage_object_detection_tpu_torch",
         description=__doc__.splitlines()[0])
@@ -121,7 +123,11 @@ def main(argv=None) -> int:
     for cmd, what in (("serve", "HTTP serving front"),
                       ("export", "serialize predict")):
         sub.add_parser(cmd, help=f"{what} (not ported yet)")
+    return ap
 
+
+def main(argv=None) -> int:
+    ap = _parser()
     args, unknown = ap.parse_known_args(argv)
     if args.cmd in _UNPORTED:
         raise SystemExit(f"{args.cmd}: {_UNPORTED[args.cmd]} not ported to "

@@ -45,9 +45,9 @@ class DetectionDataset:
 
     ``decode_only=True``: the host does just the C++ decode+resize
     (``native/preprocess.cpp`` fused ``decode_resize_normalize``) and box
-    rescale; the JAX package then augments on the device inside its train
-    step, which the port does not do yet (``device_augment``, ROADMAP.md),
-    so here it serves the eval sets, which take no augmentation.
+    rescale; the train step then augments on the device
+    (``Config.device_augment``, :mod:`.device_transforms`), and
+    :class:`~.device_cache.DeviceDatasetCache` holds these samples.
 
     ``cache=True``: decoded images are kept in RAM as u8 (the FFCV/DALI
     recipe), so epochs after the first skip JPEG decode entirely — the

@@ -8,10 +8,10 @@ predictions, and accumulate mAP — with the metric math corrected
 (:mod:`.metrics`).  A second mode evaluates the *true* inference path
 (:func:`~..nets.trainer.predict_step`) instead.
 
-Device outputs come to the host with ``.cpu().numpy()`` once a batch.  Not
-ported: the one-dispatch pass over a device-resident dataset
-(``DeviceDatasetCache``, ``eval_scan_resident``), which waits for
-``data/device_cache.py`` (ROADMAP.md).
+Device outputs come to the host with ``.cpu().numpy()`` once a batch; over
+a dataset held on the device (:class:`~..data.device_cache.DeviceDatasetCache`)
+the whole pass runs first and its outputs come over in one copy
+(:func:`~..nets.trainer.eval_scan_resident`).
 """
 
 from __future__ import annotations
@@ -22,10 +22,12 @@ import numpy as np
 import torch
 
 from two_stage_object_detection_tpu_torch.config import Config
+from two_stage_object_detection_tpu_torch.data.device_cache import (
+    DeviceDatasetCache)
 from two_stage_object_detection_tpu_torch.eval.metrics import (
     compute_coco_summary, compute_map, compute_map_sweep)
 from two_stage_object_detection_tpu_torch.nets.trainer import (
-    TrainState, eval_step, predict_step)
+    TrainState, eval_scan_resident, eval_step, predict_step)
 
 
 def _host(x) -> np.ndarray:
@@ -109,9 +111,26 @@ def collect_predictions(state: TrainState, loader: Iterable, cfg: Config,
     ``use_predict=False`` mirrors the reference (train-graph forward with GT
     inputs, per-class NMS on the sampled-roi predictions); ``True`` evaluates
     the true inference path.
+
+    A :class:`~..data.device_cache.DeviceDatasetCache` loader takes the
+    resident pass (:func:`~..nets.trainer.eval_scan_resident`): the same
+    forwards over every batch, then one copy to the host.
     """
     preds, gts = [], []
     loss_total, n_batches = 0.0, 0
+    if isinstance(loader, DeviceDatasetCache):
+        outs = eval_scan_resident(state, loader.data, loader.all_indices(),
+                                  use_predict=use_predict)
+        for bi in range(outs["loss_total"].shape[0]):
+            if not use_predict:
+                loss_total += float(outs["loss_total"][bi])
+            for i in range(outs["boxes_pred"].shape[1]):
+                _append_sample(
+                    preds, gts, *(outs[k][bi][i] for k in (
+                        "boxes_pred", "classes_score_pred", "classes_pred",
+                        "pred_valid", "gt_boxes", "gt_labels", "gt_valid")),
+                    cfg, use_predict, nms_iou_threshold)
+        return preds, gts, loss_total / max(outs["loss_total"].shape[0], 1)
     for batch in loader:
         if use_predict:
             boxes, scores, labels, valid = (

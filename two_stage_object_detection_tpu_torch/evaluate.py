@@ -4,10 +4,9 @@ The port's copy of the JAX package's ``evaluate.py``.  It loads a saved
 checkpoint and runs the full mAP@[.5:.95] sweep on the validation
 annotations — through either the reference's trainer-graph protocol or the
 true inference path — without touching the training loop (the reference
-can only evaluate inside a training run, ``train/train.py:94-117``).
-
-Not ported: the device-resident eval set (``cache_device=True``), which
-waits for ``data/device_cache.py`` (ROADMAP.md).
+can only evaluate inside a training run, ``train/train.py:94-117``).  With
+``cache_device`` the eval set is held on the device and the pass runs over
+it (``data/device_cache.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +18,8 @@ from typing import Optional
 
 from two_stage_object_detection_tpu_torch.config import Config, load_config
 from two_stage_object_detection_tpu_torch.data.coco import load_coco
+from two_stage_object_detection_tpu_torch.data.device_cache import (
+    DeviceDatasetCache)
 from two_stage_object_detection_tpu_torch.data.pipeline import (
     DetectionDataset, DevicePut, Loader)
 from two_stage_object_detection_tpu_torch.eval.evaluator import evaluate_sweep
@@ -31,18 +32,29 @@ log = logging.getLogger(__name__)
 def build_eval_loader(cfg: Config, data_root: str = "data"):
     """Validation loader (COCO layout, reference
     ``dataset/data_organise.py:13-15``) -> ``(loader, eval_index)``; its
-    batches land on ``cfg.device``."""
-    if cfg.cache_device:
-        raise NotImplementedError(
-            "cache_device=True needs data/device_cache.py, which is not "
-            "ported yet (ROADMAP.md, 'Modules to port')")
+    batches land on ``cfg.device``.  With ``cfg.cache_device`` the set is
+    held on the device (:class:`~.data.device_cache.DeviceDatasetCache`),
+    unless it exceeds ``cache_device_max_bytes``: then a warning, and the
+    streaming loader."""
     eval_idx = load_coco(
         os.path.join(data_root, "annotations", "instances_val2017.json"),
         os.path.join(data_root, "val2017"), ratio=cfg.eval_ratio)
+    # eval applies no augmentation: decode_only (which the device cache
+    # requires) only moves the resize into the decoder
     ds = DetectionDataset(eval_idx, cfg.input_size, cfg.max_gt_boxes,
-                          train=False, cache=cfg.cache_decoded,
+                          train=False, decode_only=cfg.cache_device,
+                          cache=cfg.cache_decoded,
                           cache_max_bytes=cfg.cache_max_bytes,
                           uint8_images=cfg.transfer_uint8)
+    if cfg.cache_device:
+        try:
+            return DeviceDatasetCache(
+                ds, cfg.batch_size, shuffle=False,
+                max_bytes=cfg.cache_device_max_bytes,
+                num_workers=cfg.num_workers, device=cfg.device), eval_idx
+        except MemoryError as e:
+            log.warning("cache_device: %s — falling back to streaming "
+                        "Loader", e)
     return Loader(ds, cfg.batch_size, shuffle=False,
                   num_workers=cfg.num_workers, prefetch=cfg.prefetch_factor,
                   device_put=DevicePut(cfg.device),

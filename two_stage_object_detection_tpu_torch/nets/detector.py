@@ -50,7 +50,7 @@ from two_stage_object_detection_tpu_torch.nets.targets import (
 from two_stage_object_detection_tpu_torch.ops.anchors import (
     make_anchors, make_fpn_anchors)
 from two_stage_object_detection_tpu_torch.ops.geometry import (
-    clip_boxes, loc2bbox)
+    clip_boxes, device_constant, loc2bbox)
 from two_stage_object_detection_tpu_torch.ops.nms import nms, topk_stable
 from two_stage_object_detection_tpu_torch.ops.proposals import proposals_batched
 
@@ -231,9 +231,8 @@ class FasterRCNN(nn.Module):
         # the head trains against normalised targets)
         dec_loc = roi_loc.detach()
         if cfg.loc_normalize:
-            dec_loc = dec_loc * torch.tensor(cfg.loc_normalize_std,
-                                             dtype=dec_loc.dtype,
-                                             device=dec_loc.device)
+            dec_loc = dec_loc * device_constant(
+                cfg.loc_normalize_std, dec_loc.dtype, dec_loc.device)
         probs = torch.softmax(roi_scores.detach(), dim=-1)
         classes_score_pred, classes_pred = probs.max(dim=-1)
         return {
@@ -271,8 +270,9 @@ class FasterRCNN(nn.Module):
         n_class = cfg.num_classes + 1
         if cfg.loc_normalize:
             # per-class strided layout [R, C*4]: tile the stds across classes
-            std = torch.tensor(cfg.loc_normalize_std, dtype=roi_cls_locs.dtype,
-                               device=roi_cls_locs.device).repeat(n_class)
+            std = device_constant(
+                tuple(cfg.loc_normalize_std) * n_class, roi_cls_locs.dtype,
+                roi_cls_locs.device)
             roi_cls_locs = roi_cls_locs * std
         probs = torch.softmax(roi_scores, dim=-1)             # [B, R, C]
         n_cand = min(4 * cfg.max_detections, r * (n_class - 1))

@@ -11,7 +11,11 @@ is free); public outputs keep the JAX layouts:
 
 The RoI head pools through windows: the predict route (kernel 2) and the
 hybrid train route (that forward, with the dense RoIAlign's gradient as
-its backward).  The dense route (``fpn_roi_window=0``) raises.
+its backward).  With ``fpn_roi_window=0`` it takes the dense route instead,
+as the JAX package does: every roi pooled from each of P2..P5 with the
+matrix-product RoIAlign (``ops/roi_pool.py:roi_align_mm``) at that level's
+scale, blended by the one-hot level (eq.-1 assignment, no span-aware bump),
+for predict and train alike, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from two_stage_object_detection_tpu_torch.models.layers import Conv, Dense
-from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
-from two_stage_object_detection_tpu_torch.ops.roi_pool import _norm_scales
+from two_stage_object_detection_tpu_torch.ops.geometry import (
+    device_constant, div_exact)
+from two_stage_object_detection_tpu_torch.ops.roi_pool import (
+    _norm_scales, roi_align_mm)
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     multilevel_roi_align_hybrid_batched, windowed_roi_align_batched)
 
@@ -107,7 +113,8 @@ def span_aware_levels(rois: torch.Tensor, levels: torch.Tensor, scales,
     ``scales`` (per-level ``(sy, sx)`` pairs or scalars).  A roi that fits
     nowhere keeps the coarsest level.  Returns ``[..., R]`` int32.
     """
-    sc = _norm_scales(scales, len(scales)).to(rois.device)
+    sc = device_constant(_norm_scales(scales, len(scales)).flatten().tolist(),
+                         torch.float32, rois.device).reshape(-1, 2)
     n_levels = sc.shape[0]
     w = rois[..., 2] - rois[..., 0]
     h = rois[..., 3] - rois[..., 1]
@@ -121,7 +128,8 @@ def span_aware_levels(rois: torch.Tensor, levels: torch.Tensor, scales,
 
 class FPNRoIHead(nn.Module):
     """Windowed multi-level RoIAlign (kernel 2) + fc1 -> fc2 -> cls_loc/score.
-    ``use_window=False`` takes the hybrid train route.
+    ``use_window=False`` takes the hybrid train route; ``window=0`` the dense
+    route, whatever ``use_window``.
 
     ``(pyramid (P_min..), rois [B, R, 4] image coords, img_size) ->
     (roi_cls_locs [B, R, n_class*4], roi_scores [B, R, n_class])``, f32.
@@ -147,14 +155,12 @@ class FPNRoIHead(nn.Module):
         """Level assignment + windowed RoIAlign -> ``[B, R, P, P, C]``;
         ``use_window=False`` is the train route, differentiable in the
         pyramid."""
-        if not self.window:
-            raise NotImplementedError(
-                "fpn_roi_window=0 (dense multi-level RoIAlign) is not ported "
-                "yet (ROADMAP.md, 'Modules to port')")
         img_h, img_w = img_size
         max_level = self.min_level + self.n_pool_levels - 1
         levels = fpn_level_assign(rois, self.min_level, max_level,
                                   self.canonical_level, self.canonical_size)
+        if not self.window:
+            return self._pool_dense(pyramid, rois, levels, img_size)
         scales = tuple((pyramid[li].shape[2] / img_h, pyramid[li].shape[3] / img_w)
                        for li in range(self.n_pool_levels))
         if self.span_aware:
@@ -168,6 +174,24 @@ class FPNRoIHead(nn.Module):
                      (levels - self.min_level).to(torch.int32), scales,
                      self.roi_size, 2, self.window, False,
                      use_kernel=self.use_kernel)
+
+    def _pool_dense(self, pyramid, rois, levels, img_size) -> torch.Tensor:
+        """Every roi from every pooling level, blended by its one-hot level,
+        in the pyramid's dtype (the sum in level order, as in JAX)."""
+        img_h, img_w = img_size
+        onehot = F.one_hot((levels - self.min_level).to(torch.int64),
+                           self.n_pool_levels).to(torch.float32)  # [B, R, L]
+        rois = rois.to(torch.float32)
+        pooled = None
+        for li in range(self.n_pool_levels):
+            fh, fw = pyramid[li].shape[2:4]
+            scale = device_constant([fw / img_w, fh / img_h] * 2,
+                                    torch.float32, rois.device)
+            p = roi_align_mm(pyramid[li].permute(0, 2, 3, 1).contiguous(),
+                             rois * scale, self.roi_size, 1.0)
+            w = onehot[:, :, li][..., None, None, None].to(p.dtype)
+            pooled = p * w if pooled is None else pooled + p * w
+        return pooled
 
     def forward(self, pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
                 img_size, use_window: bool = True):

@@ -1,9 +1,15 @@
-"""Single-scale RoI head: RoIPool max, a global mean, two dense heads.
+"""Single-scale RoI head: RoI pooling, a global mean, two dense heads.
 
-The counterpart of the JAX package's ``nets/roi_head.py:RoIHead`` in its
-``pool`` mode (torchvision RoIPool semantics).  Rois arrive per image in
-image coordinates and are scaled to the map with
+The counterpart of the JAX package's ``nets/roi_head.py:RoIHead``, in its
+three pooling modes: ``pool`` (RoIPool max, torchvision semantics),
+``align`` (the matrix-product RoIAlign, ``ops/roi_pool.py:roi_align_mm``)
+and ``mean`` (the masked mean over the RoIPool bins, ``roi_pool_mean``).
+Rois arrive per image in image coordinates and are scaled to the map with
 ``[fw/img_w, fh/img_h, fw/img_w, fh/img_h]`` (f32, one multiply).
+
+``align`` and ``mean`` pool in the map's dtype with plain matrix products,
+as the JAX package does outside any Pallas kernel, and differentiate by
+autograd; the rest of this docstring is about ``pool``.
 
 The forward values come from kernel 5
 (:func:`~..ops.roi_pool_max.roi_pool_max`) on a CUDA tensor with the
@@ -19,8 +25,6 @@ the cotangent to kernel 5's saved argmax; otherwise ``roi_bwd`` picks the
 rule, ``"pallas"`` (kernel 6: the first row-major maximum, recomputed),
 ``"structured"`` or ``"xla"`` (ties share evenly at each max stage), see
 :mod:`~..ops.roi_pool_bwd`.
-
-The ``align`` and ``mean`` modes are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,9 +33,15 @@ import torch
 import torch.nn as nn
 
 from two_stage_object_detection_tpu_torch.models.layers import Dense
+from two_stage_object_detection_tpu_torch.ops.geometry import device_constant
+from two_stage_object_detection_tpu_torch.ops.roi_pool import (
+    roi_align_mm, roi_pool_mean)
 from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
     BWD_MODES, roi_pool_recompute)
 from two_stage_object_detection_tpu_torch.ops.roi_pool_max import roi_pool_max
+
+
+POOL_MODES = ("pool", "align", "mean")
 
 
 class RoIHead(nn.Module):
@@ -43,13 +53,13 @@ class RoIHead(nn.Module):
                  dtype=torch.float32, pallas_roi: bool = False,
                  roi_bwd: str = "xla"):
         super().__init__()
-        if pool_mode != "pool":
-            raise NotImplementedError(
-                f"roi_pool_mode={pool_mode!r} is not ported yet (ROADMAP.md, "
-                "'Modules to port'); the port pools with 'pool'")
+        if pool_mode not in POOL_MODES:
+            raise ValueError(f"roi_pool_mode must be one of {POOL_MODES}, "
+                             f"got {pool_mode!r}")
         if roi_bwd not in BWD_MODES:
             raise ValueError(f"roi_bwd must be one of {BWD_MODES}, "
                              f"got {roi_bwd!r}")
+        self.pool_mode = pool_mode
         self.roi_size, self.use_kernel, self.dtype = roi_size, use_kernel, dtype
         self.pallas_roi, self.roi_bwd = pallas_roi, roi_bwd
         self.cls_loc = Dense(channels, n_class * 4, dtype)
@@ -57,14 +67,19 @@ class RoIHead(nn.Module):
 
     def pool(self, feats: torch.Tensor, rois: torch.Tensor,
              img_size) -> torch.Tensor:
-        """RoIPool max on the map -> ``[B, R, P, P, C]`` f32."""
+        """RoI pooling on the map -> ``[B, R, P, P, C]``: f32 for ``pool``,
+        the map's dtype for ``align`` and ``mean``."""
         fh, fw = feats.shape[2:4]
         img_h, img_w = img_size
-        scale = torch.tensor([fw / img_w, fh / img_h, fw / img_w, fh / img_h],
-                             dtype=torch.float32, device=rois.device)
+        scale = device_constant([fw / img_w, fh / img_h, fw / img_w, fh / img_h],
+                                torch.float32, rois.device)
         rois_feat = (rois.to(torch.float32) * scale).contiguous()
         # NCHW with channels-last memory: the NHWC view is free
         nhwc = feats.permute(0, 2, 3, 1).contiguous()
+        if self.pool_mode == "align":
+            return roi_align_mm(nhwc, rois_feat, self.roi_size, 1.0)
+        if self.pool_mode == "mean":
+            return roi_pool_mean(nhwc, rois_feat, self.roi_size, 1.0)
         if self.pallas_roi:
             return roi_pool_max(nhwc, rois_feat, self.roi_size, 1.0,
                                 use_kernel=self.use_kernel,

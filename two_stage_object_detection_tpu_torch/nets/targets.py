@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from two_stage_object_detection_tpu_torch.ops.geometry import (
-    bbox2loc, bbox_iou)
+    bbox2loc, bbox_iou, device_constant)
 
 BIG = 1 << 30
 
@@ -175,8 +175,8 @@ def proposal_target(rois: torch.Tensor, roi_valid: torch.Tensor,
                             take(gt_assignment)[..., None].expand(b, n_sample, 4))
     gt_roi_loc = bbox2loc(sample_roi, assigned)
     if loc_std is not None:
-        gt_roi_loc = gt_roi_loc / torch.tensor(loc_std, dtype=gt_roi_loc.dtype,
-                                               device=dev)
+        gt_roi_loc = gt_roi_loc / device_constant(loc_std, gt_roi_loc.dtype,
+                                                  dev)
     # negatives (and padding) -> background label 0
     gt_roi_label = torch.where(take(pos_keep), take(roi_label), 0)
     gt_roi_label = torch.where(sample_valid, gt_roi_label, 0)

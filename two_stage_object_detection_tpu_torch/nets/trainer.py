@@ -15,22 +15,36 @@ A :class:`TrainState` holds the model, the optimiser and the counters; the
 accumulator is the parameters' ``.grad``.  :func:`train_step` takes one
 micro-step, in place, on a batch dict ``image [B, H, W, 3]`` (float in
 [0, 1], or uint8, converted on the device), ``boxes [B, G, 4]``,
-``labels [B, G]``, ``valid [B, G]`` of numpy arrays or tensors.
+``labels [B, G]``, ``valid [B, G]`` of numpy arrays or tensors; with
+``device_augment`` it first runs the augmentation chain of
+:mod:`~..data.device_transforms` on the device.
 
-Not ported: ``train_macro_step*`` and ``eval_scan_resident`` (they read the
-device-resident dataset cache) and ``device_augment=True`` (ROADMAP.md).
+The JAX package runs an accumulation cycle as one compiled ``lax.scan``
+(``train_macro_step``, and ``train_macro_step_resident`` over a dataset
+held on the device, :class:`~..data.device_cache.DeviceDatasetCache`) and
+a whole eval pass over such a dataset as another (``eval_scan_resident``).
+In eager PyTorch each is a Python loop of the same steps on the current
+stream, under the same names and with the same results; nothing in them
+waits for the card, and :func:`eval_scan_resident` brings its outputs to
+the host in one copy.  The evaluator runs :func:`eval_scan_resident`;
+``train()`` runs no macro step: its one epoch loop takes a ``train_step``
+a batch from any loader, the cache included, which launches what a macro
+step launches, so ``train_macro_step*`` are the JAX surface, for callers
+that hold K batches or a cycle's indices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from two_stage_object_detection_tpu_torch.config import Config
+from two_stage_object_detection_tpu_torch.data.device_transforms import (
+    augment_batch)
 from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
 from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
 
@@ -112,17 +126,20 @@ def train_step(state: TrainState, batch: Dict,
     last micro-step of a cycle, one AdamW update on the mean gradient.
 
     ``generator`` draws the samplers' priorities (None: first k in index
-    order).  Returns ``(state, losses)``; ``state`` is the one passed in,
-    updated in place, and ``losses`` holds the five detached scalars.
+    order).  ``device_augment``: augment the batch on its device first
+    (:func:`~..data.device_transforms.augment_batch`), after the u8 -> f32
+    conversion, drawing from ``generator`` (None: the device's default
+    generator) before the samplers do.  Returns ``(state, losses)``;
+    ``state`` is the one passed in, updated in place, and ``losses`` holds
+    the five detached scalars.
     """
-    if device_augment:
-        raise NotImplementedError(
-            "device_augment=True needs data/device_transforms.py, which is "
-            "not ported yet (ROADMAP.md, 'Modules to port')")
     model, k = state.model, max(state.cfg.grad_accum_steps, 1)
     b = _to_device(batch, model.device)
-    out = model.train_forward(_images_f32(b["image"]), b["boxes"], b["labels"],
-                              b["valid"], train=True, generator=generator)
+    images, boxes = _images_f32(b["image"]), b["boxes"]
+    if device_augment:
+        images, boxes = augment_batch(images, boxes, generator)
+    out = model.train_forward(images, boxes, b["labels"], b["valid"],
+                              train=True, generator=generator)
     out["losses"]["total"].backward()
     state.step += 1
     if state.step % k == 0:
@@ -136,6 +153,44 @@ def train_step(state: TrainState, batch: Dict,
         state.optimizer.zero_grad(set_to_none=True)
         state.updates += 1
     return state, {name: v.detach() for name, v in out["losses"].items()}
+
+
+def train_macro_step(state: TrainState, superbatch: Dict,
+                     generators: Sequence[Optional[torch.Generator]],
+                     device_augment: bool = False
+                     ) -> Tuple[TrainState, torch.Tensor]:
+    """K micro-steps over the leading axis of ``superbatch`` (leaves ``[K,
+    B, ...]``), micro-step ``k`` drawing from ``generators[k]``.  Returns
+    ``(state, totals [K])``, the total losses on the device."""
+    totals = []
+    for k, gen in enumerate(generators):
+        state, losses = train_step(state, {n: v[k] for n, v in superbatch.items()},
+                                   gen, device_augment)
+        totals.append(losses["total"])
+    return state, torch.stack(totals)
+
+
+def train_macro_step_resident(state: TrainState, data: Dict[str, torch.Tensor],
+                              idx, generators: Sequence[Optional[torch.Generator]],
+                              device_augment: bool = False
+                              ) -> Tuple[TrainState, torch.Tensor]:
+    """K micro-steps on batches gathered from a dataset held on the device.
+
+    ``data``: the cache's leaves ``[N, ...]``
+    (:attr:`~..data.device_cache.DeviceDatasetCache.data`); ``idx``: ``[K,
+    B]`` sample indices of one accumulation cycle (numpy or a tensor),
+    copied to the device once; the cycle's micro-batches are one gather of
+    every leaf.  Returns ``(state, totals [K])`` as :func:`train_macro_step`."""
+    return train_macro_step(state, _gather(data, idx), generators,
+                            device_augment)
+
+
+def _gather(data: Dict[str, torch.Tensor], idx) -> Dict[str, torch.Tensor]:
+    """``data``'s rows at ``idx`` (numpy or a tensor, any shape), gathered on
+    their device: leaves ``[*idx.shape, ...]``."""
+    dev = next(iter(data.values())).device
+    idx = torch.as_tensor(idx, dtype=torch.int64).to(dev, non_blocking=True)
+    return {k: v[idx] for k, v in data.items()}
 
 
 @torch.no_grad()
@@ -157,3 +212,56 @@ def predict_step(state: TrainState, images):
     model = state.model
     x = _to_device({"image": images}, model.device)["image"]
     return model.predict(_images_f32(x))
+
+
+_EVAL_KEYS = ("boxes_pred", "classes_score_pred", "classes_pred", "pred_valid")
+
+
+@torch.no_grad()
+def eval_scan_resident(state: TrainState, data: Dict[str, torch.Tensor], idx,
+                       use_predict: bool = False) -> Dict[str, np.ndarray]:
+    """The whole eval pass over a dataset held on the device.
+
+    ``idx``: ``[n_batches, B]`` sample indices.  Each batch is gathered from
+    ``data`` and runs the train graph in eval mode (:func:`eval_step`, the
+    reference's protocol) or, with ``use_predict``, the true predict path
+    (``loss_total`` 0).  The outputs stay on the device, stacked, and come
+    to the host in one copy: numpy leaves ``[n_batches, B, ...]`` under the
+    JAX package's keys, ``boxes_pred``, ``classes_score_pred``,
+    ``classes_pred``, ``pred_valid``, ``loss_total`` ``[n_batches]`` and the
+    gathered ``gt_boxes``, ``gt_labels``, ``gt_valid``.
+    """
+    model = state.model
+    outs = {}
+    for sel in torch.as_tensor(idx, dtype=torch.int64):
+        b = _gather(data, sel)              # one batch at a time
+        images = _images_f32(b["image"])
+        if use_predict:
+            pred = model.predict(images)
+            loss = torch.zeros((), dtype=torch.float32, device=images.device)
+        else:
+            o = model.train_forward(images, b["boxes"], b["labels"],
+                                    b["valid"], train=False)
+            pred = [o[k] for k in _EVAL_KEYS]
+            loss = o["losses"]["total"]
+        row = dict(zip(_EVAL_KEYS, pred), loss_total=loss,
+                   gt_boxes=b["boxes"], gt_labels=b["labels"],
+                   gt_valid=b["valid"])
+        for k, v in row.items():
+            outs.setdefault(k, []).append(v)
+    return _to_host({k: torch.stack(v) for k, v in outs.items()})
+
+
+def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Every tensor of ``tensors`` to host numpy in one device-to-host copy:
+    their bytes packed into one buffer on the device, then split."""
+    flat = [t.contiguous().reshape(-1).view(torch.uint8)
+            for t in tensors.values()]
+    host = torch.cat(flat).cpu().numpy()
+    out, at = {}, 0
+    for (k, t), f in zip(tensors.items(), flat):
+        n = f.numel()
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out[k] = host[at:at + n].view(dtype).reshape(t.shape)
+        at += n
+    return out

@@ -23,6 +23,31 @@ def div_exact(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype, device)``, made once per ``(values,
+    dtype, device)`` and then reused.  A tensor made from host values on a
+    CUDA device is a copy that waits for the device's queue; inside a train
+    or predict step that would hold the host back at every call.
+
+    The tensor is shared by every caller and is read-only: modifying it in
+    place would change every later use.  The key holds the device's index
+    (``"cuda"`` is the current device), so each card has its own.  The
+    cache grows with the distinct constants of the configurations a process
+    runs, a few small tensors each.  The constant is made outside inference
+    mode, so autograd can use it too."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (tuple(float(v) for v in values), dtype, device)
+    if key not in _CONSTANTS:
+        with torch.inference_mode(False):
+            _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype, device=device)
+    return _CONSTANTS[key]
+
+
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
     """Area of ``[..., 4]`` xyxy boxes -> ``[...]``."""
     wh = boxes[..., 2:4] - boxes[..., 0:2]

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from two_stage_object_detection_tpu_torch.ops.geometry import device_constant
+
 NEG_INF = -1e9
 
 
@@ -64,7 +66,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     alive = torch.gather(valid, 1, order)
     boxes_sorted = (torch.gather(boxes, 1, order[..., None].expand(b, n, 4))
                     * alive[..., None].to(boxes.dtype))
-    thr = torch.tensor(iou_threshold, dtype=boxes.dtype, device=boxes.device)
+    thr = device_constant([iou_threshold], boxes.dtype, boxes.device)[0]
     rows = torch.arange(b, device=boxes.device)
 
     out_pos = torch.zeros((b, max_output), dtype=torch.int64, device=boxes.device)

@@ -57,7 +57,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
+from two_stage_object_detection_tpu_torch.ops.geometry import (
+    device_constant, div_exact)
 
 
 def _bin_edges_pool(lo: torch.Tensor, hi: torch.Tensor, pooled: int):
@@ -141,11 +142,11 @@ NEG_INF = -1e30
 
 def _pool_masks(rois: torch.Tensor, h: int, w: int, p: int,
                 spatial_scale: float):
-    """Column / row bin membership of ``rois [R, 4]``: ``(col [R, P, W],
-    row [R, P, H])`` bool."""
+    """Column / row bin membership of ``rois [..., R, 4]``: ``(col [..., R,
+    P, W], row [..., R, P, H])`` bool."""
     q = torch.round(rois.to(torch.float32) * spatial_scale).to(torch.int64)
-    xs, xe = _bin_edges_pool(q[:, 0], q[:, 2], p)
-    ys, ye = _bin_edges_pool(q[:, 1], q[:, 3], p)
+    xs, xe = _bin_edges_pool(q[..., 0], q[..., 2], p)
+    ys, ye = _bin_edges_pool(q[..., 1], q[..., 3], p)
     xs, xe = xs.clamp(0, w)[..., None], xe.clamp(0, w)[..., None]
     ys, ye = ys.clamp(0, h)[..., None], ye.clamp(0, h)[..., None]
     cols = torch.arange(w, device=rois.device)
@@ -305,12 +306,58 @@ def _level_align_weights(rois: torch.Tensor, sy: float, sx: float, p: int,
     """Dense RoIAlign weight pair of one pyramid level for ``rois [..., R,
     4]`` in image coordinates: ``(wy [..., R, P, H], wx [..., R, P, W])``."""
     off = 0.5 if aligned else 0.0
-    r4 = rois.to(torch.float32) * torch.tensor(
-        [sx, sy, sx, sy], dtype=torch.float32, device=rois.device) - off
+    r4 = rois.to(torch.float32) * device_constant(
+        [sx, sy, sx, sy], torch.float32, rois.device) - off
     roi_w = torch.clamp(r4[..., 2] - r4[..., 0], min=1.0)
     roi_h = torch.clamp(r4[..., 3] - r4[..., 1], min=1.0)
     return (_align_weights(r4[..., 1], roi_h, p, s, h),
             _align_weights(r4[..., 0], roi_w, p, s, w))
+
+
+def roi_pool_mean(features: torch.Tensor, rois: torch.Tensor,
+                  output_size: int = 7,
+                  spatial_scale: float = 1.0) -> torch.Tensor:
+    """Average RoI pooling over the RoIPool max bins, as two matrix products.
+
+    ``features [..., H, W, C]``, ``rois [..., R, 4]`` -> ``[..., R, P, P,
+    C]`` in the features' dtype: stage 1 sums each column bin, stage 2 each
+    row bin, both with the bin masks cast to that dtype, and the sum is
+    divided by ``max(count, 1)`` per axis, so an empty bin is 0.
+    """
+    h, w = features.shape[-3:-1]
+    p, dt = output_size, features.dtype
+    cm, rm = _pool_masks(rois, h, w, p, spatial_scale)    # [...,R,P,W], [...,R,P,H]
+    cnt_c = cm.sum(-1).clamp(min=1).to(torch.float32)      # [..., R, P]
+    cnt_r = rm.sum(-1).clamp(min=1).to(torch.float32)
+    s1 = torch.einsum("...rqw,...hwc->...rqhc", cm.to(dt), features)
+    s2 = torch.einsum("...rph,...rqhc->...rpqc", rm.to(dt), s1)
+    norm = cnt_r[..., :, None, None] * cnt_c[..., None, :, None]
+    return s2 / norm.to(dt)
+
+
+def roi_align_mm(features: torch.Tensor, rois: torch.Tensor,
+                 output_size: int = 7, spatial_scale: float = 1.0,
+                 sampling_ratio: int = 2, aligned: bool = False) -> torch.Tensor:
+    """Dense RoIAlign as two matrix products (the JAX package's
+    ``roi_align_mm``): ``out[r, p, q, c] = sum_h WY[r, p, h] sum_w WX[r, q,
+    w] f[h, w, c]``, the separable bilinear weights averaged over each bin's
+    ``sampling_ratio`` samples per axis.
+
+    ``features [..., H, W, C]``, ``rois [..., R, 4]`` xyxy (times
+    ``spatial_scale`` to reach map coordinates) -> ``[..., R, P, P, C]`` in
+    the features' dtype, the weights cast to it.  Stage 1 contracts the map
+    rows of every roi at once (one ``[R*P, H] @ [H, W*C]`` product an
+    image), stage 2 the columns per roi.
+    """
+    h, w = features.shape[-3:-1]
+    p, s, dt = output_size, sampling_ratio, features.dtype
+    wy, wx = _level_align_weights(rois, spatial_scale, spatial_scale, p, s,
+                                  h, w, aligned)         # [...,R,P,H], [...,R,P,W]
+    lead, r = rois.shape[:-2], rois.shape[-2]
+    f = features.reshape(-1, h, w * features.shape[-1])
+    s1 = torch.matmul(wy.to(dt).reshape(f.shape[0], r * p, h), f)
+    s1 = s1.reshape(*lead, r, p, w, -1)                  # [..., R, Py, W, C]
+    return torch.einsum("...rqw,...rpwc->...rpqc", wx.to(dt), s1)
 
 
 def multilevel_roi_align_dense_grad(shapes, dtype, rois: torch.Tensor,

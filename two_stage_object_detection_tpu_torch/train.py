@@ -5,13 +5,15 @@ epoch loop with tqdm, gradient accumulation, a periodic eval sweep over IoU
 thresholds 0.5:0.05:0.95 -> mAP@{.5,.95,.5:.95}, best/last checkpoints,
 preemption and exact resume, and the EMA-smoothed loss plots.  Batches come
 from the host pipeline (:mod:`.data.pipeline`) and are copied to the card
-from pinned memory (:class:`~.data.pipeline.DevicePut`).
+from pinned memory (:class:`~.data.pipeline.DevicePut`); or, with
+``cache_device``, from the dataset held on the card
+(:mod:`.data.device_cache`), which takes the host out of the loop.  With
+``device_augment`` the host only decodes and the augmentation runs on the
+card (:mod:`.data.device_transforms`).
 
-Not ported: multi-device meshes and spatial sharding (``parallel/``), the
-device-resident dataset (``cache_device=True``, ``data/device_cache.py``)
-and on-device augmentation (``device_augment=True``,
-``data/device_transforms.py``); each raises ``NotImplementedError`` naming
-its ROADMAP.md entry.
+Not ported: multi-device meshes and spatial sharding, and with them several
+processes (``parallel/``); they raise ``NotImplementedError`` naming their
+ROADMAP.md entry.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import torch
 from two_stage_object_detection_tpu_torch.config import (
     Config, load_config, resolve_device)
 from two_stage_object_detection_tpu_torch.data.coco import load_coco
+from two_stage_object_detection_tpu_torch.data.device_cache import (
+    DeviceDatasetCache)
 from two_stage_object_detection_tpu_torch.data.pipeline import (
     DetectionDataset, DevicePut, Loader)
 from two_stage_object_detection_tpu_torch.eval.evaluator import evaluate_sweep
@@ -65,11 +69,19 @@ def build_loaders(cfg: Config, data_root: str = "data"):
     ``data/annotations/instances_{split}2017.json``), each placing its
     batches on ``cfg.device`` (:class:`DevicePut`).  Returns
     ``(train_loader, eval_loader, eval_index)``.
+
+    ``cfg.device_augment``: both datasets decode and resize only
+    (``decode_only``); the train step augments on the device.
+    ``cfg.cache_device`` (needs ``device_augment``): both sets are held on
+    the device (:class:`~.data.device_cache.DeviceDatasetCache`); if they
+    exceed ``cache_device_max_bytes``, a warning and the streaming loaders,
+    as in the JAX package.
     """
-    if cfg.cache_device:
-        raise _unported("cache_device=True", "data/device_cache.py")
-    if cfg.device_augment:
-        raise _unported("device_augment=True", "data/device_transforms.py")
+    if cfg.cache_device and not cfg.device_augment:
+        raise ValueError("cache_device=True requires device_augment=True "
+                         "(the cache is epoch-invariant; augmentation must "
+                         "run on device)")
+    dev = resolve_device(cfg.device)
     train_idx = load_coco(
         os.path.join(data_root, "annotations", "instances_train2017.json"),
         os.path.join(data_root, "train2017"), ratio=cfg.train_ratio)
@@ -78,15 +90,27 @@ def build_loaders(cfg: Config, data_root: str = "data"):
         os.path.join(data_root, "val2017"), ratio=cfg.eval_ratio)
     train_ds = DetectionDataset(train_idx, cfg.input_size, cfg.max_gt_boxes,
                                 train=cfg.augment,
+                                decode_only=cfg.device_augment,
                                 cache=cfg.cache_decoded,
                                 cache_max_bytes=cfg.cache_max_bytes,
                                 uint8_images=cfg.transfer_uint8)
     eval_ds = DetectionDataset(eval_idx, cfg.input_size, cfg.max_gt_boxes,
-                               train=False,
+                               train=False, decode_only=cfg.device_augment,
                                cache=cfg.cache_decoded,
                                cache_max_bytes=cfg.cache_max_bytes,
                                uint8_images=cfg.transfer_uint8)
-    put = DevicePut(resolve_device(cfg.device))
+    if cfg.cache_device:
+        mk_cached = lambda ds, shuffle: DeviceDatasetCache(
+            ds, cfg.batch_size, shuffle=shuffle, seed=0,
+            max_bytes=cfg.cache_device_max_bytes,
+            num_workers=cfg.num_workers, device=dev)
+        try:
+            return (mk_cached(train_ds, True), mk_cached(eval_ds, False),
+                    eval_idx)
+        except MemoryError as e:
+            log.warning("cache_device: %s — falling back to streaming Loader",
+                        e)
+    put = DevicePut(dev)
     mk = lambda ds, shuffle: Loader(
         ds, cfg.batch_size, shuffle=shuffle, num_workers=cfg.num_workers,
         prefetch=cfg.prefetch_factor, device_put=put,
@@ -120,15 +144,23 @@ def train(visualization: bool = True, cfg: Optional[Config] = None,
     if omitted).  SIGTERM, or ``guard.request()``, stops the loop at the
     next step boundary, saves ``_last`` and returns.
 
-    ``cfg.fused_accum``: the JAX package runs each accumulation cycle as one
-    dispatch (``train_macro_step``, a ``lax.scan`` of ``grad_accum_steps``
-    calls of its train step).  Here the same micro-steps run as
-    ``train_step`` calls whatever its value, so the result is the same.
+    One epoch loop serves every loader: each micro-step ``s`` of an epoch
+    is one ``train_step`` on the loader's next batch, drawing from
+    ``step_generator(seed, epoch, s)``; with ``cache_device`` the loader is
+    a :class:`~.data.device_cache.DeviceDatasetCache`, whose batches are
+    gathered on the device, so the same loop runs without the host
+    pipeline (the resident loop).  The augmentation runs on the device
+    when ``cfg.device_augment and cfg.augment``.  ``cfg.fused_accum``
+    changes nothing here: the JAX package's macro step fuses a cycle's
+    micro-steps into one compiled program, and in eager PyTorch it is the
+    same micro-steps in a loop (``nets.trainer.train_macro_step*``).
 
-    Each epoch logs its loop time (host pipeline, copies and micro-steps,
-    ending in a synchronisation; the eval after it excluded) and its mean
-    loss, with the numbers as record attributes ``epoch``, ``micro_steps``,
-    ``images``, ``seconds`` and ``loss``.
+    Each epoch logs its loop time (input, copies and micro-steps, ending in
+    a synchronisation; the eval after it excluded) and its mean loss, with
+    the numbers as record attributes ``epoch``, ``micro_steps``, ``images``,
+    ``seconds``, ``loss`` and ``loop`` (``"resident"`` over a
+    ``DeviceDatasetCache``, else ``"stream"``).  The losses come to the
+    host once an epoch.
     """
     cfg = cfg or load_config()
     if mesh not in ("auto", None) or spatial:
@@ -206,36 +238,32 @@ def _run(visualization, cfg, dev, train_loader, eval_loader, weights_dir,
 
     preempted = False
     train_loader.epoch = start_epoch   # restore the shuffle-order clock
+    aug = cfg.device_augment and cfg.augment
+    loop_kind = ("resident" if isinstance(train_loader, DeviceDatasetCache)
+                 else "stream")
     with guard:
         for epoch in range(start_epoch, cfg.num_epochs):
             # losses stay on the device during the epoch and come to the
             # host once at its end
-            pending = []
             skip = skip_steps if epoch == start_epoch else 0
+            gen_at = lambda s, epoch=epoch: step_generator(seed, epoch, s, dev)
             t0 = time.perf_counter()
-            loop = tqdm(train_loader, total=steps_per_epoch,
-                        desc=f"Epoch {epoch + 1}/{cfg.num_epochs}",
-                        colour="green")
-            for i, batch in enumerate(loop):
-                if i < skip:    # already applied before the preemption
-                    continue
-                if guard.should_stop():
-                    preempted = True
-                    break
-                state, losses = train_step(
-                    state, batch, step_generator(seed, epoch, i, dev))
-                pending.append(losses["total"])
+            pending, preempted = train_epoch(
+                state, tqdm(train_loader, total=steps_per_epoch,
+                            desc=f"Epoch {epoch + 1}/{cfg.num_epochs}",
+                            colour="green"), skip, aug, gen_at, guard)
             losses = torch.stack(pending).cpu().tolist() if pending else []
             seconds = time.perf_counter() - t0
             train_loss.extend(losses)
             n_img = len(losses) * cfg.batch_size
             mean = float(np.mean(losses)) if losses else float("nan")
-            log.info("epoch %d: %d micro-steps (%d images) in %.3f s, host "
-                     "pipeline included = %.1f img/s; mean loss %.4f",
-                     epoch + 1, len(losses), n_img, seconds, n_img / seconds,
-                     mean, extra={"epoch": epoch + 1, "micro_steps": len(losses),
-                                  "images": n_img, "seconds": seconds,
-                                  "loss": mean})
+            log.info("epoch %d: %d micro-steps (%d images) in %.3f s, %s "
+                     "loop = %.1f img/s; mean loss %.4f",
+                     epoch + 1, len(losses), n_img, seconds, loop_kind,
+                     n_img / seconds, mean,
+                     extra={"epoch": epoch + 1, "micro_steps": len(losses),
+                            "images": n_img, "seconds": seconds,
+                            "loss": mean, "loop": loop_kind})
             if preempted:
                 break
             if epoch % eval_period == 0:
@@ -267,6 +295,22 @@ def _run(visualization, cfg, dev, train_loader, eval_loader, weights_dir,
             mAP95_list=mAP95_list)
 
     return state
+
+
+def train_epoch(state, batches, skip, aug, gen_at, guard):
+    """One epoch of micro-steps over ``batches``, skipping the first
+    ``skip`` (applied before a preemption); micro-step ``i`` draws from
+    ``gen_at(i)``.  Nothing in it waits for the device: the losses stay
+    there.  Returns ``(pending losses, preempted)``."""
+    pending = []
+    for i, batch in enumerate(batches):
+        if i < skip:
+            continue
+        if guard.should_stop():
+            return pending, True
+        _, losses = train_step(state, batch, gen_at(i), aug)
+        pending.append(losses["total"])
+    return pending, False
 
 
 if __name__ == "__main__":
