@@ -100,6 +100,40 @@ at full width with random weights from seed 0:
 Their launches are printed on their own lines and stay out of the kernels
 line.
 
+Last, the serving phase, on the flagship at full width (bf16, and f32 with
+TF32 off where outputs are compared), its requests the three committed
+JPEGs decoded to 600x600 and tiled, counters set to 0 just before each step:
+
+* yuv420: the unpack of 16 packed planes on the card against
+  ``yuv420_to_rgb_reference`` bit for bit; ``Predictor(wire="yuv420")``
+  against the f32 wire fed that reference (the f32 parity's tolerances);
+  each wire's time for a 16-image request.
+* ``calibrate=True`` over buckets (1, 2, 8, 16): each bucket's measured ms
+  and the plan for 1-16 images.
+* Pipelined dispatch: one 48-image request (three buckets) against three
+  16-image requests, and the synchronising calls in that request under the
+  sync debug mode.
+* ``DynamicBatcher``: 16 threads submit 64 one-image requests (f32), each
+  answer held against a direct call; images/s, p50/p99 latency, flushes;
+  kernels 1 and 2 must launch.
+* HTTP: ``DetectionServer`` on 127.0.0.1, 8 client threads post the three
+  JPEGs 8 times each (200, boxes inside each original image); garbage bytes
+  400, ``/nope`` 404, ``/healthz`` ok; requests/s.
+* Export: ``export_program(portable=False)`` of the flagship and of
+  ``Config()`` at b=16 (f32), saved, loaded and run on the card: kernels 1
+  and 2, and 3 and 5, must launch from the loaded programs, whose outputs
+  are held against eager predict; ``portable=True`` at b=1 must launch no
+  kernel, held against eager ``pallas="off"``.  Export seconds, bytes and
+  the loaded b=16 time beside eager.
+* int8: for three backbone convs (the stem, K=147; a 3x3 over 64 channels;
+  a 3x3 over 512) the ``torch._int_mm`` accumulators against the float64
+  convolution, bit for bit; ``calibrate`` on 4 images,
+  ``filter_scales("extractor")`` and a 16-image request through
+  ``Predictor(int8_scales=...)``, its time beside bf16.
+
+Its launches are printed on their own lines and stay out of the kernels
+line.
+
 Every check raises on failure, so any failed phase exits nonzero.
 
 Output: progress lines; the card's ``nvidia-smi`` name and power limit; one
@@ -1061,6 +1095,28 @@ def stage_times(model, x):
     return t
 
 
+FIELDS = ("boxes", "scores", "labels", "valid")
+
+
+def outputs(res):
+    """Predict's four output tensors as a dict of numpy arrays."""
+    return dict(zip(FIELDS, (t.cpu().numpy() for t in res)))
+
+
+def agree(a, b):
+    """``(share, bitwise)`` of two outputs (dicts of the four fields): the
+    share of the detection slots valid in either where both are valid with
+    the same label, scores within 1e-4 and boxes within 1e-2 px (the f32
+    parity's tolerances; near-tied candidates may swap), and whether every
+    field is equal bit for bit."""
+    same = ((a["valid"] == b["valid"]) & (a["labels"] == b["labels"])
+            & (np.abs(a["scores"] - b["scores"]) <= 1e-4)
+            & (np.abs(a["boxes"] - b["boxes"]).max(-1) <= 1e-2))
+    either = a["valid"] | b["valid"]
+    share = float(same[either].mean()) if either.any() else 1.0
+    return share, all(np.array_equal(a[k], b[k]) for k in a)
+
+
 def f32_parity(cfg, rng, label: str):
     """The same predict in float32 with TF32 off, through the kernels and
     with pallas="off", at b=2: equal proposals, close detections."""
@@ -1083,13 +1139,8 @@ def f32_parity(cfg, rng, label: str):
         d_on, d_off = on.detect(feats, (h, w)), off.detect(feats, (h, w))
     head_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-6))
                    for a, b in zip(head_on, head_off))
-    # detections: slots agree when valid, label agree and score/box are
-    # within 1e-4 / 1e-2 px; near-tied candidates may swap, so 95% suffice
-    vb, vs, vl, vv = (t.cpu().numpy() for t in d_on)
-    wb, ws, wl, wv = (t.cpu().numpy() for t in d_off)
-    same = ((vv == wv) & (vl == wl) & (np.abs(vs - ws) <= 1e-4)
-            & (np.abs(vb - wb).max(-1) <= 1e-2))
-    frac = float(same[wv | vv].mean()) if (wv | vv).any() else 1.0
+    frac, _ = agree(outputs(d_on), outputs(d_off))
+    vv, wv = d_on[3].cpu().numpy(), d_off[3].cpu().numpy()
     log(f"{label} f32 (TF32 off) predict: proposals equal ({int(p_on[2].sum())} "
         f"valid); head outputs max rel diff {head_err:.2e} (tolerance 1e-4); "
         f"{int(vv.sum())}/{int(wv.sum())} detections, {frac:.3f} of slots "
@@ -2039,6 +2090,361 @@ def loop_probe(root: str):
             "busy_ms_per_step": busy / 1e3 / steps, "idle_share": idle}
 
 
+# ------------------------------------------------------------ serving
+SERVE_BUCKETS = (1, 2, 8, 16)
+# three backbone convs of the flagship for the int8 accumulators: the stem
+# (K = 3*7*7 = 147), a 3x3 over 64 channels and a 3x3 over 512
+INT8_CONVS = ("extractor/conv1", "extractor/layer1_0/conv2",
+              "extractor/layer4_1/conv2")
+
+
+def jpeg_bodies():
+    """The bytes of the three committed JPEGs of ``tests/data/real_coco``."""
+    folder = os.path.join(FIXTURE, "train2017")
+    out = []
+    for name in sorted(os.listdir(folder)):
+        if name.endswith(".jpg"):
+            with open(os.path.join(folder, name), "rb") as f:
+                out.append(f.read())
+    return out
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host time of ``fn()`` over ``n`` calls after one to warm up;
+    ``fn`` ends with its outputs on the host."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[n // 2] * 1e3
+
+
+def serving(smi: str):
+    """The serving phase on the flagship at full width (see the module
+    docstring): the yuv420 wire, calibrated buckets, pipelined dispatch,
+    the DynamicBatcher, the HTTP front, export and int8.  Counters are set
+    to 0 just before each step; its launches stay out of the kernels
+    line."""
+    import http.client
+    import tempfile
+    import threading
+    import warnings
+
+    from two_stage_object_detection_tpu_torch.config import Config
+    from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
+    from two_stage_object_detection_tpu_torch.quantize import (
+        calibrate, conv_int32, conv_int32_reference, eligible_convs,
+        filter_scales, quantize_input, quantize_weight)
+    from two_stage_object_detection_tpu_torch.serving import (
+        DynamicBatcher, Predictor, _yuv420_unpack, export_program,
+        load_exported, rgb_to_yuv420, yuv420_to_rgb_reference)
+    from two_stage_object_detection_tpu_torch.serving_http import (
+        DetectionServer, decode_image)
+
+    t_phase = time.perf_counter()
+    wrappers = counters()
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def launched():
+        return {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+
+    cfg = Config(fpn=True, backbone="resnet50", loc_normalize=True)
+    c32 = cfg.replace(compute_dtype="float32", score_thresh=0.0)
+    h, w = cfg.input_size
+    bodies = jpeg_bodies()
+    u8 = np.stack([np.clip(np.rint(decode_image(b, (h, w))[0] * 255.0), 0,
+                           255).astype(np.uint8) for b in bodies])
+    req16 = u8[np.arange(16) % len(u8)]
+    packed = rgb_to_yuv420(req16)
+    rgb32 = yuv420_to_rgb_reference(packed, h, w)
+    m16 = FasterRCNN(cfg, seed=0)
+    m32 = FasterRCNN(c32, seed=1)
+    out = {"card": smi}
+
+    # a. the yuv420 wire
+    dev_rgb = _yuv420_unpack(torch.from_numpy(packed).cuda(), h, w).cpu()
+    require(np.array_equal(dev_rgb.numpy(), rgb32),
+            "the yuv420 unpack on the card differs from its reference")
+    zero()
+    torch.backends.cudnn.deterministic = True   # for the f32 comparisons
+    share, bitwise = agree(
+        Predictor(c32, m32, SERVE_BUCKETS, wire="yuv420")(packed),
+        Predictor(c32, m32, SERVE_BUCKETS)(rgb32))
+    torch.backends.cudnn.deterministic = False
+    log(f"serving yuv420: the unpack of 16 packed {h}x{w} planes on the card "
+        f"equals yuv420_to_rgb_reference bit for bit; f32 (TF32 off) "
+        f"Predictor(wire='yuv420') against Predictor(wire='f32') on the "
+        f"reference pixels: {share:.3f} of slots agree (tolerance 0.95), "
+        f"bitwise {bitwise}; launches {launched()}")
+    require(share >= 0.95, "the yuv420 wire's detections differ")
+    wires = {wire: Predictor(cfg, m16, SERVE_BUCKETS, wire=wire)
+             for wire in ("f32", "u8", "yuv420")}
+    reqs = {"f32": req16.astype(np.float32) / np.float32(255.0), "u8": req16,
+            "yuv420": req16}
+    out["wire_ms"] = {wire: host_ms(lambda: p(reqs[wire]))
+                      for wire, p in wires.items()}
+    out["yuv420_packed_ms"] = host_ms(lambda: wires["yuv420"](packed))
+    log("serving wires, a 16-image request end to end (host clock, median of "
+        "5; bf16; yuv420 packs the RGB request on the host): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in out["wire_ms"].items())
+        + f"; yuv420 from packed planes {out['yuv420_packed_ms']:.2f} ms")
+
+    # b. calibrated buckets
+    t0 = time.perf_counter()
+    calib = Predictor(cfg, m16, SERVE_BUCKETS, wire="yuv420", calibrate=True)
+    out["calibrate_s"] = time.perf_counter() - t0
+    out["bucket_ms"] = dict(calib._bucket_ms)
+    out["plan"] = {n: list(calib._plan(n)) for n in range(1, 17)}
+    log(f"serving calibrate=True ({out['calibrate_s']:.1f} s): bucket ms "
+        + ", ".join(f"b={b} {v:.2f}" for b, v in out["bucket_ms"].items())
+        + "; plan by request size " + " ".join(
+            f"{n}:{'+'.join(map(str, p))}" for n, p in out["plan"].items()))
+
+    # c. pipelined dispatch: 48 images as 16+16+16 in one request
+    served = wires["yuv420"]
+    req48 = np.concatenate([packed] * 3)
+    require(served._plan(48) == (16, 16, 16), "48 images are not 3 buckets")
+    out["one_48_ms"] = host_ms(lambda: served(req48))
+    out["three_16_ms"] = host_ms(lambda: [served(packed) for _ in range(3)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            served(req48)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sites = sorted({f"{os.path.relpath(c.filename)}:{c.lineno}"
+                    for c in caught if "synchroniz" in str(c.message)})
+    out["syncs_48"] = sum("synchroniz" in str(c.message) for c in caught)
+    out["sync_sites"] = sites
+    log(f"serving pipelined dispatch (yuv420, bf16): one 48-image request "
+        f"{out['one_48_ms']:.2f} ms against three 16-image requests "
+        f"{out['three_16_ms']:.2f} ms (host clock, median of 5); under the "
+        f"sync debug mode the 48-image request made {out['syncs_48']} "
+        f"synchronising calls at {sites}, beside its 3 event waits (one a "
+        "bucket's outputs)")
+
+    # d. DynamicBatcher: 16 threads, 64 one-image requests, f32
+    batched = Predictor(c32, m32, (1, 8, 16), wire="yuv420")
+    singles = [req16[i % 16] for i in range(64)]
+    results, lat = [None] * 64, [0.0] * 64
+    torch.backends.cudnn.deterministic = True
+    zero()
+    with DynamicBatcher(batched, max_wait_ms=5.0) as dyn:
+        def client(t):
+            for i in range(t, 64, 16):
+                t0 = time.perf_counter()
+                results[i] = dyn.submit(singles[i]).result(timeout=300)
+                lat[i] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+    counts = launched()
+    direct = [batched(s) for s in singles]
+    got = {k: np.concatenate([r[k] for r in results]) for k in FIELDS}
+    want = {k: np.concatenate([r[k] for r in direct]) for k in FIELDS}
+    share, bitwise = agree(got, want)
+    lat_sorted = sorted(lat)
+    out["batcher"] = {"img_per_s": 64 / wall, "p50_ms": lat_sorted[31],
+                      "p99_ms": lat_sorted[63], "flushes": dyn.flushes,
+                      "agree": share, "bitwise": bitwise, "launches": counts}
+    log(f"serving DynamicBatcher (f32, yuv420 wire, buckets (1, 8, 16), "
+        f"max_wait 5 ms): 16 threads, 64 one-image requests in {wall:.2f} s "
+        f"= {64 / wall:.1f} img/s; latency p50 {lat_sorted[31]:.1f} ms, p99 "
+        f"{lat_sorted[63]:.1f} ms; {dyn.flushes} flushes; against a direct "
+        f"call on each request {share:.3f} of slots agree (tolerance 0.95), "
+        f"bitwise {bitwise}; launches {counts}")
+    torch.backends.cudnn.deterministic = False
+    require(share >= 0.95, "the DynamicBatcher's detections differ")
+    for name in ("greedy_nms", "windowed_align"):
+        require(counts.get(name, 0) > 0, f"the batcher never launched {name}")
+
+    # e. the HTTP front
+    sizes = [decode_image(b, (h, w))[1:] for b in bodies]
+    zero()
+    with DetectionServer(wires["yuv420"], max_wait_ms=5.0,
+                         host="127.0.0.1", port=0).start() as srv:
+        def post(body, path="/detect"):
+            conn = http.client.HTTPConnection(srv.host, srv.port, timeout=300)
+            conn.request("POST", path, body=body,
+                         headers={"Content-Length": str(len(body))})
+            resp = conn.getresponse()
+            payload = json.loads(resp.read().decode())
+            conn.close()
+            return resp.status, payload
+
+        answers = []
+
+        def http_client():
+            for _ in range(8):
+                for j, body in enumerate(bodies):
+                    answers.append((j, *post(body)))
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=http_client) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        bad_status, _ = post(b"this is not an image")
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=60)
+        conn.request("GET", "/nope")
+        nope = conn.getresponse().status
+        conn.close()
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=60)
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        health = (resp.status, json.loads(resp.read().decode()))
+        conn.close()
+    counts = launched()
+    require(len(answers) == 8 * 8 * len(bodies), "missing HTTP answers")
+    n_det = 0
+    for j, status, payload in answers:
+        require(status == 200, f"HTTP {status}: {payload}")
+        oh, ow = sizes[j]
+        require(payload["image"] == {"height": oh, "width": ow},
+                f"HTTP image size {payload['image']}")
+        for d in payload["detections"]:
+            x1, y1, x2, y2 = d["box"]
+            require(0 <= x1 <= x2 <= ow + 0.01 and 0 <= y1 <= y2 <= oh + 0.01,
+                    f"HTTP box {d['box']} outside a {ow}x{oh} image")
+        n_det += len(payload["detections"])
+    require(bad_status == 400, f"garbage bytes gave HTTP {bad_status}")
+    require(nope == 404, f"/nope gave HTTP {nope}")
+    require(health[0] == 200 and health[1]["status"] == "ok",
+            f"/healthz gave {health}")
+    out["http"] = {"requests_per_s": len(answers) / wall,
+                   "requests": len(answers), "detections": n_det,
+                   "launches": counts}
+    log(f"serving HTTP (yuv420, bf16, 127.0.0.1): 8 client threads posted "
+        f"the 3 JPEGs 8 times each, {len(answers)} requests in {wall:.2f} s "
+        f"= {len(answers) / wall:.1f} requests/s, all 200 with boxes inside "
+        f"each original image ({n_det} detections); garbage 400, /nope 404, "
+        f"/healthz ok; launches {counts}")
+
+    # f. export
+    x16 = torch.from_numpy(rgb32).cuda()
+    out["export"] = {}
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        single = FasterRCNN(Config(compute_dtype="float32", score_thresh=0.0),
+                            seed=2)
+        for label, model, expect in (
+                ("flagship", m32, ("greedy_nms", "windowed_align")),
+                ("single-scale", single,
+                 ("fused_proposals_batched", "roi_pool_max"))):
+            path = os.path.join(tmp, "program.pt2")
+            t0 = time.perf_counter()
+            nbytes = export_program(model.cfg, model, path, batch_size=16,
+                                    portable=False)
+            export_s = time.perf_counter() - t0
+            run = load_exported(path)
+            zero()
+            got = outputs(run(x16))
+            counts = launched()
+            share, bitwise = agree(got, outputs(model.predict(x16)))
+            loaded_ms = cuda_time_ms(lambda: run(x16), 5)
+            eager_ms = cuda_time_ms(lambda: model.predict(x16), 5)
+            out["export"][label] = {
+                "export_s": export_s, "bytes": nbytes, "launches": counts,
+                "agree": share, "bitwise": bitwise, "loaded_ms": loaded_ms,
+                "eager_ms": eager_ms}
+            log(f"serving export {label} (portable=False, f32, b=16): "
+                f"{export_s:.1f} s, {nbytes} bytes; the loaded program "
+                f"launched {counts}; against eager predict {share:.3f} of "
+                f"slots agree (tolerance 0.95), bitwise {bitwise}; b=16 "
+                f"{loaded_ms:.2f} ms loaded against {eager_ms:.2f} ms eager "
+                "(CUDA events)")
+            require(share >= 0.95, f"the exported {label} program differs")
+            for name in expect:
+                require(counts.get(name, 0) > 0,
+                        f"the exported {label} program never launched {name}")
+            os.unlink(path)
+        del single
+        path = os.path.join(tmp, "portable.pt2")
+        t0 = time.perf_counter()
+        nbytes = export_program(c32, m32, path, batch_size=1, portable=True)
+        export_s = time.perf_counter() - t0
+        run = load_exported(path)
+        plain = FasterRCNN(c32.replace(pallas="off", pallas_roi=False))
+        plain.load_state_dict(m32.state_dict())
+        zero()
+        got = outputs(run(x16[:1]))
+        counts = launched()
+        share, bitwise = agree(got, outputs(plain.predict(x16[:1])))
+        out["export"]["portable"] = {"export_s": export_s, "bytes": nbytes,
+                                     "launches": counts, "agree": share,
+                                     "bitwise": bitwise}
+        log(f"serving export flagship (portable=True, f32, b=1): "
+            f"{export_s:.1f} s, {nbytes} bytes; launches on the card "
+            f"{counts}; against eager pallas='off' {share:.3f} of slots "
+            f"agree, bitwise {bitwise}")
+        require(not counts, f"the portable program launched {counts}")
+        require(share >= 0.95, "the portable program differs")
+        del plain, run
+    torch.backends.cudnn.deterministic = False
+
+    # g. int8
+    convs = eligible_convs(m16)
+    inputs = {}
+    hooks = [convs[name].register_forward_pre_hook(
+        lambda _, args, name=name: inputs.setdefault(name, args[0]))
+        for name in INT8_CONVS]
+    x16b = torch.from_numpy(rgb32).cuda()
+    m16.predict(x16b)
+    for hk in hooks:
+        hk.remove()
+    out["int8_convs"] = {}
+    for name in INT8_CONVS:
+        conv, x = convs[name], inputs[name]
+        x_q = quantize_input(x, float(x.abs().amax()) / 127.0)
+        w_q, _ = quantize_weight(conv.weight)
+        args = (x_q, w_q, conv.stride, conv.padding)
+        acc = conv_int32(*args)
+        ref = conv_int32_reference(*args)
+        k = w_q[0].numel()
+        require(torch.equal(acc, ref), f"int8 accumulators of {name} differ")
+        out["int8_convs"][name] = {
+            "x": list(x.shape), "w": list(w_q.shape), "K": k,
+            "int_mm_ms": cuda_time_ms(lambda: conv_int32(*args), 5),
+            "f64_ms": cuda_time_ms(lambda: conv_int32_reference(*args), 2)}
+        log(f"serving int8 {name} x {list(x.shape)} w {list(w_q.shape)} "
+            f"(K={k}): im2col + torch._int_mm accumulators equal the float64 "
+            f"conv's bit for bit; "
+            f"{out['int8_convs'][name]['int_mm_ms']:.2f} ms against "
+            f"{out['int8_convs'][name]['f64_ms']:.2f} ms (CUDA events)")
+    del inputs
+    scales = filter_scales(calibrate(m16, [x16b[:4]]), prefix="extractor")
+    quant = Predictor(cfg, m16, SERVE_BUCKETS, wire="u8", int8_scales=scales)
+    zero()
+    got = quant(req16)
+    n_valid = check_outputs(got, 16, cfg)
+    counts = launched()
+    out["int8"] = {"convs": len(scales), "valid": n_valid,
+                   "ms": host_ms(lambda: quant(req16)),
+                   "bf16_ms": out["wire_ms"]["u8"], "launches": counts}
+    log(f"serving int8: calibrate on 4 images, {len(scales)} extractor convs "
+        f"in int8; a 16-image u8 request: {n_valid} valid detections, "
+        f"finite; {out['int8']['ms']:.2f} ms against bf16 "
+        f"{out['int8']['bf16_ms']:.2f} ms (host clock, median of 5); launches "
+        f"{counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serving phase: {out['phase_s']:.1f} s in all; card: {smi}")
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the measured numbers here")
@@ -2136,6 +2542,8 @@ def main() -> int:
     resident_run = resident(smi, driver, train_perf["flagship"]["warm_step_ms"],
                             augment["ms"])
     torch.cuda.empty_cache()
+    serving_run = serving(smi)
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -2155,7 +2563,7 @@ def main() -> int:
                        "train_modes_launches": mode_launches,
                        "drivers": driver, "roi_routes": routes,
                        "roi_routes_s": routes_s, "device_augment": augment,
-                       "resident": resident_run,
+                       "resident": resident_run, "serving": serving_run,
                        "fused_proposals_shapes": fused_shapes,
                        "roi_pool_max_shapes": pool_shapes,
                        "roi_pool_bwd_shapes": bwd_shapes,

@@ -102,16 +102,17 @@ def test_predictor_rejects_bad_requests(carried):
         pred(np.zeros((1, 64, 64, 3), np.uint8))
     with pytest.raises(ValueError, match="static"):
         pred(np.zeros((1, 32, 32, 3), np.float32))
-    with pytest.raises(ValueError, match="yuv420"):
-        Predictor(pred.cfg, pred.model, wire="yuv420")
+    with pytest.raises(ValueError, match="wire"):
+        Predictor(pred.cfg, pred.model, wire="u16")
 
 
 def test_unported_routes_raise(carried):
-    """What the port does not do yet raises and names it: the yuv420 wire.
-    The routes that raised before they were ported now build and predict:
-    the single-scale ``align`` / ``mean`` RoI pooling and the dense FPN
-    route (``fpn_roi_window=0``); their parity with the JAX package is in
-    ``tests/test_torch_roi_routes.py``."""
+    """What the port does not do yet raises and names it: serving over a
+    device mesh (``parallel/``).  The routes that raised before they were
+    ported now build and predict: the single-scale ``align`` / ``mean`` RoI
+    pooling and the dense FPN route (``fpn_roi_window=0``), whose parity
+    with the JAX package is in ``tests/test_torch_roi_routes.py``, and the
+    yuv420 wire (``tests/test_torch_serving.py``)."""
     x = torch.from_numpy(np.random.RandomState(5).rand(1, 64, 64, 3)
                          .astype(np.float32))
     for kw in ({"fpn": False, "backbone": "hardnet39", "roi_pool_mode": "align"},
@@ -122,5 +123,6 @@ def test_unported_routes_raise(carried):
         assert boxes.shape == (1, 8, 4) and valid.shape == (1, 8)
         assert bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all())
     _, _, pred = carried
-    with pytest.raises(ValueError, match="yuv420 is not ported"):
-        Predictor(pred.cfg, pred.model, wire="yuv420")
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        Predictor(pred.cfg, pred.model, mesh=object())
+    assert Predictor(pred.cfg, pred.model, wire="yuv420").wire == "yuv420"

@@ -253,13 +253,18 @@ def test_one_set_takes_several_pairs():
 
 
 def test_unported_options_raise(data_root, tmp_path):
-    """A mesh, ``spatial`` and the ``serve`` / ``export`` commands raise
-    and name their ROADMAP.md entry.  (``cache_device`` and
-    ``device_augment`` are ported: ``tests/test_torch_device_cache.py``.)"""
+    """A mesh and ``spatial`` raise and name their ROADMAP.md entry.
+    (``cache_device`` and ``device_augment`` are ported:
+    ``tests/test_torch_device_cache.py``; the ``serve`` and ``export``
+    commands too: ``tests/test_torch_serving_http.py``,
+    ``tests/test_torch_export.py``.  Without a checkpoint each says which
+    directory has none.)"""
     for kw, what in ((dict(spatial=True), "parallel/"),
                      (dict(mesh=object()), "parallel/")):
         with pytest.raises(NotImplementedError, match=what):
             train(False, CFG, data_root, str(tmp_path), **kw)
-    for cmd in ("serve", "export"):
-        with pytest.raises(SystemExit, match="ROADMAP.md"):
-            main([cmd, "--port", "8000"])
+    missing = str(tmp_path / "no_weights")
+    with pytest.raises(FileNotFoundError, match="no_weights"):
+        main(["serve", "--weights", missing, "--set", "device=cpu"])
+    with pytest.raises(SystemExit, match="no_weights"):
+        main(["export", "--weights", missing, "--set", "device=cpu"])

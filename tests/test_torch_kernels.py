@@ -22,16 +22,20 @@ from two_stage_object_detection_tpu_torch.config import Config
 from two_stage_object_detection_tpu_torch.ops.anchors import make_fpn_anchors
 from two_stage_object_detection_tpu_torch.ops.proposals import (
     MAX_KERNEL_ROWS, _decode_masked, fused_proposals, fused_proposals_batched,
-    fused_proposals_rows_reference, greedy_nms, greedy_nms_rows_reference,
-    nms_chunks, proposals_batched, sorted_rows_reference)
+    fused_proposals_op, fused_proposals_rows_reference, greedy_nms,
+    greedy_nms_op, greedy_nms_rows_reference, nms_chunks, proposals_batched,
+    sorted_rows_reference)
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
     roi_pool_argmax, roi_pool_grad_first_argmax, scatter_argmax_grad)
 from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
     roi_pool_bwd_recompute, roi_pool_fast)
 from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
-    roi_pool_bwd_plan, roi_pool_bwd_scatter, roi_pool_max, roi_pool_plan)
+    roi_pool_argmax_op, roi_pool_bwd_plan, roi_pool_bwd_scatter, roi_pool_max,
+    roi_pool_plan, roi_pool_values_op)
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
-    windowed_roi_align_batched)
+    windowed_align_op, windowed_roi_align_batched)
+from two_stage_object_detection_tpu_torch.quantize import (
+    conv_int32, conv_int32_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -571,3 +575,83 @@ def test_roi_pool_bwd_kernels_reject_bad_input(dev):
         roi_pool_bwd_scatter(torch.zeros((1, 2, 7, 7, 6), device=dev,
                                          dtype=torch.int32),
                              torch.zeros((1, 2, 7, 7, 6), device=dev), 4, 4)
+
+
+def test_custom_ops_pass_opcheck(rng, dev):
+    """The predict path's kernels as ``torch.library`` custom ops (kernels
+    1, 2, 3 and 5, with and without the index): schema, fake
+    implementation and dispatch pass ``torch.library.opcheck``, and a call
+    of each op equals the plain version bit for bit (kernel 2 within 1e-5)
+    and counts one launch."""
+    boxes, scores = (t.to(dev) for t in _sorted_rows(rng, 3, 700))
+    torch.library.opcheck(greedy_nms_op, (boxes, scores, 60, 0.7))
+    want = greedy_nms_rows_reference(boxes, scores, n_post=60,
+                                     iou_threshold=0.7)
+    before = greedy_nms.launches
+    for g, w in zip(greedy_nms_op(boxes, scores, 60, 0.7), want):
+        assert torch.equal(g, w)
+    assert greedy_nms.launches == before + 1
+
+    locs, fg, anchors = (t.to(dev) for t in _proposal_data(rng, 2, 600))
+    args = (locs, fg, anchors, 600.0, 600.0, 0.7, 64, 16.0)
+    torch.library.opcheck(fused_proposals_op, args)
+    want = fused_proposals_rows_reference(locs, fg, anchors, (600.0, 600.0),
+                                          nms_iou=0.7, n_post_nms=64,
+                                          min_size=16.0)
+    before = fused_proposals_batched.launches
+    for g, w in zip(fused_proposals_op(*args), want):
+        assert torch.equal(g, w)
+    assert fused_proposals_batched.launches == before + 1
+
+    hw = [(40, 40), (20, 20), (10, 10), (5, 5)]
+    pyr = [torch.randn(2, h, w, 32, device=dev) for h, w in hw]
+    scales = [v for h, w in hw for v in (h / 160.0, w / 160.0)]
+    x1 = torch.from_numpy(rng.rand(2, 20, 2).astype(np.float32) * 150)
+    rois = torch.cat([x1, x1 + 8 + 60 * torch.from_numpy(
+        rng.rand(2, 20, 2).astype(np.float32))], -1).to(dev)
+    levels = torch.from_numpy(rng.randint(0, 4, (2, 20)).astype(np.int32)
+                              ).to(dev)
+    args = (pyr, rois, levels, scales, 7, 2, 32, False)
+    torch.library.opcheck(windowed_align_op, args)
+    before = windowed_roi_align_batched.launches
+    got = windowed_align_op(*args)
+    want = windowed_roi_align_batched(pyr, rois, levels, [
+        (h / 160.0, w / 160.0) for h, w in hw], use_kernel=False)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert windowed_roi_align_batched.launches == before + 1
+
+    feats = torch.from_numpy((rng.randint(-8, 8, size=(2, 12, 10, 8)) / 4.0)
+                             .astype(np.float32)).to(dev)
+    xy = rng.rand(2, 30, 2) * 150
+    rois = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.rand(2, 30, 2) * 100 + 2], -1).astype(np.float32)
+    ).to(dev)
+    want = roi_pool_argmax(feats, rois, 7, 1.0 / 16)
+    for op, n_out in ((roi_pool_values_op, 1), (roi_pool_argmax_op, 2)):
+        torch.library.opcheck(op, (feats, rois, 7, 1.0 / 16))
+        before = roi_pool_max.launches
+        got = op(feats, rois, 7, 1.0 / 16)
+        got = (got,) if n_out == 1 else got
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert roi_pool_max.launches == before + 1
+
+
+@pytest.mark.parametrize("n,c,hw,o,k,stride,pad", [
+    (16, 3, 64, 64, 7, 2, 3),      # the stem: K = 147, padded to 152
+    (2, 64, 20, 64, 3, 1, 1),
+    (1, 32, 3, 12, 1, 1, 0),       # M = 9 <= 16 rows, N = 12 channels
+    (2, 512, 10, 512, 3, 1, 1)])
+def test_int8_conv_int_mm_equals_float64(rng, dev, n, c, hw, o, k, stride,
+                                         pad):
+    """``quantize.conv_int32`` on the card (im2col + ``torch._int_mm``, rows,
+    depth and channels padded to what it takes) equals the float64
+    convolution of the same int8 values, and is channels-last in memory."""
+    x = torch.from_numpy(rng.randint(-127, 128, (n, c, hw, hw))
+                         .astype(np.int8)).to(dev)
+    w = torch.from_numpy(rng.randint(-127, 128, (o, c, k, k))
+                         .astype(np.int8)).to(dev)
+    got = conv_int32(x, w, stride, pad)
+    want = conv_int32_reference(x, w, stride, pad)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert got.is_contiguous(memory_format=torch.channels_last)

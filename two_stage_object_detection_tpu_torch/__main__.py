@@ -5,6 +5,8 @@ The port's copy of the JAX package's CLI:
     python -m two_stage_object_detection_tpu_torch train  --data-root data
     python -m two_stage_object_detection_tpu_torch eval   --weights weights --predict
     python -m two_stage_object_detection_tpu_torch infer  --num 5
+    python -m two_stage_object_detection_tpu_torch serve  --port 8000
+    python -m two_stage_object_detection_tpu_torch export --out frcnn.pt2
 
 Shared flags: ``--config`` (reference-format ``config.json``),
 ``--set key=value`` (override any :class:`~.config.Config` field from the
@@ -13,8 +15,9 @@ several after one ``--set``: ``--set device=cpu backbone=hardnet39s``),
 ``--flagship``, ``--data-root`` and ``--weights``.  Every command runs on
 ``Config.device``, ``"cuda"`` unless ``--set device=cpu``, and raises when
 no GPU is there.  ``--compile-cache`` has no counterpart here (it is XLA's
-compilation cache).  ``serve`` and ``export`` are not ported yet: they exit
-with a message naming their ROADMAP.md entries.
+compilation cache).  ``export`` writes a ``torch.export`` program in place
+of StableHLO; ``--cuda-only`` takes the place of ``--tpu-only`` (keep the
+CUDA kernels as custom ops).
 """
 
 from __future__ import annotations
@@ -26,11 +29,6 @@ import logging
 
 from two_stage_object_detection_tpu_torch.config import Config, load_config
 
-
-# the commands the JAX package has and the port does not yet: what each
-# needs, by its ROADMAP.md entry
-_UNPORTED = {"serve": "serving_http.py and the rest of serving.py are",
-             "export": "export (torch.export in place of StableHLO) is"}
 
 
 def _parse_override(cfg: Config, kv: str):
@@ -120,21 +118,27 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="inference_results")
     p.add_argument("--seed", type=int, default=0)
 
-    for cmd, what in (("serve", "HTTP serving front"),
-                      ("export", "serialize predict")):
-        sub.add_parser(cmd, help=f"{what} (not ported yet)")
+    p = sub.add_parser("serve", help="HTTP serving front (serving_http)")
+    _add_common(p)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--wire", default="yuv420", choices=("f32", "u8", "yuv420"))
+    p.add_argument("--buckets", default="1,8,16")
+    p.add_argument("--wait-ms", type=float, default=5.0)
+
+    p = sub.add_parser("export", help="serialize predict with torch.export")
+    _add_common(p)
+    p.add_argument("--out", default="frcnn.pt2")
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--cuda-only", action="store_true",
+                   help="keep the CUDA kernels as custom ops (default "
+                        "artifact is portable: plain PyTorch)")
+    p.add_argument("--checkpoint", default=None, choices=(None, "best", "last"))
     return ap
 
 
 def main(argv=None) -> int:
-    ap = _parser()
-    args, unknown = ap.parse_known_args(argv)
-    if args.cmd in _UNPORTED:
-        raise SystemExit(f"{args.cmd}: {_UNPORTED[args.cmd]} not ported to "
-                         f"the PyTorch package yet (ROADMAP.md, 'Modules to "
-                         f"port')")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cfg = _load_cfg(args)
 
@@ -162,6 +166,41 @@ def main(argv=None) -> int:
         multi_inference(args.num, cfg=cfg, data_root=args.data_root,
                         weights_dir=args.weights, output_dir=args.out,
                         seed=args.seed)
+        return 0
+
+    if args.cmd == "serve":
+        from two_stage_object_detection_tpu_torch.serving import Predictor
+        from two_stage_object_detection_tpu_torch.serving_http import (
+            DetectionServer)
+        pred = Predictor.from_checkpoint(
+            args.weights, cfg, wire=args.wire, calibrate=True,
+            batch_sizes=tuple(int(b) for b in args.buckets.split(",")))
+        with DetectionServer(pred, max_wait_ms=args.wait_ms,
+                             host=args.host, port=args.port) as srv:
+            print(f"serving on http://{srv.host}:{srv.port}  "
+                  f"(wire={args.wire}, buckets={pred.batch_sizes})",
+                  flush=True)
+            try:
+                srv.serve_forever()
+            except KeyboardInterrupt:
+                pass
+        return 0
+
+    if args.cmd == "export":
+        from two_stage_object_detection_tpu_torch.serving import (
+            Predictor, export_program)
+        from two_stage_object_detection_tpu_torch.utils import checkpoint as ckpt
+        name = {None: ckpt.BEST, "best": ckpt.BEST,
+                "last": ckpt.LAST}[args.checkpoint]
+        try:
+            model = Predictor.from_checkpoint(args.weights, cfg,
+                                              name=name).model
+        except FileNotFoundError as e:
+            raise SystemExit(str(e)) from None
+        n = export_program(cfg, model, args.out, batch_size=args.batch_size,
+                           portable=not args.cuda_only)
+        print(f"wrote {args.out} ({n} bytes, "
+              f"{'CUDA-only' if args.cuda_only else 'portable'})")
         return 0
 
     raise SystemExit(f"unknown command {args.cmd!r}")   # pragma: no cover

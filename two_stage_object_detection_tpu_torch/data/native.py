@@ -112,6 +112,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ]
+        lib.rgb_to_yuv420_u8.restype = None
+        lib.rgb_to_yuv420_u8.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint8),
+        ]
         _lib = lib
         return _lib
 
@@ -126,11 +131,20 @@ def decode_resize(path: str, size: Tuple[int, int]
 
     Returns ``(image, orig_h, orig_w)`` or None (unsupported format / no lib).
     """
-    lib = get_lib()
-    if lib is None:
+    if get_lib() is None:
         return None
     with open(path, "rb") as f:
         data = f.read()
+    return decode_resize_bytes(data, size)
+
+
+def decode_resize_bytes(data: bytes, size: Tuple[int, int]
+                        ) -> Optional[Tuple[np.ndarray, int, int]]:
+    """:func:`decode_resize` from JPEG/PNG bytes in memory (the serving
+    ingest path: request bodies never touch the file system)."""
+    lib = get_lib()
+    if lib is None:
+        return None
     dh, dw = size
     out = np.empty((dh, dw, 3), np.float32)
     oh = ctypes.c_int(0)
@@ -155,6 +169,23 @@ def resize_f32(img: np.ndarray, size: Tuple[int, int]) -> Optional[np.ndarray]:
     lib.resize_f32(
         img.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), sh, sw,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), dh, dw)
+    return out
+
+
+def rgb_to_yuv420(images: np.ndarray) -> Optional[np.ndarray]:
+    """Pack RGB u8 ``[N, H, W, 3]`` into the yuv420 wire layout ``[N, H +
+    H//2, W]`` (``serving.rgb_to_yuv420`` describes it); None without the
+    library, and the caller packs with numpy."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    images = np.ascontiguousarray(images, np.uint8)
+    n, h, w, _ = images.shape
+    out = np.empty((n, h + h // 2, w), np.uint8)
+    for i in range(n):
+        lib.rgb_to_yuv420_u8(
+            images[i].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w,
+            out[i].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return out
 
 

@@ -30,7 +30,7 @@ from two_stage_object_detection_tpu_torch.models.layers import Conv, Dense
 from two_stage_object_detection_tpu_torch.ops.geometry import (
     device_constant, div_exact)
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
-    _norm_scales, roi_align_mm)
+    roi_align_mm, scale_pairs)
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     multilevel_roi_align_hybrid_batched, windowed_roi_align_batched)
 
@@ -113,8 +113,9 @@ def span_aware_levels(rois: torch.Tensor, levels: torch.Tensor, scales,
     ``scales`` (per-level ``(sy, sx)`` pairs or scalars).  A roi that fits
     nowhere keeps the coarsest level.  Returns ``[..., R]`` int32.
     """
-    sc = device_constant(_norm_scales(scales, len(scales)).flatten().tolist(),
-                         torch.float32, rois.device).reshape(-1, 2)
+    sc = device_constant([v for pair in scale_pairs(scales, len(scales))
+                          for v in pair], torch.float32,
+                         rois.device).reshape(-1, 2)
     n_levels = sc.shape[0]
     w = rois[..., 2] - rois[..., 0]
     h = rois[..., 3] - rois[..., 1]

@@ -8,6 +8,7 @@ same operation order, broadcasting over leading batch axes.  All boxes are
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 EPS = 1e-8
 
@@ -37,15 +38,20 @@ def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
     (``"cuda"`` is the current device), so each card has its own.  The
     cache grows with the distinct constants of the configurations a process
     runs, a few small tensors each.  The constant is made outside inference
-    mode, so autograd can use it too."""
+    mode, so autograd can use it too.  Under ``torch.export`` tracing a new
+    constant is a fake tensor: it is returned and never cached, so a trace
+    leaves nothing behind that a later eager call would read."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     key = (tuple(float(v) for v in values), dtype, device)
-    if key not in _CONSTANTS:
+    hit = _CONSTANTS.get(key)
+    if hit is None:
         with torch.inference_mode(False):
-            _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype, device=device)
-    return _CONSTANTS[key]
+            hit = torch.tensor(key[0], dtype=dtype, device=device)
+        if not isinstance(hit, FakeTensor):
+            _CONSTANTS[key] = hit
+    return hit
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,12 @@ two routes (:func:`proposals_batched` picks one as
   with ``B = 1``; like the JAX package's ``_fused_kernel`` it is on neither
   the predict nor the train path.
 
+On the card both go through ``torch.library`` custom ops,
+``tsod::greedy_nms`` (:func:`greedy_nms_op`) and ``tsod::fused_proposals``
+(:func:`fused_proposals_op`), whose fake implementations give the output
+shapes: ``torch.export`` keeps the launches in its graph instead of tracing
+into ``ctypes``.  The real implementations launch and count.
+
 Both kernels take any number of rows an image.  Kernel 1's walk holds up to
 ``MAX_KERNEL_ROWS`` (112,128) rows a launch in shared memory; above that it
 walks the sorted rows in chunks (:func:`nms_chunks`), one launch each, every
@@ -196,16 +202,32 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
 
     The rows must be sorted by score, descending, ties by lower index (what
     :func:`~..ops.nms.topk_stable` gives).  On a CUDA tensor with
-    ``use_kernel`` this launches ``csrc/nms.cu`` (or raises): once for up
-    to ``MAX_KERNEL_ROWS`` rows, once a chunk of :func:`nms_chunks` above
-    that.  On the CPU, or with ``use_kernel=False``, it runs
-    :func:`greedy_nms_rows_reference`.  Same outputs either way, bit for
-    bit.
+    ``use_kernel`` this calls the custom op ``tsod::greedy_nms``
+    (:func:`greedy_nms_op`), which launches ``csrc/nms.cu`` (or raises):
+    once for up to ``MAX_KERNEL_ROWS`` rows, once a chunk of
+    :func:`nms_chunks` above that.  On the CPU, or with
+    ``use_kernel=False``, it runs :func:`greedy_nms_rows_reference`.  Same
+    outputs either way, bit for bit.
     """
     if not (use_kernel and boxes.is_cuda):
         return greedy_nms_rows_reference(boxes, scores, n_post=n_post,
                                          iou_threshold=iou_threshold)
+    return greedy_nms_op(boxes, scores, n_post, float(iou_threshold))
+
+
+greedy_nms.launches = 0
+
+
+@torch.library.custom_op("tsod::greedy_nms", mutates_args=(),
+                         device_types="cuda")
+def greedy_nms_op(boxes: torch.Tensor, scores: torch.Tensor, n_post: int,
+                  iou_threshold: float
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 1 as a custom op, so that ``torch.export`` keeps the launch
+    in its graph; counted in ``greedy_nms.launches``.  Arguments and
+    outputs as :func:`greedy_nms_rows_reference`."""
     b, k, _ = boxes.shape
+    boxes, scores = boxes.contiguous(), scores.contiguous()
     _cuda.require(boxes, "boxes", torch.float32, (b, k, 4))
     _cuda.require(scores, "scores", torch.float32, (b, k))
     out = _nms_walk(boxes, scores, n_post, iou_threshold)
@@ -213,7 +235,17 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
     return out
 
 
-greedy_nms.launches = 0
+@greedy_nms_op.register_fake
+def _(boxes, scores, n_post, iou_threshold):
+    return _nms_outputs(boxes, n_post)
+
+
+def _nms_outputs(like: torch.Tensor, n_post: int):
+    """Kernel 1's empty outputs for ``like``'s batch: boxes, scores, valid."""
+    b = like.shape[0]
+    return (like.new_empty((b, n_post, 4), dtype=torch.float32),
+            like.new_empty((b, n_post), dtype=torch.float32),
+            like.new_empty((b, n_post), dtype=torch.bool))
 
 
 def _nms_walk(boxes, scores, n_post, iou_threshold):
@@ -348,13 +380,34 @@ def fused_proposals_batched(rpn_locs: torch.Tensor,
         return fused_proposals_rows_reference(
             rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou=nms_iou,
             n_post_nms=n_post_nms, min_size=min_size)
-    out = _fused_launch(rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou,
-                        n_post_nms, min_size)
+    img_h, img_w = img_size
+    return fused_proposals_op(rpn_locs, rpn_fg_scores, anchors, float(img_h),
+                              float(img_w), float(nms_iou), n_post_nms,
+                              float(min_size))
+
+
+fused_proposals_batched.launches = 0
+
+
+@torch.library.custom_op("tsod::fused_proposals", mutates_args=(),
+                         device_types="cuda")
+def fused_proposals_op(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,
+                       anchors: torch.Tensor, img_h: float, img_w: float,
+                       nms_iou: float, n_post_nms: int, min_size: float
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 3 (launch A, then kernel 1's walk) as a custom op, counted in
+    ``fused_proposals_batched.launches``.  Arguments and outputs as
+    :func:`fused_proposals_rows_reference`, the image size as two floats."""
+    out = _fused_launch(rpn_locs, rpn_fg_scores, anchors, (img_h, img_w),
+                        nms_iou, n_post_nms, min_size)
     fused_proposals_batched.launches += 1
     return out
 
 
-fused_proposals_batched.launches = 0
+@fused_proposals_op.register_fake
+def _(rpn_locs, rpn_fg_scores, anchors, img_h, img_w, nms_iou, n_post_nms,
+      min_size):
+    return _nms_outputs(rpn_locs, n_post_nms)
 
 
 def fused_proposals(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,

@@ -12,7 +12,10 @@ edges (``start = p*size // P + lo``, ``end = ceil((p+1)*size / P) + lo``,
 first maximum of each bin in row-major order (-1 for an empty bin).  It
 gathers one column offset of every bin at a time, so it holds
 ``[..., R, P, H, C]`` slabs and never the ``[R, P, H, W, C]`` broadcast of
-the JAX masked max.
+the JAX masked max.  It takes as many offsets as the map is wide (and then
+high), the most a clamped bin can span, masking the rest: its trip counts
+depend on shapes alone, so it reads nothing back from the device and
+``torch.export`` traces it.
 
 **RoIPool max backward**, three rules that differ where a bin's maximum is
 tied (often: the maps end in a ReLU-like activation, so zeros tie), each a
@@ -103,10 +106,11 @@ def roi_pool_argmax(features: torch.Tensor, rois: torch.Tensor,
     ridx = torch.arange(r, device=f.device)[None, :, None]
 
     # stage 1, per column bin: max over its columns of every row, and the
-    # first column reaching it -> [B, R, Pw, H, C]
+    # first column reaching it -> [B, R, Pw, H, C]; a clamped bin spans at
+    # most the map, so the trip counts come from the shapes
     v1 = torch.zeros((b, r, p, h, c), dtype=torch.float32, device=f.device)
     x1 = torch.full((b, r, p, h, c), -1, dtype=torch.int32, device=f.device)
-    for dx in range(int((xe - xs).max().clamp(min=0)) if xs.numel() else 0):
+    for dx in range(w):
         x = xs + dx
         col = f[bidx, :, x.clamp(max=w - 1)].to(torch.float32)  # [B,R,Pw,H,C]
         better = (x < xe)[..., None, None] & ((col > v1) | (x1 < 0))
@@ -117,7 +121,7 @@ def roi_pool_argmax(features: torch.Tensor, rois: torch.Tensor,
     # first row reaching it -> [B, R, Ph, Pw, C]
     v2 = torch.zeros((b, r, p, p, c), dtype=torch.float32, device=f.device)
     i2 = torch.full((b, r, p, p, c), -1, dtype=torch.int32, device=f.device)
-    for dy in range(int((ye - ys).max().clamp(min=0)) if ys.numel() else 0):
+    for dy in range(h):
         y = ys + dy
         yc = y.clamp(max=h - 1)
         row = v1[bidx, ridx, :, yc]                            # [B,R,Ph,Pw,C]
@@ -258,11 +262,15 @@ def roi_pool_grad_first_argmax(feats: torch.Tensor, rois: torch.Tensor,
     return out.to(feats.dtype)
 
 
+def scale_pairs(scales, n_levels: int):
+    """Per-level ``(sy, sx)`` Python floats from scalar-or-pair scales."""
+    return [(float(s), float(s)) if not isinstance(s, (tuple, list))
+            else (float(s[0]), float(s[1])) for s in scales[:n_levels]]
+
+
 def _norm_scales(scales, n_levels: int) -> torch.Tensor:
     """``[L, 2]`` (sy, sx) float32 from scalar-or-pair per-level scales."""
-    return torch.tensor([(float(s), float(s)) if not isinstance(s, (tuple, list))
-                         else (float(s[0]), float(s[1]))
-                         for s in scales[:n_levels]], dtype=torch.float32)
+    return torch.tensor(scale_pairs(scales, n_levels), dtype=torch.float32)
 
 
 def _sample_grid(p: int, s: int, device) -> torch.Tensor:
@@ -373,7 +381,7 @@ def multilevel_roi_align_dense_grad(shapes, dtype, rois: torch.Tensor,
     (0 = finest); ``g [B, R, P, P, C]``.  Returns per-level ``[B, H, W, C]``.
     """
     p, s = output_size, sampling_ratio
-    sc = _norm_scales(scales, len(shapes)).tolist()
+    sc = scale_pairs(scales, len(shapes))
     out = []
     for li, (h, w) in enumerate(shapes):
         sy, sx = sc[li]

@@ -4,7 +4,9 @@ The counterpart of the JAX package's ``ops/pallas_roi.py``
 (``roi_pool_pallas``): RoIPool max with torchvision integer bins over a
 batch, plus the flat index ``y*W + x`` of the first maximum of each bin in
 row-major order (-1, value 0, for an empty bin).  On CUDA tensors it
-launches ``csrc/roi_pool.cu`` on one of two routes, chosen by shape alone
+launches ``csrc/roi_pool.cu`` through a custom op (``tsod::roi_pool_max``,
+values only, or ``tsod::roi_pool_max_argmax``; ``torch.export`` keeps either
+in its graph) on one of two routes, chosen by shape alone
 (:func:`roi_pool_plan`):
 
 * **slice** (every map whose one-vector slice fits in a block's shared
@@ -174,6 +176,52 @@ def _forward(feats: torch.Tensor, rois: torch.Tensor, output_size: int,
         pooled, argmax = roi_pool_argmax(feats, rois, output_size,
                                          spatial_scale)
         return pooled, (argmax if with_argmax else None)
+    if with_argmax:
+        return tuple(roi_pool_argmax_op(feats, rois, output_size,
+                                        float(spatial_scale)))
+    return roi_pool_values_op(feats, rois, output_size,
+                              float(spatial_scale)), None
+
+
+@torch.library.custom_op("tsod::roi_pool_max", mutates_args=(),
+                         device_types="cuda")
+def roi_pool_values_op(feats: torch.Tensor, rois: torch.Tensor,
+                       output_size: int, spatial_scale: float) -> torch.Tensor:
+    """Kernel 5 without the index, as a custom op, so that ``torch.export``
+    keeps the launch in its graph; counted in ``roi_pool_max.launches``.
+    Arguments as :func:`roi_pool_max`; returns ``pooled``."""
+    return _launch(feats, rois, output_size, spatial_scale, False)[0]
+
+
+@roi_pool_values_op.register_fake
+def _(feats, rois, output_size, spatial_scale):
+    return _pooled_like(feats, rois, output_size)
+
+
+@torch.library.custom_op("tsod::roi_pool_max_argmax", mutates_args=(),
+                         device_types="cuda")
+def roi_pool_argmax_op(feats: torch.Tensor, rois: torch.Tensor,
+                       output_size: int, spatial_scale: float
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 5 with the index (a custom op cannot return ``None``, so the
+    two forms are two ops); returns ``(pooled, argmax)``."""
+    return _launch(feats, rois, output_size, spatial_scale, True)
+
+
+@roi_pool_argmax_op.register_fake
+def _(feats, rois, output_size, spatial_scale):
+    pooled = _pooled_like(feats, rois, output_size)
+    return pooled, torch.empty_like(pooled, dtype=torch.int32)
+
+
+def _pooled_like(feats, rois, p):
+    b, r = rois.shape[:2]
+    return feats.new_empty((b, r, p, p, feats.shape[-1]), dtype=torch.float32)
+
+
+def _launch(feats, rois, output_size, spatial_scale, with_argmax):
+    """Launch kernel 5 (``csrc/roi_pool.cu``) on checked CUDA tensors."""
+    feats, rois = feats.contiguous(), rois.contiguous()
     b, h, w, c = feats.shape
     r, p = rois.shape[1], output_size
     if feats.dtype not in _DTYPES:

@@ -2,7 +2,9 @@
 
 The counterpart of the JAX package's ``ops/pallas_windowed_align.py``: the
 same signature as its ``windowed_roi_align_batched``, launching kernel 2
-(``csrc/windowed_align.cu``) on CUDA tensors.  The plain version is
+(``csrc/windowed_align.cu``) on CUDA tensors through the custom op
+``tsod::windowed_align`` (:func:`windowed_align_op`), which
+``torch.export`` keeps in its graph.  The plain version is
 :func:`~..ops.roi_pool.multilevel_roi_align` over the batch; it runs on the
 CPU, or on any device with ``use_kernel=False``.
 
@@ -21,7 +23,7 @@ import torch
 
 from two_stage_object_detection_tpu_torch.ops import _cuda
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
-    _norm_scales, multilevel_roi_align, multilevel_roi_align_dense_grad)
+    multilevel_roi_align, multilevel_roi_align_dense_grad, scale_pairs)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,7 +48,27 @@ def windowed_roi_align_batched(pyramid, rois: torch.Tensor,
     if not (use_kernel and rois.is_cuda):
         return multilevel_roi_align(tuple(pyramid), rois, levels, scales,
                                     output_size, sampling_ratio, window, aligned)
+    sc = [v for pair in scale_pairs(scales, len(pyramid)) for v in pair]
+    return windowed_align_op(list(pyramid), rois, levels, sc, output_size,
+                             sampling_ratio, window, aligned)
+
+
+windowed_roi_align_batched.launches = 0
+
+
+@torch.library.custom_op("tsod::windowed_align", mutates_args=(),
+                         device_types="cuda")
+def windowed_align_op(pyramid: list[torch.Tensor], rois: torch.Tensor,
+                      levels: torch.Tensor, scales: list[float],
+                      output_size: int, sampling_ratio: int, window: int,
+                      aligned: bool) -> torch.Tensor:
+    """Kernel 2 as a custom op, so that ``torch.export`` keeps the launch
+    in its graph; counted in ``windowed_roi_align_batched.launches``.
+    ``scales`` is the flat ``[sy_0, sx_0, sy_1, ...]`` list; the rest as
+    :func:`windowed_roi_align_batched`."""
     p, s = output_size, sampling_ratio
+    pyramid = [f.contiguous() for f in pyramid]
+    rois, levels = rois.contiguous(), levels.contiguous()
     b, r, _ = rois.shape
     c = pyramid[0].shape[-1]
     dt = pyramid[0].dtype
@@ -56,11 +78,10 @@ def windowed_roi_align_batched(pyramid, rois: torch.Tensor,
     _cuda.require(rois, "rois", torch.float32, (b, r, 4))
     _cuda.require(levels, "levels", torch.int32, (b, r))
     n = len(pyramid)
-    sc = _norm_scales(scales, n)
     out = torch.empty((b, r, p, p, c), dtype=dt, device=rois.device)
     feats = (ctypes.c_void_p * n)(*[f.data_ptr() for f in pyramid])
     hw = (ctypes.c_int * (2 * n))(*[d for f in pyramid for d in f.shape[1:3]])
-    scl = (ctypes.c_float * (2 * n))(*sc.reshape(-1).tolist())
+    scl = (ctypes.c_float * (2 * n))(*scales)
     fn = _align_fn()
     with torch.cuda.device(rois.device):
         status = fn(feats, hw, scl, n, rois.data_ptr(), levels.data_ptr(),
@@ -71,7 +92,12 @@ def windowed_roi_align_batched(pyramid, rois: torch.Tensor,
     return out
 
 
-windowed_roi_align_batched.launches = 0
+@windowed_align_op.register_fake
+def _(pyramid, rois, levels, scales, output_size, sampling_ratio, window,
+      aligned):
+    b, r, _ = rois.shape
+    c = pyramid[0].shape[-1]
+    return pyramid[0].new_empty((b, r, output_size, output_size, c))
 
 
 def align_vector_width(c: int, dtype: torch.dtype) -> int:
