@@ -134,7 +134,38 @@ JPEGs decoded to 600x600 and tiled, counters set to 0 just before each step:
 Its launches are printed on their own lines and stay out of the kernels
 line.
 
-Every check raises on failure, so any failed phase exits nonzero.
+Last, the data-parallel phase (``parallel/``), on the flagship at full
+width, float32 with TF32 off and cuDNN deterministic where results are
+compared:
+
+* ``Predictor(mesh=)`` over the card's one device: bit for bit the
+  meshless ``Predictor`` on a 16-image u8 request (bf16).
+* NCCL, a world of 1 (a file store in a temporary directory): two
+  micro-steps and one update of the mesh train step at b=4 equal the
+  meshless step's bit for bit (the gradient all-reduce runs over NCCL).
+* Gloo, 2 ranks spawned on ``cuda:0`` (NCCL refuses two ranks on one
+  card; gloo's collectives are staged through pinned host memory), 8 images
+  a rank of two 16-image batches, ``grad_accum_steps=2``: rank 0's weights
+  are broadcast to the other (held equal bit for bit); eval, through the
+  train graph, with each batch split over the ranks and gathered, equal bit
+  for bit to one process over the same blocks of 8; two micro-steps and one
+  update, after which the ranks' states are equal bit for bit and kernels 1
+  and 2 have launched in each (counters set to 0 just before).  Against
+  one process at b=16 on the same batches: the running statistics within
+  1e-5 (they depend on the images and weights alone, so the cross-replica
+  batch norm must give the global batch's); the total loss within 1e-3
+  relative; the all-reduced gradient within 2e-2 relative in norm (a
+  missing all-reduce or a wrong scale is off by 0.5-1; at full width with
+  random weights a rounding-level difference flips some proposal, sampling
+  and ReLU decisions, which moves the gradient by a few 1e-3, printed by
+  module); 99% of parameter elements within 1e-5 + 1e-5 |p| after the
+  update (AdamW's first update turns the sign of a near-zero gradient into
+  a step of ``lr``).  ``should_stop(sync=True)`` with one rank asking at
+  poll 3 stops both at poll 4.  Each rank prints its micro-step times, the
+  gradient all-reduce's time on its bytes, and its peak memory.
+
+Every check raises on failure, so any failed phase exits nonzero; a rank
+that raises fails the phase.
 
 Output: progress lines; the card's ``nvidia-smi`` name and power limit; one
 JSON line ``{"kernels": [...]}`` with each kernel's launches, error, times
@@ -2445,6 +2476,331 @@ def serving(smi: str):
 
 
 
+# ------------------------------------------------------------ data parallel
+DP_RANKS, DP_PER_RANK = 2, 8
+
+
+def dp_config():
+    """The flagship at full width in float32 (TF32 off: results are held
+    against each other), ``grad_accum_steps=2``."""
+    from two_stage_object_detection_tpu_torch.config import Config
+    return Config(fpn=True, backbone="resnet50", loc_normalize=True,
+                  compute_dtype="float32", grad_accum_steps=2,
+                  batch_size=DP_PER_RANK)
+
+
+def _grad_hook(model, into: dict):
+    """Keeps the gradient each optimiser update consumes (after the
+    all-reduce on a mesh)."""
+    def keep(*_):
+        into.update({n: p.grad.detach().clone() for n, p
+                     in model.named_parameters() if p.grad is not None})
+    return keep
+
+
+def _dp_rank(rank: int, world: int, tmp: str) -> None:
+    """One gloo rank of the data-parallel phase on ``cuda:0``: eval split
+    over the ranks, then two micro-steps and one update of the mesh train
+    step on its 8 rows of each 16-image batch, ``should_stop(sync=True)``,
+    and the gradient all-reduce's time on its bytes.  Writes its numbers to
+    ``tmp``; any failure raises, and the parent's join fails with it."""
+    from two_stage_object_detection_tpu_torch.eval.evaluator import (
+        collect_predictions)
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state, train_step)
+    from two_stage_object_detection_tpu_torch.parallel.mesh import (
+        assert_replicated, make_mesh, place_train_state, state_tensors)
+    from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+        all_reduce_, init_distributed)
+    from two_stage_object_detection_tpu_torch.utils.preemption import (
+        PreemptionGuard)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    init_distributed(f"file://{tmp}/gloo_store", world, rank,
+                     backend="gloo", device="cuda:0")
+    cfg = dp_config()
+    # rank 0 holds the phase's weights, the others other seeds: the
+    # placement's broadcast must make them equal
+    model, state = create_train_state(cfg, seed=rank + 1, device="cuda:0")
+    if rank == 0:
+        model.load_state_dict(torch.load(os.path.join(tmp, "weights.pt")))
+    mesh = make_mesh(devices=["cuda:0"])
+    place_train_state(state, mesh, debug=True)
+    data = torch.load(os.path.join(tmp, "batches.pt"), weights_only=False)
+    rows = slice(rank * DP_PER_RANK, (rank + 1) * DP_PER_RANK)
+
+    t0 = time.perf_counter()
+    preds, _, eval_loss = collect_predictions(state, data["eval"], cfg)
+    eval_s = time.perf_counter() - t0
+
+    grads = {}
+    state.optimizer.register_step_pre_hook(_grad_hook(model, grads))
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for g in data["train"]:
+        mine = {k: v[rows] for k, v in g.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = train_step(state, mine)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    require(state.updates == 1, f"rank {rank}: {state.updates} updates")
+    assert_replicated(state_tensors(state), mesh.group)
+
+    n_params = sum(p.numel() for p in model.parameters())
+    flat = torch.ones(n_params, device="cuda:0")
+    all_reduce_(flat, "sum", mesh.group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        all_reduce_(flat, "sum", mesh.group)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) * 1e3 / 3
+
+    guard = PreemptionGuard(sync_every=2)
+    stopped_at = None
+    for poll in range(1, 20):
+        if rank == world - 1 and poll == 3:
+            guard.request()
+        if guard.should_stop(sync=True):
+            stopped_at = poll
+            break
+
+    out = {"step_ms": step_ms, "losses": losses, "launches": launches,
+           "peak_gb": peak / 1e9, "allreduce_ms": allreduce_ms,
+           "allreduce_bytes": n_params * 4, "n_params": n_params,
+           "stopped_at": stopped_at, "eval_s": eval_s,
+           "eval_loss": eval_loss, "preds": preds}
+    if rank == 0:
+        out["params"] = {k: v.cpu() for k, v in model.state_dict().items()}
+        out["grads"] = {k: v.cpu() for k, v in grads.items()}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _one_process_update(model, state, batches) -> dict:
+    """Two micro-steps and one update in this process, timed; the
+    gradient the update consumed, the parameters and statistics after it,
+    on the host."""
+    from two_stage_object_detection_tpu_torch.nets.trainer import train_step
+    grads = {}
+    state.optimizer.register_step_pre_hook(_grad_hook(model, grads))
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, o = train_step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in o.items()})
+    return {"ms": ms, "losses": losses,
+            "peak": torch.cuda.max_memory_allocated() / 1e9,
+            "params": {k: v.cpu() for k, v in model.state_dict().items()},
+            "grads": {k: v.cpu() for k, v in grads.items()}}
+
+
+def _rel_by_module(got: dict, want: dict, names) -> dict:
+    """The relative error, in norm, of ``got`` against ``want`` over each
+    top-level module's parameters, and over all (``"all"``)."""
+    sums = {}
+    for n in names:
+        d = float((got[n].double() - want[n].double()).norm() ** 2)
+        r = float(want[n].double().norm() ** 2)
+        for part in (n.split(".")[0], "all"):
+            a, b = sums.get(part, (0.0, 0.0))
+            sums[part] = (a + d, b + r)
+    return {k: (a / b) ** 0.5 for k, (a, b) in sums.items()}
+
+
+def _flat(tensors: dict, names) -> torch.Tensor:
+    return torch.cat([tensors[n].reshape(-1).double() for n in names])
+
+
+def data_parallel(smi: str):
+    """The data-parallel phase (see the module docstring); returns its
+    numbers."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from two_stage_object_detection_tpu_torch.eval.evaluator import (
+        collect_predictions)
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state, train_step)
+    from two_stage_object_detection_tpu_torch.parallel.mesh import (
+        make_mesh, place_train_state)
+    from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+        init_distributed)
+    from two_stage_object_detection_tpu_torch.serving import Predictor
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = dp_config()
+    rng = np.random.RandomState(10)
+    torch.backends.cudnn.deterministic = True
+
+    # Predictor over a mesh of the card's one device: one replica, bitwise
+    model, _ = create_train_state(cfg.replace(compute_dtype="bfloat16"),
+                                  seed=0)
+    req = np.stack([train_batch(rng, cfg, 1)["image"][0] for _ in range(16)])
+    plain = Predictor(model.cfg, model, batch_sizes=(16,), wire="u8")(req)
+    meshed = Predictor(model.cfg, model, batch_sizes=(16,), wire="u8",
+                       mesh=make_mesh(devices=["cuda:0"]))(req)
+    for k in FIELDS:
+        require(np.array_equal(plain[k], meshed[k]),
+                f"Predictor(mesh=) over one device: {k} differs")
+    require(int(plain["valid"].sum()) > 0, "Predictor(mesh=): no detections")
+    log(f"data parallel: Predictor(mesh=) over cuda:0 equals the meshless "
+        f"Predictor bit for bit on a 16-image request "
+        f"({int(plain['valid'].sum())} detections)")
+    del model
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # NCCL, a world of 1: the mesh step against the meshless one
+        init_distributed(f"file://{tmp}/nccl_store", 1, 0, backend="nccl",
+                         device="cuda:0")
+        try:
+            c4 = cfg.replace(batch_size=4)
+            nccl_batches = [train_batch(rng, c4, 4) for _ in range(2)]
+            states = []
+            for meshed in (False, True):
+                model, state = create_train_state(c4, seed=0)
+                if meshed:
+                    place_train_state(state, make_mesh())
+                for b in nccl_batches:
+                    train_step(state, b)
+                states.append({k: v.clone() for k, v
+                               in model.state_dict().items()})
+                del model, state
+            same = all(torch.equal(states[0][k], states[1][k])
+                       for k in states[0])
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        require(backend == "nccl" and same, "NCCL world 1: the mesh train "
+                "step differs from the meshless one")
+        log("data parallel: NCCL, a world of 1: two micro-steps and one "
+            "update of the mesh train step (b=4, f32) equal the meshless "
+            "step's bit for bit (parameters and running statistics)")
+        del states
+        torch.cuda.empty_cache()
+
+        # the one-process reference: b=16, the same two batches, one update
+        model, state = create_train_state(cfg.replace(batch_size=16), seed=0)
+        torch.save(model.state_dict(), os.path.join(tmp, "weights.pt"))
+        train_b = [train_batch(rng, cfg, DP_RANKS * DP_PER_RANK)
+                   for _ in range(2)]
+        eval_b = [train_batch(rng, cfg, DP_RANKS * DP_PER_RANK)
+                  for _ in range(2)]
+        torch.save({"train": train_b, "eval": eval_b},
+                   os.path.join(tmp, "batches.pt"))
+        blocks = [{k: v[i:i + DP_PER_RANK] for k, v in b.items()}
+                  for b in eval_b for i in range(0, 16, DP_PER_RANK)]
+        ref_preds, _, ref_eval_loss = collect_predictions(state, blocks, cfg)
+        ref = _one_process_update(model, state, train_b)
+        del model, state
+        torch.cuda.empty_cache()
+        # the control: the same update on each batch's images in reverse
+        # order, the same mathematical gradient, rounded another way
+        model, state = create_train_state(cfg.replace(batch_size=16), seed=0)
+        ctl = _one_process_update(model, state, [
+            {k: v[::-1].copy() for k, v in b.items()} for b in train_b])
+        del model, state
+        torch.cuda.empty_cache()
+        ref_ms, ref_losses, ref_peak = ref["ms"], ref["losses"], ref["peak"]
+        ref_params, ref_grads = ref["params"], ref["grads"]
+
+        t0 = time.perf_counter()
+        mp.start_processes(_dp_rank, args=(DP_RANKS, tmp), nprocs=DP_RANKS,
+                           start_method="spawn")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_RANKS)]
+
+    for r, got in enumerate(ranks):
+        for name in ("greedy_nms", "windowed_align"):
+            require(got["launches"][name] > 0,
+                    f"data parallel: rank {r} never launched {name}")
+        require(got["stopped_at"] == 4, f"data parallel: rank {r} stopped at "
+                f"poll {got['stopped_at']}, not 4")
+        require(len(got["preds"]) == len(ref_preds), "eval length differs")
+        for a, b in zip(got["preds"], ref_preds):
+            require(all(np.array_equal(x, y) for x, y in zip(a, b)),
+                    f"data parallel: rank {r}'s eval predictions differ from "
+                    "the one-process pass over the same blocks")
+        require(abs(got["eval_loss"] - ref_eval_loss)
+                <= 1e-6 * max(1.0, abs(ref_eval_loss)),
+                f"data parallel: rank {r}'s eval loss differs")
+    require(ranks[0]["eval_loss"] == ranks[1]["eval_loss"],
+            "the ranks' eval losses differ")
+    names = sorted(ref_grads)
+    require(sorted(ranks[0]["grads"]) == names,
+            "data parallel: another set of parameters has gradients")
+    p_dp = _flat(ranks[0]["params"], names)
+    p_1 = _flat(ref_params, names)
+    close = float(((p_dp - p_1).abs() <= 1e-5 + 1e-5 * p_1.abs())
+                  .double().mean())
+    loss_rel = max(abs(np.mean([rk["losses"][i]["total"] for rk in ranks])
+                       - ref_losses[i]["total"]) / abs(ref_losses[i]["total"])
+                   for i in range(2))
+    stats = [k for k in ref_params if k.endswith(("running_mean",
+                                                  "running_var"))]
+    stat_err = max(float((ranks[0]["params"][k] - ref_params[k]).abs().max())
+                   for k in stats)
+    dp_err = _rel_by_module(ranks[0]["grads"], ref_grads, names)
+    ctl_err = _rel_by_module(ctl["grads"], ref_grads, names)
+    grad_rel = dp_err["all"]
+    log("data parallel: the gradient's relative error by module, the ranks "
+        "against one process (the control: one process on the images in "
+        "reverse order against it): " + ", ".join(
+            f"{k} {dp_err[k]:.2e} ({ctl_err[k]:.2e})" for k in dp_err))
+    log(f"data parallel: {DP_RANKS} gloo ranks on cuda:0, {DP_PER_RANK} "
+        f"images a rank, grad_accum_steps=2, flagship 600x600 f32 (TF32 "
+        f"off); the ranks' states equal bit for bit after one update; "
+        f"against one process at b=16: the all-reduced gradient's relative "
+        f"error {grad_rel:.2e} (tolerance 2e-2), {close:.6f} of parameter "
+        f"elements within 1e-5 + 1e-5 |p| (tolerance 0.99), the total loss "
+        f"(mean of the ranks') within {loss_rel:.2e} relative (tolerance "
+        f"1e-3), running statistics within {stat_err:.2e} (tolerance 1e-5)")
+    require(grad_rel <= 2e-2, "data parallel: the gradient differs")
+    require(close >= 0.99, "data parallel: the update differs")
+    require(loss_rel <= 1e-3, "data parallel: the losses differ")
+    require(stat_err <= 1e-5, "data parallel: the statistics differ")
+    for r, got in enumerate(ranks):
+        log(f"data parallel rank {r}: micro-step ms "
+            f"{[round(t, 1) for t in got['step_ms']]} (one process at b=16: "
+            f"{[round(t, 1) for t in ref_ms]}); gradient all-reduce "
+            f"{got['allreduce_ms']:.1f} ms for {got['allreduce_bytes']} "
+            f"bytes ({got['n_params']} float32 parameters, gloo through "
+            f"pinned host memory); peak memory {got['peak_gb']:.2f} GB (one "
+            f"process at b=16: {ref_peak:.2f} GB); kernel launches "
+            f"{got['launches']}; should_stop(sync=True) stopped at poll "
+            f"{got['stopped_at']}; eval split over the ranks "
+            f"{got['eval_s']:.2f} s, equal to one process bit for bit")
+    out.update({"grad_rel_err": grad_rel, "param_close_share": close,
+                "grad_rel_by_module": dp_err, "control_rel_by_module": ctl_err,
+                "loss_rel_err": loss_rel, "stat_err": stat_err,
+                "ranks_s": ranks_s, "one_process_step_ms": ref_ms,
+                "one_process_peak_gb": ref_peak,
+                "ranks": [{k: v for k, v in got.items()
+                           if k not in ("params", "grads", "preds")}
+                          for got in ranks]})
+    torch.backends.cudnn.deterministic = False
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"data parallel phase: {out['phase_s']:.1f} s in all (the ranks "
+        f"{ranks_s:.1f} s); card: {smi}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the measured numbers here")
@@ -2544,6 +2900,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_run = serving(smi)
     torch.cuda.empty_cache()
+    dp_run = data_parallel(smi)
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -2564,6 +2922,7 @@ def main() -> int:
                        "drivers": driver, "roi_routes": routes,
                        "roi_routes_s": routes_s, "device_augment": augment,
                        "resident": resident_run, "serving": serving_run,
+                       "data_parallel": dp_run,
                        "fused_proposals_shapes": fused_shapes,
                        "roi_pool_max_shapes": pool_shapes,
                        "roi_pool_bwd_shapes": bwd_shapes,

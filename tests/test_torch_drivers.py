@@ -253,16 +253,21 @@ def test_one_set_takes_several_pairs():
 
 
 def test_unported_options_raise(data_root, tmp_path):
-    """A mesh and ``spatial`` raise and name their ROADMAP.md entry.
-    (``cache_device`` and ``device_augment`` are ported:
+    """The mesh's model axis and ``spatial`` raise and name their ROADMAP.md
+    entry; a mesh that is not a ``parallel.mesh.Mesh`` is refused.  (The
+    data axis is ported: ``tests/test_torch_parallel*.py``;
+    ``cache_device`` and ``device_augment`` too:
     ``tests/test_torch_device_cache.py``; the ``serve`` and ``export``
     commands too: ``tests/test_torch_serving_http.py``,
     ``tests/test_torch_export.py``.  Without a checkpoint each says which
     directory has none.)"""
-    for kw, what in ((dict(spatial=True), "parallel/"),
-                     (dict(mesh=object()), "parallel/")):
-        with pytest.raises(NotImplementedError, match=what):
-            train(False, CFG, data_root, str(tmp_path), **kw)
+    from two_stage_object_detection_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        train(False, CFG, data_root, str(tmp_path), spatial=True)
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        make_mesh(n_model=2, devices=["cpu", "cpu"])
+    with pytest.raises(TypeError, match="Mesh"):
+        train(False, CFG, data_root, str(tmp_path), mesh=object())
     missing = str(tmp_path / "no_weights")
     with pytest.raises(FileNotFoundError, match="no_weights"):
         main(["serve", "--weights", missing, "--set", "device=cpu"])

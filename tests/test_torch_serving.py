@@ -12,8 +12,10 @@ with ``test_torch_serving_http.py``, ``test_torch_quantize.py`` and
 ``test_torch_export.py``.
 """
 
+import os
 import sys
 import threading
+import time
 import types
 
 import jax
@@ -117,6 +119,36 @@ def served():
     return pred, jpreds
 
 
+def same_native_path(mp, timeout: float = 60.0) -> bool:
+    """Make both packages take the same host path (native library or
+    numpy/PIL); returns whether both use their library.
+
+    The JAX package builds its library with an in-place ``make`` into
+    ``native/libpreprocess.so`` and caches a failed load for the life of
+    the process (``data/native.py``: ``_tried``).  Under ``pytest -n``
+    one worker can load the file while another worker's ``make`` is still
+    writing it, and keep that failure, while the port's library (built
+    under ``_build/`` and published atomically) loads.  So, through ``mp``
+    (a ``MonkeyPatch``): once the file has stopped changing, the JAX
+    package's cached failure is reset and the load tried again (with its
+    own ``make`` held back, so as not to write the file twice at once); if
+    it still fails, the port's library is hidden too."""
+    if jnative.available() or not native.available():
+        return jnative.available() and native.available()
+    so = jnative._SO_PATH
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and not (
+            os.path.exists(so) and time.time() - os.path.getmtime(so) > 2.0):
+        time.sleep(0.5)
+    mp.setattr(jnative, "_lib", None)
+    mp.setattr(jnative, "_tried", False)
+    mp.setattr(jnative, "_build", lambda: os.path.exists(so))
+    if jnative.get_lib() is None:
+        mp.setattr(native, "_lib", None)
+        mp.setattr(native, "_tried", True)
+    return jnative.available() and native.available()
+
+
 def _u8(rng, n):
     return rng.randint(0, 256, (n, H, W, 3)).astype(np.uint8)
 
@@ -125,12 +157,13 @@ def _u8(rng, n):
 @pytest.mark.parametrize("path", ["numpy", "native"])
 def test_rgb_to_yuv420_bytes_equal_jax(rng, monkeypatch, path):
     """The host pack, byte for byte, on each of its two paths (the JAX
-    package's numpy path forced by hiding its native pack)."""
+    package's numpy path forced by hiding its native pack; the native
+    path with both libraries loaded, :func:`same_native_path`)."""
     u8 = rng.randint(0, 256, (3, 48, 96, 3)).astype(np.uint8)
     if path == "numpy":
         monkeypatch.setattr(native, "rgb_to_yuv420", lambda _: None)
         monkeypatch.setattr(jnative, "rgb_to_yuv420", lambda _: None)
-    elif not (native.available() and jnative.available()):
+    elif not same_native_path(monkeypatch):
         assert native.rgb_to_yuv420(u8) is None
         return
     got = serving.rgb_to_yuv420(u8)
@@ -246,10 +279,19 @@ def test_pipelined_dispatch_keeps_two_in_flight(served, rng):
 
 
 def test_mesh_and_spatial_raise(served):
+    """``spatial`` (the mesh's model axis) raises naming ``parallel/``; a
+    mesh that is not a ``parallel.mesh.Mesh``, or one over processes, is
+    refused (the data axis: ``tests/test_torch_parallel.py``)."""
     pred, _ = served
-    for kw in (dict(mesh=object()), dict(spatial=True)):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            Predictor(pred.cfg, pred.model, **kw)
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        Predictor(pred.cfg, pred.model, spatial=True)
+    with pytest.raises(TypeError, match="Mesh"):
+        Predictor(pred.cfg, pred.model, mesh=object())
+    from two_stage_object_detection_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(ValueError, match="one process"):
+        Predictor(pred.cfg, pred.model,
+                  mesh=Mesh({"data": 2, "model": 1}, (pred.model.device,),
+                            group=object()))
     with pytest.raises(ValueError, match="wire"):
         Predictor(pred.cfg, pred.model, wire="u16")
 

@@ -15,7 +15,7 @@ import pytest
 import torch
 from PIL import Image
 
-from tests.test_torch_serving import KW, jax_model
+from tests.test_torch_serving import KW, jax_model, same_native_path
 from two_stage_object_detection_tpu import serving as jserving
 from two_stage_object_detection_tpu import serving_http as jhttp
 from two_stage_object_detection_tpu.config import Config as JConfig
@@ -46,7 +46,14 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def servers():
     """The port's server and the JAX package's, both on the yuv420 wire
-    with the same weights."""
+    with the same weights, decoding by the same path (native or PIL:
+    ``test_torch_serving.same_native_path``)."""
+    with pytest.MonkeyPatch.context() as mp:
+        same_native_path(mp)
+        yield from _servers()
+
+
+def _servers():
     _, v = jax_model(FPN)
     pred = Predictor.from_jax_variables(Config(**FPN, device="cpu"),
                                         v["params"], v["batch_stats"],

@@ -18,6 +18,14 @@ no GPU is there.  ``--compile-cache`` has no counterpart here (it is XLA's
 compilation cache).  ``export`` writes a ``torch.export`` program in place
 of StableHLO; ``--cuda-only`` takes the place of ``--tpu-only`` (keep the
 CUDA kernels as custom ops).
+
+``train`` and ``eval`` run data-parallel under ``torchrun``, one process a
+GPU, from its environment (``--set batch_size`` is then a rank's batch):
+
+    torchrun --nproc-per-node 4 -m two_stage_object_detection_tpu_torch train --flagship
+
+``--spatial`` (image rows over the mesh's model axis) raises: the model
+axis is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -97,7 +105,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="start from _best weights (fresh optimiser)")
     p.add_argument("--spatial", action="store_true",
                    help="shard image height over the mesh's model axis "
-                        "(needs parallel/, not ported yet: raises)")
+                        "(the model axis of parallel/ is not ported yet: "
+                        "raises)")
     p.add_argument("--eval-period", type=int, default=10)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no-viz", action="store_true")
@@ -155,10 +164,13 @@ def main(argv=None) -> int:
         from two_stage_object_detection_tpu_torch.evaluate import evaluate_checkpoint
         from two_stage_object_detection_tpu_torch.utils import checkpoint as ckpt
         name = {None: None, "best": ckpt.BEST, "last": ckpt.LAST}[args.checkpoint]
+        from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+            rank)
         sweep = evaluate_checkpoint(
             weights_dir=args.weights, cfg=cfg, data_root=args.data_root,
             name=name, use_predict=args.predict, coco_summary=args.coco)
-        print(json.dumps(sweep, indent=2, default=float))
+        if rank() == 0:                  # every rank holds the same sweep
+            print(json.dumps(sweep, indent=2, default=float))
         return 0
 
     if args.cmd == "infer":

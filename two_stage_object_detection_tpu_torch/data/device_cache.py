@@ -10,8 +10,12 @@ device.  The augmentation still changes every epoch: it runs on the device
 inside the train step (``Config.device_augment``,
 :mod:`.device_transforms`), drawing from the step's generator.
 
-Meshes and multiple processes are not ported (``parallel/``, ROADMAP.md):
-there is no shard selection, per-batch placement or sharded residency here.
+Over several processes (a data mesh, ``parallel/``) every rank holds the
+whole decoded dataset on its own card and, each epoch, gathers the rows
+the streaming Loader would give it: the same seeded order, its strided
+slice (``shard_count`` / ``shard_index``).  This is the counterpart of the
+JAX package's single-controller cache sharded over the mesh; the size
+check applies to each card.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ class DeviceDatasetCache:
     def __init__(self, dataset: DetectionDataset, batch_size: int,
                  shuffle: bool = True, seed: int = 0,
                  max_bytes: int = 8 << 30, num_workers: int = 8,
-                 device="cuda"):
+                 device="cuda", shard_count: int = 1, shard_index: int = 0):
         if not dataset.decode_only:
             raise ValueError(
                 "DeviceDatasetCache requires decode_only=True datasets: the "
@@ -66,6 +70,7 @@ class DeviceDatasetCache:
         self.seed = seed
         self.epoch = 0
         self.device = resolve_device(device)
+        self.shard_count, self.shard_index = shard_count, shard_index
 
         first = dataset.get(0, 0)
         per_sample = sum(np.asarray(v).nbytes for v in first.values())
@@ -86,10 +91,11 @@ class DeviceDatasetCache:
                  self.device, extra={"cache_images": n, "cache_bytes": total})
 
     def __len__(self) -> int:
-        return max(self.n // self.batch_size, 1)
+        return len(self._order(self.epoch, self.shuffle))
 
     def _order(self, epoch: int, shuffle: bool) -> np.ndarray:
         order = epoch_order(self.n, epoch, self.seed, shuffle,
+                            self.shard_count, self.shard_index,
                             min_len=self.batch_size)
         nb = max(len(order) // self.batch_size, 1)
         return order[:nb * self.batch_size].reshape(nb, self.batch_size)
@@ -109,8 +115,9 @@ class DeviceDatasetCache:
         return order
 
     def all_indices(self) -> np.ndarray:
-        """Every sample in order, ``[n_batches, B]`` (no shuffle, no epoch
-        advance), for ``nets.trainer.eval_scan_resident``."""
+        """Every sample of this rank's share in order, ``[n_batches, B]``
+        (no shuffle, no epoch advance), for
+        ``nets.trainer.eval_scan_resident``."""
         return self._order(0, False)
 
     @property

@@ -260,6 +260,10 @@ class Loader:
     its ``prepare`` (if it has one) on the producer thread; see
     :class:`DevicePut` and the module docstring.  ``None`` yields the host
     batches.
+
+    ``shard_count`` / ``shard_index``: the rank's share of every epoch
+    over several processes, :func:`epoch_order`'s strided slice of the
+    same seeded order (equal lengths on every rank).
     """
 
     def __init__(self, dataset: DetectionDataset, batch_size: int,
@@ -267,7 +271,11 @@ class Loader:
                  prefetch: int = 2, seed: int = 0,
                  device_put: Optional[Callable] = None,
                  worker_mode: str = "thread",
-                 persistent_workers: bool = True):
+                 persistent_workers: bool = True,
+                 shard_count: int = 1, shard_index: int = 0):
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard_index {shard_index} out of range for "
+                             f"shard_count {shard_count}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -281,6 +289,8 @@ class Loader:
                              f"got {worker_mode!r}")
         self.worker_mode = worker_mode
         self.persistent_workers = persistent_workers
+        self.shard_count = shard_count
+        self.shard_index = shard_index
         self._pool = None
 
     def _make_pool(self):
@@ -315,11 +325,15 @@ class Loader:
             pass
 
     def __len__(self):
-        return max(len(self.dataset) // self.batch_size, 1)
+        n = len(self.dataset)
+        if self.shard_count > 1 and n >= self.shard_count:
+            n //= self.shard_count
+        return max(n // self.batch_size, 1)
 
     def _epoch_order(self):
         return epoch_order(len(self.dataset), self.epoch, self.seed,
-                           self.shuffle, min_len=self.batch_size)
+                           self.shuffle, self.shard_count, self.shard_index,
+                           min_len=self.batch_size)
 
     def __iter__(self) -> Iterator[dict]:
         order = self._epoch_order()

@@ -12,11 +12,17 @@ Device outputs come to the host with ``.cpu().numpy()`` once a batch; over
 a dataset held on the device (:class:`~..data.device_cache.DeviceDatasetCache`)
 the whole pass runs first and its outputs come over in one copy
 (:func:`~..nets.trainer.eval_scan_resident`).
+
+On a data mesh over several ranks (``state.group``) every rank iterates the
+same full eval set; each batch's rows are split over the ranks and the
+predictions all-gathered (:func:`~..parallel.multiprocess.fetch_global`),
+so every rank scores the same predictions and takes the same ``_best``
+decision.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +34,8 @@ from two_stage_object_detection_tpu_torch.eval.metrics import (
     compute_coco_summary, compute_map, compute_map_sweep)
 from two_stage_object_detection_tpu_torch.nets.trainer import (
     TrainState, eval_scan_resident, eval_step, predict_step)
+from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+    fetch_global, rank, world_size)
 
 
 def _host(x) -> np.ndarray:
@@ -98,9 +106,37 @@ def _append_sample(preds, gts, boxes, scores, labels, valid,
     gts.append((np.asarray(gt_boxes)[gv], np.asarray(gt_labels)[gv] + 1))
 
 
+def _batch_outputs(state: TrainState, batch, use_predict: bool):
+    """``(loss or None, boxes, scores, labels, valid)`` of one whole batch,
+    host numpy.  On a data mesh whose ranks divide the batch each rank runs
+    its block of rows, and the outputs (the loss: a rank's mean, averaged)
+    are gathered in rank order; otherwise every rank runs the whole batch."""
+    group = state.group
+    n = world_size(group) if group is not None else 1
+    b = batch["image"].shape[0]
+    split = n > 1 and b % n == 0
+    if split:
+        r = rank(group)
+        batch = {k: v[r * b // n:(r + 1) * b // n] for k, v in batch.items()}
+    if use_predict:
+        loss, outs = None, predict_step(state, batch["image"])
+    else:
+        out = eval_step(state, batch)
+        loss = out["losses"]["total"]
+        outs = tuple(out[k] for k in ("boxes_pred", "classes_score_pred",
+                                      "classes_pred", "pred_valid"))
+    if split:
+        got = fetch_global({"outs": outs} if loss is None
+                           else {"outs": outs, "loss": loss}, group)
+        loss = None if loss is None else float(np.mean(got["loss"]))
+        return (loss, *got["outs"])
+    return (None if loss is None else float(loss), *(_host(t) for t in outs))
+
+
 def collect_predictions(state: TrainState, loader: Iterable, cfg: Config,
                         nms_iou_threshold: float = 0.7,
-                        use_predict: bool = False):
+                        use_predict: bool = False,
+                        max_batches: Optional[int] = None):
     """One device pass over the loader -> ``(preds, gts, avg_loss)``.
 
     Predictions do not depend on the mAP IoU threshold, so a threshold sweep
@@ -110,15 +146,19 @@ def collect_predictions(state: TrainState, loader: Iterable, cfg: Config,
 
     ``use_predict=False`` mirrors the reference (train-graph forward with GT
     inputs, per-class NMS on the sampled-roi predictions); ``True`` evaluates
-    the true inference path.
+    the true inference path.  ``max_batches``: stop after that many batches
+    (None: the whole loader).
 
     A :class:`~..data.device_cache.DeviceDatasetCache` loader takes the
     resident pass (:func:`~..nets.trainer.eval_scan_resident`): the same
-    forwards over every batch, then one copy to the host.
+    forwards over every batch, then one copy to the host; with
+    ``max_batches``, or on a data mesh, it is iterated batch by batch like
+    any loader, as in the JAX package.
     """
     preds, gts = [], []
     loss_total, n_batches = 0.0, 0
-    if isinstance(loader, DeviceDatasetCache):
+    if (isinstance(loader, DeviceDatasetCache) and max_batches is None
+            and state.group is None):
         outs = eval_scan_resident(state, loader.data, loader.all_indices(),
                                   use_predict=use_predict)
         for bi in range(outs["loss_total"].shape[0]):
@@ -131,17 +171,13 @@ def collect_predictions(state: TrainState, loader: Iterable, cfg: Config,
                         "pred_valid", "gt_boxes", "gt_labels", "gt_valid")),
                     cfg, use_predict, nms_iou_threshold)
         return preds, gts, loss_total / max(outs["loss_total"].shape[0], 1)
-    for batch in loader:
-        if use_predict:
-            boxes, scores, labels, valid = (
-                _host(t) for t in predict_step(state, batch["image"]))
-        else:
-            out = eval_step(state, batch)
-            loss_total += float(out["losses"]["total"])
-            boxes = _host(out["boxes_pred"])
-            scores = _host(out["classes_score_pred"])
-            labels = _host(out["classes_pred"])
-            valid = _host(out["pred_valid"])
+    for bi, batch in enumerate(loader):
+        if max_batches is not None and bi >= max_batches:
+            break
+        loss, boxes, scores, labels, valid = _batch_outputs(state, batch,
+                                                            use_predict)
+        if loss is not None:
+            loss_total += loss
         n_batches += 1
 
         gt_boxes, gt_labels, gt_valid = (
@@ -158,14 +194,15 @@ def collect_predictions(state: TrainState, loader: Iterable, cfg: Config,
 
 def evaluate(state: TrainState, loader: Iterable, cfg: Config,
              map_iou_threshold: float = 0.5, nms_iou_threshold: float = 0.7,
-             use_predict: bool = False):
-    """Run one eval pass -> ``(avg_loss, mAP, metrics_dict)``.
+             use_predict: bool = False, max_batches: Optional[int] = None):
+    """Run one eval pass -> ``(avg_loss, mAP, metrics_dict)``; at most
+    ``max_batches`` batches when given.
 
     Equivalent of reference ``eval_fn`` (``nets/frcnn_training.py:347-370``).
     """
     preds, gts, avg_loss = collect_predictions(
         state, loader, cfg, nms_iou_threshold=nms_iou_threshold,
-        use_predict=use_predict)
+        use_predict=use_predict, max_batches=max_batches)
     metrics = compute_map(preds, gts, cfg.num_classes,
                           iou_threshold=map_iou_threshold)
     return avg_loss, metrics["mAP"], metrics

@@ -6,7 +6,9 @@ annotations — through either the reference's trainer-graph protocol or the
 true inference path — without touching the training loop (the reference
 can only evaluate inside a training run, ``train/train.py:94-117``).  With
 ``cache_device`` the eval set is held on the device and the pass runs over
-it (``data/device_cache.py``).
+it (``data/device_cache.py``).  Under ``torchrun`` the ranks split each
+eval batch's rows and gather the predictions, and every rank returns the
+same scores.
 """
 
 from __future__ import annotations
@@ -24,15 +26,19 @@ from two_stage_object_detection_tpu_torch.data.pipeline import (
     DetectionDataset, DevicePut, Loader)
 from two_stage_object_detection_tpu_torch.eval.evaluator import evaluate_sweep
 from two_stage_object_detection_tpu_torch.nets.trainer import create_train_state
+from two_stage_object_detection_tpu_torch.parallel.mesh import (
+    auto_mesh, place_train_state)
+from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+    init_distributed, world_size)
 from two_stage_object_detection_tpu_torch.utils import checkpoint as ckpt
 
 log = logging.getLogger(__name__)
 
 
-def build_eval_loader(cfg: Config, data_root: str = "data"):
+def build_eval_loader(cfg: Config, data_root: str = "data", device=None):
     """Validation loader (COCO layout, reference
     ``dataset/data_organise.py:13-15``) -> ``(loader, eval_index)``; its
-    batches land on ``cfg.device``.  With ``cfg.cache_device`` the set is
+    batches land on ``device`` (default ``cfg.device``).  With ``cfg.cache_device`` the set is
     held on the device (:class:`~.data.device_cache.DeviceDatasetCache`),
     unless it exceeds ``cache_device_max_bytes``: then a warning, and the
     streaming loader."""
@@ -46,18 +52,19 @@ def build_eval_loader(cfg: Config, data_root: str = "data"):
                           cache=cfg.cache_decoded,
                           cache_max_bytes=cfg.cache_max_bytes,
                           uint8_images=cfg.transfer_uint8)
+    device = cfg.device if device is None else device
     if cfg.cache_device:
         try:
             return DeviceDatasetCache(
                 ds, cfg.batch_size, shuffle=False,
                 max_bytes=cfg.cache_device_max_bytes,
-                num_workers=cfg.num_workers, device=cfg.device), eval_idx
+                num_workers=cfg.num_workers, device=device), eval_idx
         except MemoryError as e:
             log.warning("cache_device: %s — falling back to streaming "
                         "Loader", e)
     return Loader(ds, cfg.batch_size, shuffle=False,
                   num_workers=cfg.num_workers, prefetch=cfg.prefetch_factor,
-                  device_put=DevicePut(cfg.device),
+                  device_put=DevicePut(device),
                   worker_mode=cfg.worker_mode,
                   persistent_workers=cfg.persistent_workers), eval_idx
 
@@ -79,14 +86,24 @@ def evaluate_checkpoint(weights_dir: str = "weights",
     ``True`` scores the true inference path (score threshold + per-class
     NMS — what deployment actually serves).  The pass's time (loader, device
     and host metric work) is logged, and kept on the record as ``seconds``.
+
+    Under ``torchrun`` (:func:`~.parallel.multiprocess.init_distributed`
+    reads its environment) each rank runs on its device of the data mesh
+    and scores the same predictions.
     """
     cfg = cfg or load_config()
-    _, state = create_train_state(cfg, seed=seed)
+    init_distributed(device=cfg.device)
+    mesh = (auto_mesh(cfg.batch_size, devices=[cfg.device])
+            if world_size() > 1 else None)
+    _, state = create_train_state(
+        cfg, seed=seed, device=None if mesh is None else mesh.device)
     if ckpt.restore_checkpoint(weights_dir, state, name=name or ckpt.BEST,
                                params_only=True) is None:
         raise FileNotFoundError(
             f"no checkpoint {name or ckpt.BEST!r} under {weights_dir!r}")
-    loader, _ = build_eval_loader(cfg, data_root)
+    if mesh is not None:
+        place_train_state(state, mesh)
+    loader, _ = build_eval_loader(cfg, data_root, state.model.device)
     try:
         t0 = time.perf_counter()
         sweep = evaluate_sweep(state, lambda: loader, cfg,

@@ -84,6 +84,13 @@ class BatchNorm(nn.Module):
     but hands back the unbiased one, so it runs here on scratch statistics
     (its ``momentum=1`` returns the batch's own) and the variance is scaled
     back by ``(n - 1) / n`` before it enters the running average.
+
+    With a data group (:func:`set_data_group`, which
+    ``parallel.mesh.place_train_state`` calls over several ranks) the
+    train-mode statistics are those of the global batch, every rank's
+    images, as in the JAX package's one SPMD program over a data mesh
+    (:class:`_CrossReplicaNorm`).  Without one, the layer is the
+    ``F.batch_norm`` path above.
     """
 
     EPS, MOMENTUM = 1e-5, 0.9
@@ -95,11 +102,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.update_stats = True      # see frozen_running_stats
+        self.group = None             # see set_data_group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.EPS)
+        if self.group is not None:
+            return self._cross_replica(x)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
@@ -112,6 +122,81 @@ class BatchNorm(nn.Module):
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
         return out
+
+    def _cross_replica(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the global batch of the data group: the
+        statistics of every rank's images, as the JAX package's batch norm
+        takes them inside one SPMD program over a data mesh."""
+        mean, var, count = _global_moments(x, self.group)
+        if self.update_stats:
+            m = self.MOMENTUM
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        invstd = torch.rsqrt(var + self.EPS)
+        return _CrossReplicaNorm.apply(x, self.weight, self.bias, mean,
+                                       invstd, count, self.group)
+
+
+def _global_moments(x: torch.Tensor, group):
+    """Per-channel mean, biased variance and count (float32 ``[C]`` each)
+    of ``x [N, C, H, W]`` over every rank of ``group``: each rank's count,
+    mean and centred sum of squares, gathered, then combined in rank order
+    (Chan et al.'s pairwise update), so that every rank computes the same
+    bits and no sum of squares loses the variance to cancellation."""
+    from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+        all_gather)
+    with torch.no_grad():
+        xf = x.detach().to(torch.float32)
+        n = float(xf.numel() // xf.shape[1])
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        local = torch.stack([torch.full_like(mean, n), mean, var * n])
+        count, means, m2s = all_gather(local, group).unbind(1)
+        total = count.sum(0)
+        g_mean = (count * means).sum(0) / total
+        m2 = (m2s + count * (means - g_mean) ** 2).sum(0)
+        return g_mean, m2 / total, total
+
+
+class _CrossReplicaNorm(torch.autograd.Function):
+    """``(x - mean) * invstd * weight + bias`` with statistics over the data
+    group.  The backward reduces its two per-channel sums, of ``dy`` and of
+    ``dy * x_hat``, over the group: the gradient reaching ``x`` is that of
+    every rank's loss through the shared statistics.  The weight and bias
+    gradients stay this rank's (the train step's all-reduce sums them)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, invstd, count, group):
+        xf = x.to(torch.float32)
+        xhat = (xf - mean[:, None, None]) * invstd[:, None, None]
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.group, ctx.count = group, count
+        out = xhat * weight[:, None, None] + bias[:, None, None]
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+            all_reduce_)
+        xhat, weight, invstd = ctx.saved_tensors
+        dyf = dy.to(torch.float32)
+        sums = torch.stack([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
+        d_bias, d_weight = sums[0].clone(), sums[1].clone()
+        all_reduce_(sums, "sum", ctx.group)
+        mean_dy, mean_dy_xhat = sums / ctx.count
+        dx = (dyf - mean_dy[:, None, None]
+              - xhat * mean_dy_xhat[:, None, None]) * (
+                  weight * invstd)[:, None, None]
+        return dx.to(dy.dtype), d_weight, d_bias, None, None, None, None
+
+
+def set_data_group(module: nn.Module, group) -> None:
+    """Every :class:`BatchNorm` below ``module`` takes its train-mode
+    statistics over the ranks of ``group`` (None: this process's batch,
+    ``F.batch_norm`` as before)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 @contextlib.contextmanager

@@ -74,7 +74,9 @@ class TrainState:
 
     ``step`` counts micro-steps, ``updates`` optimiser updates; the
     micro-gradients of the running accumulation cycle are summed in the
-    parameters' ``.grad``.
+    parameters' ``.grad``.  ``group``: the process group of a data mesh
+    (``parallel.mesh.place_train_state``), over whose ranks each update
+    takes the mean gradient; None in one process.
     """
 
     cfg: Config
@@ -83,6 +85,7 @@ class TrainState:
     lr_of_update: Callable[[int], float]
     step: int = 0
     updates: int = 0
+    group: object = None
 
 
 def create_train_state(cfg: Config, seed: int = 0, steps_per_epoch: int = 1,
@@ -123,7 +126,8 @@ def train_step(state: TrainState, batch: Dict,
                device_augment: bool = False
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One micro-step: forward, backward into the accumulator and, on the
-    last micro-step of a cycle, one AdamW update on the mean gradient.
+    last micro-step of a cycle, one AdamW update on the mean gradient (over
+    the ranks of ``state.group`` too, with one all-reduce).
 
     ``generator`` draws the samplers' priorities (None: first k in index
     order).  ``device_augment``: augment the batch on its device first
@@ -143,7 +147,9 @@ def train_step(state: TrainState, batch: Dict,
     out["losses"]["total"].backward()
     state.step += 1
     if state.step % k == 0:
-        if k > 1:
+        if state.group is not None:
+            _all_reduce_mean(model, k, state.group)
+        elif k > 1:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(k)
@@ -153,6 +159,23 @@ def train_step(state: TrainState, batch: Dict,
         state.optimizer.zero_grad(set_to_none=True)
         state.updates += 1
     return state, {name: v.detach() for name, v in out["losses"].items()}
+
+
+def _all_reduce_mean(model, k: int, group) -> None:
+    """The accumulated gradients become their mean over the ``k``
+    micro-steps of the cycle and the ranks of ``group``: one all-reduce of
+    one flat float32 buffer an update (the ranks' losses are means over
+    equal batches, so the mean of their gradients is the global batch's)."""
+    from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+        all_reduce_, world_size)
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    all_reduce_(flat, "sum", group).div_(k * world_size(group))
+    at = 0
+    for g in grads:
+        n = g.numel()
+        g.copy_(flat[at:at + n].view(g.shape))
+        at += n
 
 
 def train_macro_step(state: TrainState, superbatch: Dict,

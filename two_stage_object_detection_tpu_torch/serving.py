@@ -25,9 +25,11 @@ The counterpart of the JAX package's ``serving.py``, name for name:
 
 :meth:`Predictor.from_checkpoint` loads the port's own checkpoints
 (``utils/checkpoint.py``); :meth:`Predictor.from_jax_variables` takes the
-JAX package's flax variables as numpy trees.  A device mesh (``mesh``,
-``spatial``) is not ported: it raises, naming ROADMAP.md's ``parallel/``
-entry.
+JAX package's flax variables as numpy trees.  ``mesh`` (a
+:class:`~.parallel.mesh.Mesh` over devices of this process) serves from one
+replica of the weights a device, each bucket the data axis divides split
+along the batch over them; ``spatial`` (image rows over the mesh's model
+axis) is not ported and raises, naming ROADMAP.md's ``parallel/`` entry.
 """
 
 from __future__ import annotations
@@ -133,8 +135,14 @@ class Predictor:
       model: a :class:`FasterRCNN` on its serving device.
       batch_sizes: bucket sizes, any order.  A request runs as the
         cheapest bucket sequence (:meth:`_plan`).
-      mesh, spatial: a device mesh and image rows over its model axis; not
-        ported (``parallel/``, ROADMAP.md): anything but the defaults raises.
+      mesh: a :class:`~.parallel.mesh.Mesh` over devices of this process
+        (the JAX Predictor is single-controller too): one replica of the
+        weights a device (``model``'s own where it already lies), and each
+        bucket whose size the data axis divides runs its rows in equal
+        blocks, one a replica, the outputs concatenated in order; other
+        buckets run on the first replica.
+      spatial: image rows over the mesh's model axis; not ported
+        (``parallel/``, ROADMAP.md): raises.
       int8_scales: per-conv input absmax from :func:`quantize.calibrate`;
         the dense convs listed run in int8 (``quantize.quantized``).
       calibrate: time every bucket (5 runs on host inputs, outputs fetched,
@@ -153,11 +161,16 @@ class Predictor:
                  batch_sizes: Sequence[int] = (1, 8, 16), mesh=None,
                  spatial: bool = False, int8_scales: Mapping | None = None,
                  calibrate: bool = False, wire: str = "f32"):
-        if mesh is not None or spatial:
-            raise NotImplementedError(
-                "Predictor(mesh=, spatial=): a device mesh needs parallel/, "
-                "not ported to the PyTorch package yet (ROADMAP.md, "
-                "'Modules to port', parallel/)")
+        from two_stage_object_detection_tpu_torch.parallel.mesh import (
+            Mesh, model_axis_unported, replicate)
+        if spatial:
+            raise model_axis_unported("Predictor(spatial=True)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if mesh is not None and mesh.group is not None:
+            raise ValueError("Predictor serves from one process: pass a mesh "
+                             "over devices of this process")
         if wire not in _WIRES:
             raise ValueError(f"wire must be one of {_WIRES}, got {wire!r}")
         h, w = cfg.input_size
@@ -166,6 +179,7 @@ class Predictor:
                              f"{(h, w)}")
         self.cfg = cfg
         self.model = model
+        self.replicas = [model] if mesh is None else replicate(model, mesh)
         self.wire = wire
         self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
         if not self.batch_sizes or self.batch_sizes[0] < 1:
@@ -174,9 +188,9 @@ class Predictor:
         # wire shape and dtype of ONE request image
         self._wire_shape = (h + h // 2, w) if wire == "yuv420" else (h, w, 3)
         self._wire_np = np.float32 if wire == "f32" else np.uint8
-        dev = model.device
-        self._copy_stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
-                             else None)
+        self._copy_streams = [torch.cuda.Stream(m.device)
+                              if m.device.type == "cuda" else None
+                              for m in self.replicas]
         self._plan_memo = {}
         self._bucket_ms = None
         if calibrate:
@@ -249,53 +263,64 @@ class Predictor:
         self._plan_memo[n] = tuple(plan)
         return self._plan_memo[n]
 
-    def _predict(self, x: torch.Tensor):
-        """The wire's conversion on the device, then predict."""
+    def _predict(self, model: FasterRCNN, x: torch.Tensor):
+        """The wire's conversion on the device, then ``model``'s predict."""
         if self.wire == "u8":
             x = div_exact(x.to(torch.float32), 255.0)
         elif self.wire == "yuv420":
             x = _yuv420_unpack(x, *self.cfg.input_size)
         if self._int8 is None:
-            return self.model.predict(x)
+            return model.predict(x)
         from two_stage_object_detection_tpu_torch.quantize import quantized
-        with quantized(self.model, self._int8):
-            return self.model.predict(x)
+        with quantized(model, self._int8):
+            return model.predict(x)
 
     def _enqueue(self, bucket: int, chunk: np.ndarray):
         """Start one bucket run on ``chunk`` (at most ``bucket`` wire
-        images, padded here): ``(outputs, event)``.  On the card the chunk
-        is staged in pinned memory, copied on the side stream, and the
-        outputs are copied back asynchronously into pinned memory; they are
-        valid once ``event`` has completed."""
+        images, padded here): ``(take, [(outputs, event)] a replica)``.  On
+        the card the chunk is staged in pinned memory, each replica's rows
+        copied on its side stream, and the outputs are copied back
+        asynchronously into pinned memory; they are valid once their
+        ``event`` has completed."""
         take = chunk.shape[0]
+        pinned = any(s is not None for s in self._copy_streams)
         host = torch.empty((bucket, *self._wire_shape),
                            dtype=torch.float32 if self.wire == "f32"
-                           else torch.uint8,
-                           pin_memory=self._copy_stream is not None)
+                           else torch.uint8, pin_memory=pinned)
         host[:take] = torch.from_numpy(np.ascontiguousarray(chunk))
         if take < bucket:
             host[take:] = 0
             if self.wire == "yuv420":
                 host[take:, self.cfg.input_size[0]:] = 128   # zero chroma
-        if self._copy_stream is None:
-            res = self._predict(host)
-            return tuple(t[:take] for t in res), None
-        dev = self.model.device
-        compute = torch.cuda.current_stream(dev)
-        with torch.cuda.stream(self._copy_stream):
-            x = host.to(dev, non_blocking=True)
-        compute.wait_event(self._copy_stream.record_event())
-        x.record_stream(compute)      # x was allocated on the copy stream
-        res = self._predict(x)
-        outs = tuple(t[:take].to("cpu", non_blocking=True) for t in res)
-        return outs, compute.record_event()
+        n = len(self.replicas) if bucket % len(self.replicas) == 0 else 1
+        rows = bucket // n
+        parts = []
+        for model, stream, x in zip(self.replicas, self._copy_streams,
+                                    host.split(rows)):
+            if stream is None:
+                parts.append((self._predict(model, x), None))
+                continue
+            dev = model.device
+            # the kernels' ctypes launches go to the current device
+            with torch.cuda.device(dev):
+                compute = torch.cuda.current_stream(dev)
+                with torch.cuda.stream(stream):
+                    x = x.to(dev, non_blocking=True)
+                compute.wait_event(stream.record_event())
+                x.record_stream(compute)  # x was allocated on the copy stream
+                res = self._predict(model, x)
+                parts.append((tuple(t.to("cpu", non_blocking=True)
+                                    for t in res), compute.record_event()))
+        return take, parts
 
     @staticmethod
     def _fetch(pending):
-        outs, done = pending
-        if done is not None:
-            done.synchronize()
-        return tuple(t.numpy() for t in outs)
+        take, parts = pending
+        for _, done in parts:
+            if done is not None:
+                done.synchronize()
+        return tuple(torch.cat(ts)[:take].numpy()
+                     for ts in zip(*(outs for outs, _ in parts)))
 
     def __call__(self, images: np.ndarray) -> Dict[str, np.ndarray]:
         """Detect on a request of any ``N >= 1`` images in the wire's

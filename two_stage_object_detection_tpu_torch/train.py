@@ -11,8 +11,12 @@ from pinned memory (:class:`~.data.pipeline.DevicePut`); or, with
 ``device_augment`` the host only decodes and the augmentation runs on the
 card (:mod:`.data.device_transforms`).
 
-Not ported: multi-device meshes and spatial sharding, and with them several
-processes (``parallel/``); they raise ``NotImplementedError`` naming their
+Several devices: one process each (``torchrun``, or
+:func:`~.parallel.multiprocess.init_distributed`), data-parallel over a
+:class:`~.parallel.mesh.Mesh`: each rank trains on its shard of every
+epoch, its batch norms take the global batch's statistics, and each update
+all-reduces the gradient.  Not ported: the mesh's ``model`` axis and
+``spatial`` sharding; they raise ``NotImplementedError`` naming their
 ROADMAP.md entry.
 """
 
@@ -37,6 +41,10 @@ from two_stage_object_detection_tpu_torch.data.pipeline import (
 from two_stage_object_detection_tpu_torch.eval.evaluator import evaluate_sweep
 from two_stage_object_detection_tpu_torch.nets.trainer import (
     create_train_state, train_step)
+from two_stage_object_detection_tpu_torch.parallel.mesh import (
+    Mesh, auto_mesh, model_axis_unported, place_train_state)
+from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+    all_reduce_, init_distributed, rank, world_size)
 from two_stage_object_detection_tpu_torch.utils import checkpoint as ckpt
 from two_stage_object_detection_tpu_torch.utils.preemption import (
     PreemptionGuard)
@@ -45,43 +53,50 @@ from two_stage_object_detection_tpu_torch.utils.utils import (
 
 log = logging.getLogger(__name__)
 
-_ROADMAP = "ROADMAP.md, 'Modules to port'"
 
-
-def _unported(what: str, module: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} needs {module}, which is not ported "
-                               f"yet ({_ROADMAP})")
-
-
-def step_generator(seed: int, epoch: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, epoch: int, step: int, device,
+                   rank: int = 0) -> torch.Generator:
     """The sampling generator of micro-step ``step`` of ``epoch``: a fixed
     function of ``(seed, epoch, step)``, as the JAX package's
     ``fold_in(fold_in(rng, epoch), step)``, so that a resumed run draws what
-    an uninterrupted one draws."""
-    s = np.random.SeedSequence((seed, epoch, step)).generate_state(
-        1, np.uint64)[0]
+    an uninterrupted one draws; rank ``r > 0`` of a data mesh folds ``r`` in
+    as well, so the ranks draw apart and each resumes exactly."""
+    key = (seed, epoch, step) + ((rank,) if rank else ())
+    s = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(s) >> 1)
 
 
-def build_loaders(cfg: Config, data_root: str = "data"):
+def build_loaders(cfg: Config, data_root: str = "data",
+                  mesh: Optional[Mesh] = None):
     """COCO loaders following the reference's path layout
     (``dataset/data_organise.py:13-15``:
     ``data/annotations/instances_{split}2017.json``), each placing its
-    batches on ``cfg.device`` (:class:`DevicePut`).  Returns
-    ``(train_loader, eval_loader, eval_index)``.
+    batches on ``cfg.device`` (:class:`DevicePut`), or on the rank's device
+    of ``mesh``.  Returns ``(train_loader, eval_loader, eval_index)``.
+
+    Over a mesh of several processes each rank's train loader yields its
+    shard of every epoch (``shard_count`` / ``shard_index``: the same
+    seeded order everywhere, a strided slice each, equal lengths).  The
+    eval loader is not sharded: every rank iterates the full eval set, so
+    the metrics and the ``_best`` decision keyed on them are the same on
+    every rank (the evaluator splits each batch's rows over the ranks and
+    gathers the predictions).
 
     ``cfg.device_augment``: both datasets decode and resize only
     (``decode_only``); the train step augments on the device.
     ``cfg.cache_device`` (needs ``device_augment``): both sets are held on
     the device (:class:`~.data.device_cache.DeviceDatasetCache`); if they
     exceed ``cache_device_max_bytes``, a warning and the streaming loaders,
-    as in the JAX package.
+    as in the JAX package.  Under a mesh every rank holds both sets on its
+    own card.
     """
     if cfg.cache_device and not cfg.device_augment:
         raise ValueError("cache_device=True requires device_augment=True "
                          "(the cache is epoch-invariant; augmentation must "
                          "run on device)")
-    dev = resolve_device(cfg.device)
+    dev = resolve_device(cfg.device) if mesh is None else mesh.device
+    shards = ({} if mesh is None else
+              dict(shard_count=mesh.processes, shard_index=mesh.data_index))
     train_idx = load_coco(
         os.path.join(data_root, "annotations", "instances_train2017.json"),
         os.path.join(data_root, "train2017"), ratio=cfg.train_ratio)
@@ -100,23 +115,23 @@ def build_loaders(cfg: Config, data_root: str = "data"):
                                cache_max_bytes=cfg.cache_max_bytes,
                                uint8_images=cfg.transfer_uint8)
     if cfg.cache_device:
-        mk_cached = lambda ds, shuffle: DeviceDatasetCache(
+        mk_cached = lambda ds, shuffle, **kw: DeviceDatasetCache(
             ds, cfg.batch_size, shuffle=shuffle, seed=0,
             max_bytes=cfg.cache_device_max_bytes,
-            num_workers=cfg.num_workers, device=dev)
+            num_workers=cfg.num_workers, device=dev, **kw)
         try:
-            return (mk_cached(train_ds, True), mk_cached(eval_ds, False),
-                    eval_idx)
+            return (mk_cached(train_ds, True, **shards),
+                    mk_cached(eval_ds, False), eval_idx)
         except MemoryError as e:
             log.warning("cache_device: %s — falling back to streaming Loader",
                         e)
     put = DevicePut(dev)
-    mk = lambda ds, shuffle: Loader(
+    mk = lambda ds, shuffle, **kw: Loader(
         ds, cfg.batch_size, shuffle=shuffle, num_workers=cfg.num_workers,
         prefetch=cfg.prefetch_factor, device_put=put,
         worker_mode=cfg.worker_mode,
-        persistent_workers=cfg.persistent_workers)
-    return mk(train_ds, True), mk(eval_ds, False), eval_idx
+        persistent_workers=cfg.persistent_workers, **kw)
+    return mk(train_ds, True, **shards), mk(eval_ds, False), eval_idx
 
 
 def train(visualization: bool = True, cfg: Optional[Config] = None,
@@ -126,9 +141,18 @@ def train(visualization: bool = True, cfg: Optional[Config] = None,
           spatial: bool = False, guard: Optional[PreemptionGuard] = None):
     """Run the full training loop (reference ``train()`` signature kept).
 
-    ``mesh``: ``"auto"`` or ``None`` train on ``cfg.device``, one device;
-    an explicit mesh, and ``spatial=True``, raise until ``parallel/`` is
-    ported.
+    ``mesh``: ``"auto"`` brings up ``torch.distributed`` from ``torchrun``'s
+    environment (:func:`~.parallel.multiprocess.init_distributed`; nothing
+    in one process) and, over several ranks, builds the data mesh
+    (:func:`~.parallel.mesh.auto_mesh`, one rank a device, each on
+    ``cuda:LOCAL_RANK``, or ``cfg.device`` where that names an index).
+    ``None`` trains on ``cfg.device`` alone; an explicit
+    :class:`~.parallel.mesh.Mesh` must be over processes.  On a mesh each
+    rank trains on its shard of every epoch (``cfg.batch_size`` is a
+    rank's batch), its batch norms take the global batch's statistics, each
+    update all-reduces the gradient, and the ranks end bitwise equal.
+    ``spatial=True`` (image rows over the mesh's model axis) raises: the
+    model axis is not ported.
 
     ``resume``: restore the full train state (parameters, batch-norm
     statistics, optimiser moments, counters) from the ``_last`` checkpoint
@@ -138,11 +162,14 @@ def train(visualization: bool = True, cfg: Optional[Config] = None,
     draws its sampling from :func:`step_generator`, so the resumed run
     equals an uninterrupted one.  ``pre_train`` restores the ``_best``
     parameters and statistics only, with a fresh optimiser
-    (``train/train.py:60-72``).
+    (``train/train.py:60-72``).  On a mesh rank 0 writes the checkpoints
+    and every rank restores.
 
     ``guard``: a :class:`~.utils.preemption.PreemptionGuard` (one is created
     if omitted).  SIGTERM, or ``guard.request()``, stops the loop at the
-    next step boundary, saves ``_last`` and returns.
+    next step boundary, saves ``_last`` and returns; over several ranks the
+    stop is agreed (``should_stop`` syncs), so every rank stops at the same
+    step.
 
     One epoch loop serves every loader: each micro-step ``s`` of an epoch
     is one ``train_step`` on the loader's next batch, drawing from
@@ -160,17 +187,29 @@ def train(visualization: bool = True, cfg: Optional[Config] = None,
     the numbers as record attributes ``epoch``, ``micro_steps``, ``images``,
     ``seconds``, ``loss`` and ``loop`` (``"resident"`` over a
     ``DeviceDatasetCache``, else ``"stream"``).  The losses come to the
-    host once an epoch.
+    host once an epoch (on a mesh, averaged over the ranks: the global
+    batch's; ``images`` counts every rank's).
     """
     cfg = cfg or load_config()
-    if mesh not in ("auto", None) or spatial:
-        raise _unported("a device mesh or spatial sharding", "parallel/")
-    dev = resolve_device(cfg.device)
+    if spatial:
+        raise model_axis_unported("train(spatial=True)")
+    if mesh == "auto":
+        init_distributed(device=cfg.device)
+        mesh = (auto_mesh(cfg.batch_size, devices=[cfg.device])
+                if world_size() > 1 else None)
+    elif mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be 'auto', None or a parallel.mesh.Mesh, "
+                        f"got {type(mesh).__name__}")
+    if mesh is not None and mesh.group is None:
+        raise ValueError("train() runs one process a device: a mesh over "
+                         "several devices of one process does not train; "
+                         "launch one process per device (torchrun)")
+    dev = resolve_device(cfg.device) if mesh is None else mesh.device
     set_seed(seed)
 
-    train_loader, eval_loader, _ = build_loaders(cfg, data_root)
+    train_loader, eval_loader, _ = build_loaders(cfg, data_root, mesh)
     try:
-        return _run(visualization, cfg, dev, train_loader, eval_loader,
+        return _run(visualization, cfg, dev, mesh, train_loader, eval_loader,
                     weights_dir, pre_train, resume, eval_period, seed,
                     guard or PreemptionGuard())
     finally:
@@ -178,11 +217,17 @@ def train(visualization: bool = True, cfg: Optional[Config] = None,
         eval_loader.close()
 
 
-def _run(visualization, cfg, dev, train_loader, eval_loader, weights_dir,
-         pre_train, resume, eval_period, seed, guard):
+def _run(visualization, cfg, dev, mesh, train_loader, eval_loader,
+         weights_dir, pre_train, resume, eval_period, seed, guard):
     steps_per_epoch = max(len(train_loader), 1)
     _, state = create_train_state(cfg, seed=seed,
                                   steps_per_epoch=steps_per_epoch, device=dev)
+    if mesh is not None:
+        place_train_state(state, mesh)
+        log.info("training on %d ranks, mesh=%s, rank %d on %s",
+                 mesh.processes, mesh.shape, mesh.data_index, dev)
+    group = None if mesh is None else mesh.group
+    lead = rank(group) == 0         # writes the sidecar; rank 0 checkpoints
     os.makedirs(weights_dir, exist_ok=True)
 
     start_epoch = 0
@@ -233,8 +278,9 @@ def _run(visualization, cfg, dev, train_loader, eval_loader, weights_dir,
         # periodic full-state save so ``resume=True`` can recover a crashed
         # or preempted run; the write overlaps the next epoch's steps
         ckpt.save_checkpoint(weights_dir, state, name=ckpt.LAST, wait=False)
-        with open(meta_path, "w") as f:
-            json.dump({"min_eval_loss": min_eval_loss}, f)
+        if lead:
+            with open(meta_path, "w") as f:
+                json.dump({"min_eval_loss": min_eval_loss}, f)
 
     preempted = False
     train_loader.epoch = start_epoch   # restore the shuffle-order clock
@@ -246,16 +292,23 @@ def _run(visualization, cfg, dev, train_loader, eval_loader, weights_dir,
             # losses stay on the device during the epoch and come to the
             # host once at its end
             skip = skip_steps if epoch == start_epoch else 0
-            gen_at = lambda s, epoch=epoch: step_generator(seed, epoch, s, dev)
+            gen_at = lambda s, epoch=epoch: step_generator(
+                seed, epoch, s, dev, rank(group))
             t0 = time.perf_counter()
             pending, preempted = train_epoch(
                 state, tqdm(train_loader, total=steps_per_epoch,
                             desc=f"Epoch {epoch + 1}/{cfg.num_epochs}",
-                            colour="green"), skip, aug, gen_at, guard)
-            losses = torch.stack(pending).cpu().tolist() if pending else []
+                            colour="green", disable=not lead), skip, aug,
+                gen_at, guard)
+            losses = []
+            if pending:
+                stacked = torch.stack(pending)
+                if group is not None:      # the global batch's: rank mean
+                    all_reduce_(stacked, "sum", group).div_(world_size(group))
+                losses = stacked.cpu().tolist()
             seconds = time.perf_counter() - t0
             train_loss.extend(losses)
-            n_img = len(losses) * cfg.batch_size
+            n_img = len(losses) * cfg.batch_size * world_size(group)
             mean = float(np.mean(losses)) if losses else float("nan")
             log.info("epoch %d: %d micro-steps (%d images) in %.3f s, %s "
                      "loop = %.1f img/s; mean loss %.4f",
@@ -277,7 +330,7 @@ def _run(visualization, cfg, dev, train_loader, eval_loader, weights_dir,
         else:
             log.info("✅ Last model saved to %s", weights_dir)
 
-    if visualization and train_loss:
+    if visualization and train_loss and lead:
         from two_stage_object_detection_tpu_torch.utils.draw import (
             plot_training_metrics)
         ema_alpha = 0.01

@@ -17,6 +17,15 @@ memory on the caller's thread and writes it on a background thread, as
 Orbax's async save does; :func:`wait_for_saves` joins it (and raises what
 the write raised).  At most one such write is in flight: a second save
 waits for the first.
+
+On a data mesh over several ranks (``state.group``, set by
+``parallel.mesh.place_train_state``) every rank calls both functions.
+Rank 0 writes; with ``wait=True`` the others wait at a barrier until the
+file is in place.  The state is the same on every rank except the
+gradients of an open accumulation cycle, which are each rank's own until
+the update all-reduces them: a save gathers them, one dict a rank, and a
+restore gives each rank its own back (which needs as many ranks as the
+save had).  Every rank restores from the same file.
 """
 
 from __future__ import annotations
@@ -49,12 +58,29 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
-def _snapshot(state) -> dict:
+def _ranks(state) -> int:
+    from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+        world_size)
+    return 1 if state.group is None else world_size(state.group)
+
+
+def _accum(state):
+    """The open cycle's gradients: a dict, or over several ranks a list of
+    every rank's dict (gathered; a collective)."""
+    named = [(n, p.grad) for n, p in state.model.named_parameters()
+             if p.grad is not None]
+    if _ranks(state) == 1:
+        return {n: _to_host(g) for n, g in named}
+    from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+        all_gather)
+    gathered = [(n, _to_host(all_gather(g, state.group))) for n, g in named]
+    return [{n: g[r] for n, g in gathered} for r in range(_ranks(state))]
+
+
+def _snapshot(state, accum) -> dict:
     return {"model": _to_host(state.model.state_dict()),
             "optimizer": _to_host(state.optimizer.state_dict()),
-            "accum": {n: _to_host(p.grad)
-                      for n, p in state.model.named_parameters()
-                      if p.grad is not None},
+            "accum": accum,
             "step": int(state.step), "updates": int(state.updates)}
 
 
@@ -84,11 +110,20 @@ def save_checkpoint(path: str, state, name: str = LAST,
     Returns the checkpoint's directory.
     """
     global _inflight
+    from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+        barrier, rank)
     full = os.path.abspath(os.path.join(path, name))
     wait_for_saves()                     # one async save in flight at a time
-    payload = _snapshot(state)
+    accum = _accum(state)
+    if _ranks(state) > 1 and rank(state.group) != 0:
+        if wait:
+            barrier(state.group)         # until rank 0's file is in place
+        return full
+    payload = _snapshot(state, accum)
     if wait:
         _write(payload, full)
+        if _ranks(state) > 1:
+            barrier(state.group)
         return full
     error: list = [None]
 
@@ -134,8 +169,18 @@ def restore_checkpoint(path: str, state, name: str = BEST,
     state.model.load_state_dict(payload["model"])
     if not params_only:
         state.optimizer.load_state_dict(payload["optimizer"])
+        accum = payload["accum"]
+        if isinstance(accum, list) or (accum and _ranks(state) > 1):
+            saved = len(accum) if isinstance(accum, list) else 1
+            if saved != _ranks(state):
+                raise ValueError(
+                    f"{file} holds an open accumulation cycle of {saved} "
+                    f"rank(s); resume it with as many, not {_ranks(state)}")
+            from two_stage_object_detection_tpu_torch.parallel.multiprocess \
+                import rank
+            accum = accum[rank(state.group)]
         for n, p in state.model.named_parameters():
-            g = payload["accum"].get(n)
+            g = accum.get(n)
             p.grad = None if g is None else g.to(p.device)
         state.step = int(payload["step"])
         state.updates = int(payload["updates"])
