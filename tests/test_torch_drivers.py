@@ -253,19 +253,24 @@ def test_one_set_takes_several_pairs():
 
 
 def test_unported_options_raise(data_root, tmp_path):
-    """The mesh's model axis and ``spatial`` raise and name their ROADMAP.md
-    entry; a mesh that is not a ``parallel.mesh.Mesh`` is refused.  (The
-    data axis is ported: ``tests/test_torch_parallel*.py``;
+    """``spatial`` (image rows over the mesh's model axis) raises and names
+    its ROADMAP.md entry; a mesh that is not a ``parallel.mesh.Mesh`` is
+    refused.  (The data and model axes are ported:
+    ``tests/test_torch_parallel*.py``, and a mesh with a model axis builds
+    here;
     ``cache_device`` and ``device_augment`` too:
     ``tests/test_torch_device_cache.py``; the ``serve`` and ``export``
     commands too: ``tests/test_torch_serving_http.py``,
     ``tests/test_torch_export.py``.  Without a checkpoint each says which
     directory has none.)"""
-    from two_stage_object_detection_tpu_torch.parallel.mesh import make_mesh
+    from two_stage_object_detection_tpu_torch.parallel.mesh import (
+        make_mesh, shard_batch_spatial)
     with pytest.raises(NotImplementedError, match="parallel/"):
         train(False, CFG, data_root, str(tmp_path), spatial=True)
+    mesh = make_mesh(n_model=2, devices=["cpu", "cpu"])
+    assert mesh.shape == {"data": 1, "model": 2}
     with pytest.raises(NotImplementedError, match="parallel/"):
-        make_mesh(n_model=2, devices=["cpu", "cpu"])
+        shard_batch_spatial({}, mesh)
     with pytest.raises(TypeError, match="Mesh"):
         train(False, CFG, data_root, str(tmp_path), mesh=object())
     missing = str(tmp_path / "no_weights")

@@ -5,8 +5,9 @@ batch placement; ``should_stop(sync=True)`` across ranks; ``auto_mesh``'s
 axes against the JAX package's; a mesh train step at a world of 1 bit for
 bit the meshless one; ``Predictor(mesh=)`` over two CPU replicas against
 the meshless ``Predictor`` and the JAX one under a ``(data=2)`` mesh; the
-model axis and ``spatial`` raising; ``parallel.dryrun 2``; the profiling
-hooks.
+model axis's meshes within a process, and ``spatial`` raising;
+``parallel.dryrun 2``; the profiling hooks.  (The model axis over ranks:
+``tests/test_torch_parallel_tp.py``.)
 
 Each multi-rank test spawns its ranks (``tests/torch_dp_workers.py``), a
 gloo group over a file store in the test's temporary directory.
@@ -217,18 +218,27 @@ def test_auto_mesh_axes_equal_jax(monkeypatch, devices, batch, processes):
 
 
 def test_model_axis_and_spatial_raise(tmp_path):
-    """The model axis is the next slice: every route to it raises
-    ``NotImplementedError`` naming ROADMAP.md's ``parallel/`` entry."""
+    """The model axis is ported: within one process ``make_mesh`` and
+    ``auto_mesh`` with ``n_model=2`` build ``(data, model)`` grids, and
+    one with too few devices raises ``ValueError``.  Spatial sharding (image
+    rows over ``model``) is the next slice: every route to it raises
+    ``NotImplementedError`` naming ROADMAP.md's ``parallel/`` entry, item
+    C."""
+    m = pmesh.make_mesh(n_model=2, devices=["cpu"] * 2)
+    assert m.shape == {"data": 1, "model": 2} and m.model_group is None
+    assert pmesh.auto_mesh(4, n_model=2, devices=["cpu"] * 4).shape == {
+        "data": 2, "model": 2}
+    with pytest.raises(ValueError, match="model axis of 2"):
+        pmesh.make_mesh(n_data=2, n_model=2, devices=["cpu"] * 3)
     cfg = Config(**COMMON, device="cpu")
     model, _ = create_train_state(cfg)
-    for call in (lambda: pmesh.make_mesh(n_model=2, devices=["cpu"] * 2),
-                 lambda: pmesh.auto_mesh(4, n_model=2),
-                 lambda: pmesh.auto_mesh_spatial(4),
+    for call in (lambda: pmesh.auto_mesh_spatial(4),
                  lambda: pmesh.shard_batch_spatial({}, None),
                  lambda: train(False, cfg, str(tmp_path), str(tmp_path),
                                spatial=True),
                  lambda: Predictor(cfg, model, spatial=True)):
-        with pytest.raises(NotImplementedError, match=r"parallel/.*ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match=r"parallel/.*ROADMAP.*item C"):
             call()
 
 

@@ -1,4 +1,4 @@
-"""Ranks for the port's data-parallel tests (``tests/test_torch_parallel*.py``).
+"""Ranks for the port's parallel tests (``tests/test_torch_parallel*.py``).
 
 :func:`spawn` starts ``world`` processes (the ``spawn`` start method), each
 joining a gloo group over a file store under the test's temporary
@@ -162,12 +162,14 @@ def train_step_rank(rank, world, tmp, cfg_kw, state_dict, batch, steps):
                              for m in model.modules())}
 
 
-def train_rank(rank, world, tmp, cfg_kw, root, runs):
-    """``train()`` over the data mesh, one call for each entry of ``runs``
-    (``(name, weights dir, options)``; option ``stop_at`` preempts at that
-    poll).  Returns each run's final state, what ``build_loaders`` yields
-    this rank in its first epoch beside a ``Loader(shard_count=world,
-    shard_index=rank)`` over the same set, and the sidecar."""
+def train_rank(rank, world, tmp, cfg_kw, root, runs, n_model=1):
+    """``train()`` over the data mesh (with ``n_model`` above 1, over a
+    ``(world / n_model, n_model)`` mesh), one call for each entry of
+    ``runs`` (``(name, weights dir, options)``; option ``stop_at`` preempts
+    at that poll).  Returns each run's final state (in the full layout),
+    the sidecar and, on the data mesh, what ``build_loaders`` yields this
+    rank in its first epoch beside a ``Loader(shard_count=world,
+    shard_index=rank)`` over the same set."""
     import dataclasses
     import json
 
@@ -176,6 +178,8 @@ def train_rank(rank, world, tmp, cfg_kw, root, runs):
     from two_stage_object_detection_tpu_torch.data.pipeline import (
         DetectionDataset, Loader)
     from two_stage_object_detection_tpu_torch.parallel.mesh import make_mesh
+    from two_stage_object_detection_tpu_torch.parallel.sharding import (
+        gather_optimizer_state, gather_state_dict)
     from two_stage_object_detection_tpu_torch.train import (
         build_loaders, train)
     from two_stage_object_detection_tpu_torch.utils.preemption import (
@@ -196,17 +200,22 @@ def train_rank(rank, world, tmp, cfg_kw, root, runs):
     for name, weights, opts in runs:
         cfg = Config(**{**cfg_kw, **opts.get("cfg", {})}, device="cpu")
         guard = StopAt(opts["stop_at"]) if "stop_at" in opts else None
+        mesh = ("auto" if n_model == 1 else
+                make_mesh(world // n_model, n_model, devices=["cpu"]))
         state = train(False, cfg, root, weights, eval_period=2, seed=3,
-                      resume=opts.get("resume", False), guard=guard)
+                      resume=opts.get("resume", False), guard=guard,
+                      mesh=mesh)
         meta = os.path.join(weights, "train_meta.json")
         out[name] = {
             "state": {k: v.clone() for k, v in
-                      state.model.state_dict().items()},
-            "opt": [{k: v.clone() for k, v in s.items()}
-                    for s in state.optimizer.state_dict()["state"].values()],
+                      gather_state_dict(state.model).items()},
+            "opt": [{k: v.clone() for k, v in s.items()} for s in
+                    gather_optimizer_state(state)["state"].values()],
             "step": state.step, "updates": state.updates,
             "dirs": sorted(os.listdir(weights)),
             "meta": json.load(open(meta)) if os.path.exists(meta) else None}
+    if n_model > 1:
+        return out
     # the shard each loader gives this rank, against the streaming Loader
     mesh = make_mesh(devices=["cpu"])
     shards = {}
@@ -255,3 +264,104 @@ def eval_rank(rank, world, tmp, cfg_kw, state_dict, batches, kw):
             "evaluate": evaluate(state, batches, cfg,
                                  use_predict=use_predict, **kw)}
     return out
+
+
+# ------------------------------------------------------------ model axis
+def _gathered_grads_hook(model, into: dict):
+    """An optimiser pre-hook keeping the gradient each update consumes (the
+    all-reduced mean), split ones gathered into the full layout (a
+    collective: every rank's optimiser runs it at the same update)."""
+    from two_stage_object_detection_tpu_torch.parallel.sharding import (
+        gather_full, split_parameters)
+
+    def keep(*_):
+        split = split_parameters(model)
+        into.update({n: (gather_full(p.grad, split[n][0], split[n][1])
+                         if n in split else p.grad).clone()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None})
+    return keep
+
+
+def tp_step_rank(rank, world, tmp, cfg_kw, state_dict, batches, n_model,
+                 ckpt=None):
+    """Micro-steps of ``train_step`` on a ``(world / n_model, n_model)``
+    mesh from ``state_dict``, each data index on its rows of every global
+    batch of ``batches``; then ``ckpt``'s ``_last`` saved (every rank
+    calls).  Checks after placement and after the steps that each data
+    group holds the same state and each model group the same replicated
+    tensors.  Returns the losses, the gathered state and the gradient of
+    the last update in the full layout, this rank's optimiser state and
+    the split parameters."""
+    from two_stage_object_detection_tpu_torch.config import Config
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state, train_step)
+    from two_stage_object_detection_tpu_torch.parallel.mesh import (
+        assert_replicated, make_mesh, place_train_state, state_tensors)
+    from two_stage_object_detection_tpu_torch.parallel.sharding import (
+        gather_state_dict, split_parameters)
+    from two_stage_object_detection_tpu_torch.utils import checkpoint
+    cfg = Config(**cfg_kw, device="cpu")
+    model, state = create_train_state(cfg, seed=rank + 1)  # rank 0's wins
+    if rank == 0:
+        model.load_state_dict(state_dict)
+    mesh = make_mesh(world // n_model, n_model, devices=["cpu"])
+    place_train_state(state, mesh, debug=True)
+    grads = {}
+    state.optimizer.register_step_pre_hook(_gathered_grads_hook(model, grads))
+    losses = []
+    for g in batches:
+        b = g["image"].shape[0] // mesh.shape["data"]
+        d = mesh.data_index
+        _, out = train_step(state, {k: v[d * b:(d + 1) * b]
+                                    for k, v in g.items()})
+        losses.append({k: float(v) for k, v in out.items()})
+    assert_replicated(state_tensors(state), mesh.group)
+    assert_replicated(state_tensors(state, replicated_only=True),
+                      mesh.model_group)
+    if ckpt is not None:
+        checkpoint.save_checkpoint(ckpt, state, checkpoint.LAST)
+    return {"losses": losses, "grads": grads,
+            "state": {k: v.clone() for k, v in
+                      gather_state_dict(model).items()},
+            "opt": state.optimizer.state_dict(),
+            "split": {n: s[0] for n, s in split_parameters(model).items()},
+            "index": (mesh.data_index, mesh.model_index),
+            "step": state.step, "updates": state.updates}
+
+
+def moments_and_restore_rank(rank, world, tmp, x, cfg_kw, ckpt):
+    """Two checks in one spawn.  The cross-replica batch norm's statistics
+    of this rank's rows of ``x`` (``models/layers.py:_global_moments``, in
+    float32, Chan's combine in rank order), to be held against float64.
+    Then a ``(1, world)`` mesh (the model axis over every rank) restores
+    ``ckpt``'s ``_last``, written by one process mid-cycle, and saves it
+    back under ``ckpt/mesh``; returns what the ranks hold, gathered."""
+    import torch.distributed as dist
+
+    from two_stage_object_detection_tpu_torch.config import Config
+    from two_stage_object_detection_tpu_torch.models.layers import (
+        _global_moments)
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state)
+    from two_stage_object_detection_tpu_torch.parallel.mesh import (
+        make_mesh, place_train_state)
+    from two_stage_object_detection_tpu_torch.parallel.sharding import (
+        gather_optimizer_state, gather_state_dict)
+    from two_stage_object_detection_tpu_torch.utils import checkpoint
+    b = x.shape[0] // world
+    mean, var, count = _global_moments(
+        torch.from_numpy(x[rank * b:(rank + 1) * b]), dist.group.WORLD)
+    cfg = Config(**cfg_kw, device="cpu")
+    model, state = create_train_state(cfg, seed=rank + 7)
+    place_train_state(state, make_mesh(1, world, devices=["cpu"]))
+    assert checkpoint.restore_checkpoint(ckpt, state, checkpoint.LAST)
+    held = {"state": gather_state_dict(model),
+            "opt": gather_optimizer_state(state),
+            "local_shapes": {n: tuple(p.shape)
+                             for n, p in model.named_parameters()},
+            "step": state.step, "updates": state.updates}
+    checkpoint.save_checkpoint(os.path.join(ckpt, "mesh"), state,
+                               checkpoint.LAST)
+    return {"mean": mean, "var": var, "count": float(count[0]),
+            "held": held}

@@ -24,8 +24,10 @@ GPU, from its environment (``--set batch_size`` is then a rank's batch):
 
     torchrun --nproc-per-node 4 -m two_stage_object_detection_tpu_torch train --flagship
 
-``--spatial`` (image rows over the mesh's model axis) raises: the model
-axis is not ported (ROADMAP.md).
+The JAX CLI has no flag for a model axis, and neither has this one:
+tensor-parallel training is ``train(mesh=make_mesh(n_data, n_model))``.
+``--spatial`` (image rows over the mesh's model axis) raises: spatial
+sharding is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ def _parser() -> argparse.ArgumentParser:
                    help="start from _best weights (fresh optimiser)")
     p.add_argument("--spatial", action="store_true",
                    help="shard image height over the mesh's model axis "
-                        "(the model axis of parallel/ is not ported yet: "
+                        "(spatial sharding of parallel/ is not ported yet: "
                         "raises)")
     p.add_argument("--eval-period", type=int, default=10)
     p.add_argument("--seed", type=int, default=42)

@@ -53,14 +53,23 @@ class Conv(nn.Module):
 
 
 class Dense(nn.Module):
-    """Affine layer on the last axis (``weight [out, in]``, float32)."""
+    """Affine layer on the last axis (``weight [out, in]``, float32).
+
+    Split over a mesh's model axis (``parallel.sharding.shard_train_state``
+    sets ``tp`` to ``(model group, index, size)``), ``weight`` holds this
+    rank's rows of output features and the layer gathers the full output
+    over the group (``parallel.sharding.column_parallel_linear``); ``bias``
+    stays whole.
+    """
 
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        self.in_features, self.out_features = in_features, out_features
         self.compute_dtype = compute_dtype
+        self.tp = None
 
     def reset_parameters(self, generator: torch.Generator):
         _lecun_normal_(self.weight, self.weight.shape[1], generator)
@@ -68,6 +77,12 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.tp is not None:
+            from two_stage_object_detection_tpu_torch.parallel.sharding import (
+                column_parallel_linear)
+            group, index, _ = self.tp
+            return column_parallel_linear(x.to(dt), self.weight.to(dt),
+                                          self.bias.to(dt), group, index)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -140,22 +155,34 @@ class BatchNorm(nn.Module):
 
 def _global_moments(x: torch.Tensor, group):
     """Per-channel mean, biased variance and count (float32 ``[C]`` each)
-    of ``x [N, C, H, W]`` over every rank of ``group``: each rank's count,
-    mean and centred sum of squares, gathered, then combined in rank order
-    (Chan et al.'s pairwise update), so that every rank computes the same
-    bits and no sum of squares loses the variance to cancellation."""
+    of ``x [N, C, H, W]`` over every rank of ``group``.
+
+    Each rank sends its count, mean and centred sum of squares, gathered,
+    then combined in rank order in float64 (Chan et al.'s pairwise update),
+    so that every rank computes the same bits and no sum of squares loses
+    the variance to cancellation.  A rank's float32 mean is off by up to
+    half an ulp of its magnitude, and that error would enter the
+    between-rank term of the combine to first order (2e-4 of the variance
+    where the mean is 1e4 times the spread: ``tests/test_torch_parallel_tp.py``),
+    so the rank refines it in float64 with the sum of its deviations from
+    it, and takes its sum of squares about the refined mean."""
     from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
         all_gather)
     with torch.no_grad():
         xf = x.detach().to(torch.float32)
+        dims = (0, 2, 3)
         n = float(xf.numel() // xf.shape[1])
-        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
-        local = torch.stack([torch.full_like(mean, n), mean, var * n])
+        mean = xf.mean(dims)
+        d = xf - mean[:, None, None]
+        s1 = d.sum(dims).double()
+        s2 = (d * d).sum(dims).double()
+        local = torch.stack([torch.full_like(s1, n), mean.double() + s1 / n,
+                             s2 - s1 * s1 / n])
         count, means, m2s = all_gather(local, group).unbind(1)
         total = count.sum(0)
         g_mean = (count * means).sum(0) / total
         m2 = (m2s + count * (means - g_mean) ** 2).sum(0)
-        return g_mean, m2 / total, total
+        return g_mean.float(), (m2 / total).float(), total.float()
 
 
 class _CrossReplicaNorm(torch.autograd.Function):

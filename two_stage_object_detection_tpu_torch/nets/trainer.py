@@ -74,9 +74,11 @@ class TrainState:
 
     ``step`` counts micro-steps, ``updates`` optimiser updates; the
     micro-gradients of the running accumulation cycle are summed in the
-    parameters' ``.grad``.  ``group``: the process group of a data mesh
-    (``parallel.mesh.place_train_state``), over whose ranks each update
-    takes the mean gradient; None in one process.
+    parameters' ``.grad``.  ``group``: the process group of a mesh's data
+    axis (``parallel.mesh.place_train_state``), over whose ranks each
+    update takes the mean gradient; None in one process.  ``model_group``:
+    that of its model axis, over which the tensor-parallel heads gather
+    (None without one).
     """
 
     cfg: Config
@@ -86,6 +88,7 @@ class TrainState:
     step: int = 0
     updates: int = 0
     group: object = None
+    model_group: object = None
 
 
 def create_train_state(cfg: Config, seed: int = 0, steps_per_epoch: int = 1,
@@ -148,7 +151,7 @@ def train_step(state: TrainState, batch: Dict,
     state.step += 1
     if state.step % k == 0:
         if state.group is not None:
-            _all_reduce_mean(model, k, state.group)
+            _all_reduce_mean(model, k, state.group, state.model_group)
         elif k > 1:
             for p in model.parameters():
                 if p.grad is not None:
@@ -161,14 +164,36 @@ def train_step(state: TrainState, batch: Dict,
     return state, {name: v.detach() for name, v in out["losses"].items()}
 
 
-def _all_reduce_mean(model, k: int, group) -> None:
+def _all_reduce_mean(model, k: int, group, model_group=None) -> None:
     """The accumulated gradients become their mean over the ``k``
-    micro-steps of the cycle and the ranks of ``group``: one all-reduce of
-    one flat float32 buffer an update (the ranks' losses are means over
-    equal batches, so the mean of their gradients is the global batch's)."""
+    micro-steps of the cycle and the data axis (the ranks' losses are means
+    over equal batches, so the mean of their gradients is the global
+    batch's): one all-reduce of one flat float32 buffer over the data group
+    ``group``, divided by its size.
+
+    With a model axis (``model_group``), that is the split parameters'
+    reduction; the replicated ones (backbone, neck, RPN, every bias) take
+    one over the whole mesh instead, divided by its size: the ranks of a
+    model group read the same batch and hold the same gradient there, so
+    it is the same mean, and every rank ends with the same bits even where
+    a CUDA backward is not bitwise deterministic across processes."""
+    from two_stage_object_detection_tpu_torch.parallel.sharding import (
+        split_parameters)
+    split = set(split_parameters(model))
+    named = [(n, p.grad) for n, p in model.named_parameters()
+             if p.grad is not None]
+    _reduce_mean_([g for n, g in named if n not in split], k,
+                  group if model_group is None else None)
+    _reduce_mean_([g for n, g in named if n in split], k, group)
+
+
+def _reduce_mean_(grads, k: int, group) -> None:
+    """Each of ``grads`` becomes its sum over ``group``'s ranks divided by
+    ``k`` times their number: one all-reduce of one flat buffer."""
     from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
         all_reduce_, world_size)
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads:
+        return
     flat = torch.cat([g.reshape(-1) for g in grads])
     all_reduce_(flat, "sum", group).div_(k * world_size(group))
     at = 0

@@ -1,4 +1,5 @@
-"""Data parallelism on ``torch.distributed``: one process a device."""
+"""Data and tensor parallelism on ``torch.distributed``: one process a
+device."""
 
 from two_stage_object_detection_tpu_torch.parallel.mesh import (  # noqa: F401
     make_mesh, replicate, shard_batch)

@@ -1,4 +1,4 @@
-"""Multi-rank dry run on the CPU: the data axis end to end, in N processes.
+"""Multi-rank dry run on the CPU: the data and model axes, in N processes.
 
     python -m two_stage_object_detection_tpu_torch.parallel.dryrun N
 
@@ -13,11 +13,18 @@ tiny config:
 * ``resident``: one data-parallel ``train_macro_step_resident`` cycle over
   a dataset every rank holds, each gathering its shard of the epoch;
 * ``predict``: each rank predicts its rows of a batch, and the detections
-  are gathered (``fetch_global``).
+  are gathered (``fetch_global``);
+* ``dp+tp``: one ``train_step`` on the JAX dryrun's ``(data, model)`` mesh
+  (a model axis of 2 when N is even, else 1): each data index's rows of
+  the global batch, the dense heads split over each model group; then
+  checks that each data group holds the same state and each model group
+  the same replicated parameters;
+* ``fpn``: the same on the FPN variant of the JAX dryrun (ResNet-10, a
+  16-channel pyramid, a 32-wide box head).
 
-Rank 0 prints each section's seconds.  The JAX package's ``(data, model)``
-and spatial sections are left out (the model axis is not ported), and a
-line says so.
+Rank 0 prints each section's seconds.  The JAX package's spatial section
+(image rows over ``model``) is left out, as spatial sharding is not ported
+yet, and a line says so.
 """
 
 from __future__ import annotations
@@ -97,6 +104,23 @@ def _rank(rank: int, world: int, store: str) -> None:
     assert np.isfinite(boxes).all() and np.isfinite(scores).all()
     section_done("predict", f"detections={int(valid.sum())}")
 
+    n_model = 2 if world % 2 == 0 else 1
+    tp_mesh = make_mesh(world // n_model, n_model, devices=["cpu"])
+    rows = slice(tp_mesh.data_index * b, (tp_mesh.data_index + 1) * b)
+    for name, c in (("dp+tp", cfg),
+                    ("fpn", cfg.replace(fpn=True, fpn_channels=16,
+                                        fpn_fc_dim=32, backbone="resnet10"))):
+        _, st = create_train_state(c, seed=0)
+        place_train_state(st, tp_mesh, debug=True)
+        _, losses = train_step(st, {k: v[rows] for k, v in full.items()})
+        assert np.isfinite(float(losses["total"])), losses
+        assert_replicated(state_tensors(st), tp_mesh.group)
+        if tp_mesh.model_group is not None:
+            assert_replicated(state_tensors(st, replicated_only=True),
+                              tp_mesh.model_group)
+        section_done(name, f"mesh={tp_mesh.shape} "
+                     f"loss={float(losses['total']):.4f}")
+
 
 def run_dryrun(world: int) -> None:
     """Spawn ``world`` gloo ranks on the CPU and run the sections; raises
@@ -106,10 +130,11 @@ def run_dryrun(world: int) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         mp.start_processes(_rank, args=(world, os.path.join(tmp, "store")),
                            nprocs=world, start_method="spawn")
-    print("dryrun: the (data, model) and spatial sections are left out: the "
-          "model axis of parallel/ is not ported (ROADMAP.md)", flush=True)
-    print(f"dryrun({world}): data axis OK in {time.monotonic() - t0:.1f}s",
+    print("dryrun: the spatial section (image rows over 'model') is left "
+          "out: spatial sharding of parallel/ is not ported (ROADMAP.md)",
           flush=True)
+    print(f"dryrun({world}): data and model axes OK in "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
 
 
 def main(argv=None) -> int:

@@ -1,20 +1,25 @@
-"""Device meshes and batch sharding: the data axis.
+"""Device meshes and batch sharding: the data and the model axis.
 
 The port's counterpart of the JAX package's ``parallel/mesh.py``.  There a
 ``jax.sharding.Mesh`` with a ``data`` and a ``model`` axis spans every
-device, and XLA inserts the gradient ``psum`` because the whole train step
-is one program.  Here a :class:`Mesh` is either
+device, and XLA inserts the gradient ``psum`` and the gathers of sharded
+parameters because the whole train step is one program.  Here a
+:class:`Mesh` is either
 
-* over processes, one device each (the ``torchrun`` layout): its ``data``
-  axis is the process group of the ranks, each rank holds its device and
-  its shard of every batch, and the gradient mean is an explicit
-  all-reduce (``nets/trainer.py``); or
+* over processes, one device each (the ``torchrun`` layout): the JAX grid
+  ``world = n_data * n_model`` with ``rank = d * n_model + m``.  The
+  **data group** (the ranks of one ``m``) carries the gradient all-reduce
+  and the cross-replica batch norm, and each of its ranks holds its shard
+  of every batch; the **model group** (the ranks of one ``d``, which read
+  the same batch) carries the gathers of the tensor-parallel dense heads
+  (:mod:`.sharding`).  Every collective is explicit (``nets/trainer.py``,
+  ``models/layers.py``, :mod:`.sharding`); or
 * over the devices of one process: the replicas of a
-  :class:`~..serving.Predictor`, which splits each bucket's rows over them.
+  :class:`~..serving.Predictor`, which splits each bucket's rows over the
+  data axis.
 
-The ``model`` axis (tensor-parallel dense heads, image rows over
-``model``) is not ported yet: asking for it raises
-``NotImplementedError`` naming its ROADMAP.md entry.
+Image rows over ``model`` (``spatial``) are not ported yet: asking for them
+raises ``NotImplementedError`` naming their ROADMAP.md entry.
 """
 
 from __future__ import annotations
@@ -30,9 +35,10 @@ from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
     all_reduce_, broadcast_, put_global, put_local, rank, rank_device,
     world_size)
 
-MODEL_AXIS = ("the model axis of parallel/ (tensor-parallel dense heads, "
-              "image rows over 'model' with halo exchanges) is the next "
-              "slice of the port (ROADMAP.md, 'Modules to port', item 4)")
+MODEL_AXIS = ("image rows over the model axis (spatial sharding of "
+              "parallel/, with a halo exchange at every 3x3 convolution and "
+              "pooling window) are the last module of the port still to "
+              "come (ROADMAP.md, 'Modules to port', item C)")
 
 
 def model_axis_unported(what: str) -> NotImplementedError:
@@ -43,15 +49,20 @@ def model_axis_unported(what: str) -> NotImplementedError:
 class Mesh:
     """A ``(data, model)`` mesh.
 
-    ``shape``: ``{"data": n, "model": 1}``.  ``devices``: this process's
-    devices on the mesh, in data order (one in a mesh over processes).
-    ``group``: the process group of the data axis, or None for a mesh
-    within one process.
+    ``shape``: ``{"data": n_data, "model": n_model}``.  ``devices``: this
+    process's devices on the mesh (one in a mesh over processes; the grid
+    in row-major ``d * n_model + m`` order within one process).
+    ``group``: the process group of the data axis, None within one
+    process; ``model_group`` and ``model_index``: the process group of
+    this rank's model axis and its place there (None and 0 without a model
+    axis over processes).
     """
 
     shape: Dict[str, int]
     devices: Tuple[torch.device, ...]
     group: Any = None
+    model_group: Any = None
+    model_index: int = 0
 
     @property
     def processes(self) -> int:
@@ -62,6 +73,12 @@ class Mesh:
     def data_index(self) -> int:
         """This process's position on the data axis."""
         return 0 if self.group is None else rank(self.group)
+
+    @property
+    def data_devices(self) -> Tuple[torch.device, ...]:
+        """One device of each data index in this process: the first of
+        its row of the grid (a mesh over processes has one)."""
+        return self.devices[::self.shape["model"]]
 
     @property
     def device(self) -> torch.device:
@@ -76,35 +93,58 @@ def _local_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def _axis_groups(n_data: int, n_model: int):
+    """``(data group, model group)`` of this rank on the ``(n_data,
+    n_model)`` grid of the default group.  Every rank creates every
+    subgroup, in the same order (``dist.new_group``'s rule)."""
+    data = [dist.new_group([d * n_model + m for d in range(n_data)])
+            for m in range(n_model)]
+    model = [dist.new_group([d * n_model + m for m in range(n_model)])
+             for d in range(n_data)]
+    d, m = divmod(rank(), n_model)
+    return data[m], model[d]
+
+
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
     """Build a ``(data, model)`` mesh.
 
-    Under ``torch.distributed`` (any world size) the data axis is the
-    default group, one rank a device: ``n_data`` must be the world size,
-    and ``devices`` may name this rank's one device (default
-    :func:`~.multiprocess.rank_device`).  Without it the mesh spans
-    ``devices`` of this process (default: every CUDA device), the first
-    ``n_data`` of them.  ``n_model`` above 1 raises (:data:`MODEL_AXIS`).
+    Under ``torch.distributed`` (any world size) the mesh is the default
+    group, one rank a device: ``n_data * n_model`` must be the world size
+    (``n_data`` defaults to its share), and ``devices`` may name this
+    rank's one device (default :func:`~.multiprocess.rank_device`).  With
+    ``n_model`` 1 the data group is the default group itself; otherwise
+    every rank builds the data and model subgroups (a collective call).
+    Without it the mesh spans ``devices`` of this process (default: every
+    CUDA device), the first ``n_data * n_model`` of them.
     """
-    if n_model != 1:
-        raise model_axis_unported(f"make_mesh(n_model={n_model})")
+    if n_model < 1:
+        raise ValueError(f"a model axis of {n_model}")
     if dist.is_initialized():
         n = world_size()
-        if n_data not in (None, n):
+        if n_data is None:
+            n_data = n // n_model
+        if n_data * n_model != n:
             raise ValueError(f"one device a process: a data axis of {n_data} "
-                             f"needs {n_data} ranks, the world has {n}")
+                             f"and a model axis of {n_model} need "
+                             f"{n_data * n_model} ranks, the world has {n}")
         if devices is not None and len(devices) != 1:
             raise ValueError("a rank holds one device of the mesh, "
                              f"got {len(devices)}")
         dev = rank_device(devices[0] if devices is not None else "cuda")
-        return Mesh({"data": n, "model": 1}, (dev,), dist.group.WORLD)
+        shape = {"data": n_data, "model": n_model}
+        if n_model == 1:
+            return Mesh(shape, (dev,), dist.group.WORLD)
+        data, model = _axis_groups(n_data, n_model)
+        return Mesh(shape, (dev,), data, model, rank() % n_model)
     devs = ([torch.device(d) for d in devices] if devices is not None
             else _local_devices())
-    n_data = len(devs) if n_data is None else n_data
-    if not 1 <= n_data <= len(devs):
-        raise ValueError(f"a data axis of {n_data} over {len(devs)} devices")
-    return Mesh({"data": n_data, "model": 1}, tuple(devs[:n_data]))
+    n_data = len(devs) // n_model if n_data is None else n_data
+    if n_data < 1 or n_data * n_model > len(devs):
+        raise ValueError(f"a data axis of {n_data} and a model axis of "
+                         f"{n_model} over {len(devs)} devices")
+    return Mesh({"data": n_data, "model": n_model},
+                tuple(devs[:n_data * n_model]))
 
 
 def data_axis(batch_size: int, n_devices: int, n_processes: int = 1,
@@ -130,23 +170,27 @@ def data_axis(batch_size: int, n_devices: int, n_processes: int = 1,
 def auto_mesh(batch_size: int, n_model: int = 1,
               devices: Optional[Sequence] = None) -> Optional[Mesh]:
     """Default training mesh: data-parallel over as many devices as the
-    batch divides into (:func:`data_axis`).  Under ``torch.distributed``
-    that is every rank, one device each (``devices``: this rank's);
-    within one process, ``devices`` (default: every CUDA device).  None on
-    a single device."""
-    if n_model != 1:
-        raise model_axis_unported(f"auto_mesh(n_model={n_model})")
+    batch divides into (:func:`data_axis`), times the ``model`` factor.
+    Under ``torch.distributed`` that is every rank, one device each
+    (``devices``: this rank's; the world must divide by ``n_model``, and
+    each of the ``world / n_model`` data indices reads ``batch_size``
+    images); within one process, ``devices`` (default: every CUDA device).
+    None on a single device."""
     if dist.is_initialized():
         n = world_size()
         if n <= 1:
             return None
-        n_data, _ = data_axis(batch_size, n, n)
-        return make_mesh(n_data, devices=devices)
+        if n_model == 1:
+            n_data, _ = data_axis(batch_size, n, n)
+        else:
+            n_data = n // n_model
+        return make_mesh(n_data, n_model, devices=devices)
     devs = list(devices) if devices is not None else _local_devices()
-    if len(devs) <= 1:
+    if len(devs) <= 1 and n_model == 1:
         return None
-    n_data, _ = data_axis(batch_size, len(devs))
-    return None if n_data <= 1 else make_mesh(n_data, devices=devs)
+    n_data, _ = data_axis(batch_size, len(devs), n_model=n_model)
+    return None if n_data * n_model <= 1 else make_mesh(n_data, n_model,
+                                                        devs)
 
 
 def auto_mesh_spatial(batch_size: int, devices=None):
@@ -175,11 +219,12 @@ def shard_batch(batch: Dict, mesh: Mesh, local: bool = True
 
 
 def replicate(tree, mesh: Mesh) -> list:
-    """One copy of ``tree`` per device of the mesh in this process, in
-    data order: tensors copied to each device, a module deep-copied there
-    (the first is ``tree`` itself if it is already on the first device).
-    Over processes the list has this rank's copy; every rank holds the same
-    value, as with the JAX package's ``replicate``."""
+    """One copy of ``tree`` per data index of the mesh in this process, in
+    data order (:attr:`Mesh.data_devices`: the model axis's other devices
+    would compute the same rows): tensors copied to each device, a module
+    deep-copied there (the first is ``tree`` itself if it is already on the
+    first device).  Over processes the list has this rank's copy; every
+    rank holds the same value, as with the JAX package's ``replicate``."""
     def to(t, dev):
         if isinstance(t, torch.nn.Module):
             return t if _module_device(t) == dev else copy.deepcopy(t).to(dev)
@@ -191,7 +236,7 @@ def replicate(tree, mesh: Mesh) -> list:
             return type(t)(to(v, dev) for v in t)
         return t
 
-    return [to(tree, d) for d in mesh.devices]
+    return [to(tree, d) for d in mesh.data_devices]
 
 
 def _module_device(module: torch.nn.Module) -> torch.device:
@@ -214,12 +259,21 @@ def _coalesced(tensors: Sequence[torch.Tensor], fn) -> None:
             at += n
 
 
-def state_tensors(state) -> List[torch.Tensor]:
-    """Every tensor a rank must hold equal to the others: parameters,
-    buffers (the running statistics, the anchors) and optimiser state."""
-    out = list(state.model.state_dict().values())
-    for s in state.optimizer.state.values():
-        out += [v for v in s.values() if isinstance(v, torch.Tensor)]
+def state_tensors(state, replicated_only: bool = False
+                  ) -> List[torch.Tensor]:
+    """Every tensor a rank must hold equal to the other ranks of its data
+    group: parameters, buffers (the running statistics, the anchors) and
+    optimiser state.  ``replicated_only``: leave out the split parameters
+    and their optimiser state (what the ranks of a model group hold
+    equal)."""
+    from two_stage_object_detection_tpu_torch.parallel.sharding import (
+        split_parameters)
+    skip = set(split_parameters(state.model)) if replicated_only else set()
+    out = [t for k, t in state.model.state_dict().items() if k not in skip]
+    for (name, p) in state.model.named_parameters():
+        if name not in skip:
+            out += [v for v in state.optimizer.state.get(p, {}).values()
+                    if isinstance(v, torch.Tensor)]
     return out
 
 
@@ -242,14 +296,21 @@ def place_train_state(state, mesh: Mesh, debug: bool = False):
     """Put a :class:`~..nets.trainer.TrainState` on a mesh over processes.
 
     Broadcasts rank 0's parameters, buffers and optimiser state to every
-    rank (one flat buffer per dtype), gives the state the data group (the
-    train step's gradient all-reduce, :func:`~..nets.trainer.train_step`)
-    and, over more than one rank, gives every batch norm of the model the
-    group (cross-replica statistics, ``models/layers.py``).  ``debug``
-    then asserts that the ranks hold the same bits.  Returns ``state``.
+    rank (one flat buffer per dtype) and gives the state the data group
+    (the train step's gradient all-reduce,
+    :func:`~..nets.trainer.train_step`) and the model group; over more than
+    one data index every batch norm of the model takes the data group
+    (cross-replica statistics, ``models/layers.py``).  With a model axis,
+    each rank then keeps its slice of every parameter the tensor-parallel
+    rules split, and the optimiser is rebuilt over the slices
+    (:func:`~.sharding.shard_train_state`).  ``debug`` then asserts that
+    the ranks of each data group hold the same bits, and those of each
+    model group the same replicated bits.  Returns ``state``.
     """
     from two_stage_object_detection_tpu_torch.models.layers import (
         set_data_group)
+    from two_stage_object_detection_tpu_torch.parallel.sharding import (
+        shard_train_state)
     if mesh.group is None:
         raise ValueError("place_train_state needs a mesh over processes, one "
                          "device each (launch under torchrun)")
@@ -257,11 +318,14 @@ def place_train_state(state, mesh: Mesh, debug: bool = False):
         raise ValueError(f"the state is on {state.model.device}, this rank's "
                          f"mesh device is {mesh.device}")
     with torch.no_grad():
-        _coalesced(state_tensors(state),
-                   lambda flat: broadcast_(flat, 0, mesh.group))
-    state.group = mesh.group
+        _coalesced(state_tensors(state), lambda flat: broadcast_(flat, 0))
+    state.group, state.model_group = mesh.group, mesh.model_group
     set_data_group(state.model, mesh.group if mesh.processes > 1 else None)
+    if mesh.model_group is not None:
+        shard_train_state(state, mesh)
     if debug:
         assert_replicated(state_tensors(state), mesh.group)
+        if mesh.model_group is not None:
+            assert_replicated(state_tensors(state, replicated_only=True),
+                              mesh.model_group)
     return state
-

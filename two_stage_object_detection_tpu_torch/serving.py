@@ -27,9 +27,11 @@ The counterpart of the JAX package's ``serving.py``, name for name:
 (``utils/checkpoint.py``); :meth:`Predictor.from_jax_variables` takes the
 JAX package's flax variables as numpy trees.  ``mesh`` (a
 :class:`~.parallel.mesh.Mesh` over devices of this process) serves from one
-replica of the weights a device, each bucket the data axis divides split
-along the batch over them; ``spatial`` (image rows over the mesh's model
-axis) is not ported and raises, naming ROADMAP.md's ``parallel/`` entry.
+replica of the weights a data index, each bucket the data axis divides
+split along the batch over them (a model axis adds no replica: the
+parameters stay whole, as in the JAX package's ``Predictor``); ``spatial``
+(image rows over the mesh's model axis) is not ported and raises, naming
+ROADMAP.md's ``parallel/`` entry.
 """
 
 from __future__ import annotations
@@ -137,10 +139,13 @@ class Predictor:
         cheapest bucket sequence (:meth:`_plan`).
       mesh: a :class:`~.parallel.mesh.Mesh` over devices of this process
         (the JAX Predictor is single-controller too): one replica of the
-        weights a device (``model``'s own where it already lies), and each
-        bucket whose size the data axis divides runs its rows in equal
-        blocks, one a replica, the outputs concatenated in order; other
-        buckets run on the first replica.
+        weights a data index, on the first device of its row of the grid
+        (``model``'s own where it already lies), and each bucket whose size
+        the data axis divides runs its rows in equal blocks, one a replica,
+        the outputs concatenated in order; other buckets run on the first
+        replica.  A model axis splits nothing: the parameters stay
+        replicated and a bucket splits over ``data`` only, as the JAX
+        package's ``Predictor`` shards it without ``spatial``.
       spatial: image rows over the mesh's model axis; not ported
         (``parallel/``, ROADMAP.md): raises.
       int8_scales: per-conv input absmax from :func:`quantize.calibrate`;

@@ -12,12 +12,14 @@ from pinned memory (:class:`~.data.pipeline.DevicePut`); or, with
 card (:mod:`.data.device_transforms`).
 
 Several devices: one process each (``torchrun``, or
-:func:`~.parallel.multiprocess.init_distributed`), data-parallel over a
-:class:`~.parallel.mesh.Mesh`: each rank trains on its shard of every
-epoch, its batch norms take the global batch's statistics, and each update
-all-reduces the gradient.  Not ported: the mesh's ``model`` axis and
-``spatial`` sharding; they raise ``NotImplementedError`` naming their
-ROADMAP.md entry.
+:func:`~.parallel.multiprocess.init_distributed`), over a
+:class:`~.parallel.mesh.Mesh`: each data index trains on its shard of
+every epoch, its batch norms take the global batch's statistics, and each
+update all-reduces the gradient; a mesh with a model axis
+(``make_mesh(n_data, n_model)``) also splits the dense heads over the ranks
+of each model group (``parallel/sharding.py``).  Not ported: ``spatial``
+sharding (image rows over the model axis); it raises
+``NotImplementedError`` naming its ROADMAP.md entry.
 """
 
 from __future__ import annotations
@@ -148,11 +150,15 @@ def train(visualization: bool = True, cfg: Optional[Config] = None,
     ``cuda:LOCAL_RANK``, or ``cfg.device`` where that names an index).
     ``None`` trains on ``cfg.device`` alone; an explicit
     :class:`~.parallel.mesh.Mesh` must be over processes.  On a mesh each
-    rank trains on its shard of every epoch (``cfg.batch_size`` is a
-    rank's batch), its batch norms take the global batch's statistics, each
-    update all-reduces the gradient, and the ranks end bitwise equal.
-    ``spatial=True`` (image rows over the mesh's model axis) raises: the
-    model axis is not ported.
+    data index trains on its shard of every epoch (``cfg.batch_size`` is a
+    data index's batch), its batch norms take the global batch's
+    statistics, each update all-reduces the gradient, and the ranks end
+    bitwise equal; on a mesh with a model axis
+    (``make_mesh(n_data, n_model)``) the ranks of a model group read the
+    same batch and split the dense heads, and the checkpoints hold the
+    full layout.  The eval splits each batch over the data axis only.
+    ``spatial=True`` (image rows over the mesh's model axis) raises: it is
+    not ported.
 
     ``resume``: restore the full train state (parameters, batch-norm
     statistics, optimiser moments, counters) from the ``_last`` checkpoint
@@ -224,10 +230,11 @@ def _run(visualization, cfg, dev, mesh, train_loader, eval_loader,
                                   steps_per_epoch=steps_per_epoch, device=dev)
     if mesh is not None:
         place_train_state(state, mesh)
-        log.info("training on %d ranks, mesh=%s, rank %d on %s",
-                 mesh.processes, mesh.shape, mesh.data_index, dev)
+        log.info("training on %d ranks, mesh=%s, data index %d, model "
+                 "index %d on %s", world_size(), mesh.shape,
+                 mesh.data_index, mesh.model_index, dev)
     group = None if mesh is None else mesh.group
-    lead = rank(group) == 0         # writes the sidecar; rank 0 checkpoints
+    lead = rank() == 0              # writes the sidecar; rank 0 checkpoints
     os.makedirs(weights_dir, exist_ok=True)
 
     start_epoch = 0

@@ -18,14 +18,19 @@ Orbax's async save does; :func:`wait_for_saves` joins it (and raises what
 the write raised).  At most one such write is in flight: a second save
 waits for the first.
 
-On a data mesh over several ranks (``state.group``, set by
+On a mesh over several ranks (``state.group``, set by
 ``parallel.mesh.place_train_state``) every rank calls both functions.
 Rank 0 writes; with ``wait=True`` the others wait at a barrier until the
-file is in place.  The state is the same on every rank except the
-gradients of an open accumulation cycle, which are each rank's own until
-the update all-reduces them: a save gathers them, one dict a rank, and a
-restore gives each rank its own back (which needs as many ranks as the
-save had).  Every rank restores from the same file.
+file is in place.  The state is the same on every rank of the data axis
+except the gradients of an open accumulation cycle, which are each data
+index's own until the update all-reduces them: a save gathers them, one
+dict a data index, and a restore gives each its own back (which needs as
+many data indices as the save had).  With a model axis each rank holds
+slices of the split dense heads (``parallel/sharding.py``): a save gathers
+them, their optimiser moments and gradients into the full layout, so a
+tensor-parallel checkpoint loads into one process and one process's into
+a mesh, and a restore cuts each rank's slices back out.  Every rank
+restores from the same file.
 """
 
 from __future__ import annotations
@@ -65,11 +70,16 @@ def _ranks(state) -> int:
 
 
 def _accum(state):
-    """The open cycle's gradients: a dict, or over several ranks a list of
-    every rank's dict (gathered; a collective)."""
-    named = [(n, p.grad) for n, p in state.model.named_parameters()
-             if p.grad is not None]
-    if _ranks(state) == 1:
+    """The open cycle's gradients in the full layout: a dict, or over
+    several data indices a list of every one's dict (gathered; a
+    collective)."""
+    from two_stage_object_detection_tpu_torch.parallel.sharding import (
+        gather_full, split_parameters)
+    split = split_parameters(state.model)
+    named = [(n, gather_full(p.grad, split[n][0], split[n][1])
+              if n in split else p.grad)
+             for n, p in state.model.named_parameters() if p.grad is not None]
+    if _ranks(state) == 1 or not named:     # (no open cycle on any rank)
         return {n: _to_host(g) for n, g in named}
     from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
         all_gather)
@@ -78,8 +88,12 @@ def _accum(state):
 
 
 def _snapshot(state, accum) -> dict:
-    return {"model": _to_host(state.model.state_dict()),
-            "optimizer": _to_host(state.optimizer.state_dict()),
+    """The checkpoint's payload on the host, in the full layout (split
+    parameters and their moments gathered: a collective)."""
+    from two_stage_object_detection_tpu_torch.parallel.sharding import (
+        gather_optimizer_state, gather_state_dict)
+    return {"model": _to_host(gather_state_dict(state.model)),
+            "optimizer": _to_host(gather_optimizer_state(state)),
             "accum": accum,
             "step": int(state.step), "updates": int(state.updates)}
 
@@ -111,19 +125,19 @@ def save_checkpoint(path: str, state, name: str = LAST,
     """
     global _inflight
     from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
-        barrier, rank)
+        barrier, rank, world_size)
     full = os.path.abspath(os.path.join(path, name))
     wait_for_saves()                     # one async save in flight at a time
-    accum = _accum(state)
-    if _ranks(state) > 1 and rank(state.group) != 0:
+    payload = _snapshot(state, _accum(state))
+    multi = state.group is not None and world_size() > 1
+    if multi and rank() != 0:
         if wait:
-            barrier(state.group)         # until rank 0's file is in place
+            barrier()                    # until rank 0's file is in place
         return full
-    payload = _snapshot(state, accum)
     if wait:
         _write(payload, full)
-        if _ranks(state) > 1:
-            barrier(state.group)
+        if multi:
+            barrier()
         return full
     error: list = [None]
 
@@ -165,10 +179,14 @@ def restore_checkpoint(path: str, state, name: str = BEST,
     file = os.path.join(os.path.abspath(os.path.join(path, name)), STATE_FILE)
     if not os.path.exists(file):
         return None
+    from two_stage_object_detection_tpu_torch.parallel.sharding import (
+        shard_optimizer_state, shard_state_dict, split_parameters)
     payload = torch.load(file, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(payload["model"])
+    state.model.load_state_dict(shard_state_dict(state.model,
+                                                 payload["model"]))
     if not params_only:
-        state.optimizer.load_state_dict(payload["optimizer"])
+        state.optimizer.load_state_dict(shard_optimizer_state(
+            state.model, payload["optimizer"]))
         accum = payload["accum"]
         if isinstance(accum, list) or (accum and _ranks(state) > 1):
             saved = len(accum) if isinstance(accum, list) else 1
@@ -179,8 +197,12 @@ def restore_checkpoint(path: str, state, name: str = BEST,
             from two_stage_object_detection_tpu_torch.parallel.multiprocess \
                 import rank
             accum = accum[rank(state.group)]
+        split = split_parameters(state.model)
         for n, p in state.model.named_parameters():
             g = accum.get(n)
+            if g is not None and n in split:
+                dim, _, index, size = split[n]
+                g = g.chunk(size, dim)[index].clone()
             p.grad = None if g is None else g.to(p.device)
         state.step = int(payload["step"])
         state.updates = int(payload["updates"])
