@@ -197,6 +197,34 @@ compared:
   time), its peak memory beside the data-parallel rank's, and its
   launches.
 
+Then the spatial phase (image rows over the model axis,
+``parallel/spatial.py``), float32 with TF32 off and cuDNN deterministic:
+
+* ``Predictor(spatial=True)`` in one process over a mesh of the card's
+  one device taken twice and four times, ``(1, 2)`` and ``(1, 4)`` (the
+  uneven split: 38, 37, 38, 37 rows at stride 4), one worker thread a
+  shard, each running the predict (its rows through the backbone and
+  neck, the heads on the gathered maps), on a 600x600 request of the
+  flagship, and ``(1, 2)`` of the
+  single scale: ``valid`` and ``labels`` equal to the plain ``Predictor``'s,
+  boxes within ``rtol=1e-4, atol=1e-3``; the launch counters set to 0 just
+  before the spatial request and read just after: kernels 1 and 2 (the
+  flagship), 3 and 5 (the single scale) launched; each request's time
+  beside the plain one's.
+* 2 gloo ranks on ``cuda:0`` as a ``(1, 2)`` mesh, one flagship train
+  micro-step and update at b=2 from rank 0's weights: the ranks' states
+  equal bit for bit after the update, kernels 1 and 2 launched in each;
+  against one process on the same batch, the loss within 3e-4 relative,
+  the running statistics within 1e-5 and the gradient, by module and in
+  norm, within twice a rounding control's relative error (the gate, set
+  before the first run: one process with every backbone and neck
+  convolution run on the 2 shards' row blocks, the halo rows included,
+  so cuDNN rounds them as the ranks' do).  Each rank prints its
+  micro-step beside one process's, one forward's halo exchanges (count,
+  bytes, ms) and gather (bytes, ms), each timed alone, and its peak
+  memory beside one process's.  Every shard shares the one card: no time
+  here is a multi-card speed.
+
 Every check raises on failure, so any failed phase exits nonzero; a rank
 that raises fails the phase.
 
@@ -3382,6 +3410,293 @@ def tensor_parallel(smi: str, tps: list, dps: list, names, tp_s: float,
                       for got in tps]}
 
 
+# ------------------------------------------------------------ spatial
+# the model axes of Predictor(spatial=True) on the card's one device, by
+# path: (1, 2) and the uneven (1, 4) for the flagship, (1, 2) single scale
+SP_SHARDS = {"flagship": (2, 4), "single-scale": (2,)}
+SP_RANKS, SP_BATCH = 2, 2     # the train ranks: a (1, 2) mesh, b=2
+
+
+def spatial_predict(cfg, rng, label: str, expect, shards) -> dict:
+    """``Predictor(spatial=True)`` over a ``(1, n)`` mesh of the card's one
+    device taken ``n`` times (one worker thread a shard, halos exchanged
+    in process, every shard running the heads) against the plain ``Predictor`` on the same 600x600 image,
+    float32: ``valid`` and ``labels`` equal, boxes within ``rtol=1e-4,
+    atol=1e-3``; every launch counter set to 0 just before the spatial
+    request and read just after, each kernel of ``expect`` launched."""
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state)
+    from two_stage_object_detection_tpu_torch.parallel.mesh import make_mesh
+    from two_stage_object_detection_tpu_torch.serving import Predictor
+    c32 = cfg.replace(compute_dtype="float32", score_thresh=0.0)
+    model, _ = create_train_state(c32, seed=0)
+    x = train_batch(rng, c32, 1, wire="f32")["image"]
+    # random weights score every class alike: the score threshold goes in
+    # the widest relative gap between the 8th and the 32nd best detection,
+    # so that no detection sits at it
+    top = Predictor(c32, model, batch_sizes=(1,))(x)["scores"][0, :32]
+    j = 8 + int(np.argmax((top[7:31] - top[8:32]) / top[8:32]))
+    model.cfg = c32 = c32.replace(score_thresh=float(top[j - 1] + top[j]) / 2)
+    plain = Predictor(c32, model, batch_sizes=(1,))
+    want = plain(x)
+    out = {"plain_ms": host_ms(lambda: plain(x), 3),
+           "detections": int(want["valid"].sum()),
+           "score_thresh": c32.score_thresh}
+    require(out["detections"] == j, f"{label} spatial: {out['detections']} "
+            f"detections above the threshold, not {j}")
+    wrappers = counters()
+    for n in shards:
+        sp = Predictor(c32, model, batch_sizes=(1,), spatial=True,
+                       mesh=make_mesh(1, n, devices=["cuda:0"] * n))
+        require(sp.spatial, f"{label}: Predictor(spatial=True) on (1, {n}) "
+                "takes no row split")
+        sp(x)                                           # warm
+        for fn in wrappers.values():
+            fn.launches = 0
+        got = sp(x)
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        for k in expect:
+            require(launches[k] > 0, f"{label} spatial (1, {n}): {k} never "
+                    "launched")
+        require(np.array_equal(got["valid"], want["valid"])
+                and np.array_equal(got["labels"], want["labels"]),
+                f"{label} spatial (1, {n}): valid or labels differ")
+        excess = float((np.abs(got["boxes"] - want["boxes"])
+                        - (1e-3 + 1e-4 * np.abs(want["boxes"]))).max())
+        box_err = float(np.abs(got["boxes"] - want["boxes"]).max())
+        require(excess <= 0, f"{label} spatial (1, {n}): boxes differ by "
+                f"{box_err:.3e} px")
+        ms = host_ms(lambda: sp(x), 3)
+        out[f"1x{n}"] = {"ms": ms, "box_err": box_err,
+                         "launches": {k: v for k, v in launches.items()
+                                      if v}}
+        log(f"spatial: {label} Predictor(spatial=True) over (1, {n}) of "
+            f"cuda:0, a 600x600 f32 request: valid and labels equal to the "
+            f"plain Predictor ({out['detections']} detections, score_thresh "
+            f"{c32.score_thresh:.5f}), boxes within "
+            f"{box_err:.2e} px (tolerance 1e-3 + 1e-4 |box|); launches "
+            f"{out[f'1x{n}']['launches']}; {ms:.1f} ms a request against "
+            f"{out['plain_ms']:.1f} ms plain (host clock, median of 3; the "
+            f"shards share one card)")
+        del sp
+    del model, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+class convolutions_in_row_halves:
+    """Inside, every 2-D convolution runs as two, each on the input rows
+    that half of its output rows reads (the upper half rounded up), zero
+    padding only at the map's top and bottom, the outputs concatenated:
+    one process's convolutions on exactly the row blocks of 2 spatial
+    shards (cuDNN picks its algorithm by shape); autograd sums the blocks'
+    weight gradients and the halo rows' input gradients."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        self.inner = inner = F.conv2d
+
+        def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1,
+                   groups=1):
+            s, p = int(stride), int(padding)
+            k, h = weight.shape[2], x.shape[2]
+            h_out = (h + 2 * p - k) // s + 1
+            cut = -(-h_out // 2)
+            outs = []
+            for lo, hi in ((0, cut), (cut, h_out)):
+                if hi > lo:
+                    a, b = lo * s - p, (hi - 1) * s - p + k
+                    slab = F.pad(x[:, :, max(a, 0):min(b, h)],
+                                 (0, 0, max(-a, 0), max(b - h, 0)))
+                    outs.append(inner(slab, weight, bias, s, (0, p),
+                                      dilation, groups))
+            return torch.cat(outs, 2)
+        F.conv2d = conv2d
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+        F.conv2d = self.inner
+
+
+def _sp_rank(rank: int, world: int, tmp: str) -> None:
+    """One gloo rank of the spatial phase on ``cuda:0``: a ``(1, 2)`` mesh
+    with image rows over ``model``; one train micro-step and update of the
+    flagship at b=2 from rank 0's weights, then one forward with each halo
+    exchange and the gather timed.  Writes its numbers to ``tmp``."""
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        _images_f32, create_train_state, train_step)
+    from two_stage_object_detection_tpu_torch.parallel.mesh import (
+        assert_replicated, make_mesh, place_train_state, state_tensors)
+    from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+        init_distributed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    init_distributed(f"file://{tmp}/sp_store", world, rank,
+                     backend="gloo", device="cuda:0")
+    cfg = dp_config().replace(batch_size=SP_BATCH, grad_accum_steps=1)
+    model, state = create_train_state(cfg, seed=rank + 1, device="cuda:0")
+    if rank == 0:
+        model.load_state_dict(torch.load(os.path.join(tmp, "sp_weights.pt")))
+    mesh = make_mesh(1, world, devices=["cuda:0"])
+    place_train_state(state, mesh, debug=True, spatial=True)
+    batch = torch.load(os.path.join(tmp, "sp_batch.pt"), weights_only=False)
+    grads = {}
+    state.optimizer.register_step_pre_hook(_grad_hook(model, grads))
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses = train_step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(state.updates == 1, f"spatial rank {rank}: no update")
+    assert_replicated(state_tensors(state))
+    shard = model.spatial.shard(*cfg.input_size)
+    shard.timed = True
+    for v in shard.stats.values():
+        v[:] = [0, 0, 0.0]
+    b = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.train_forward(_images_f32(b["image"]), b["boxes"], b["labels"],
+                            b["valid"], train=False)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    out = {"step_ms": step_ms, "loss": float(losses["total"]),
+           "launches": launches, "peak_gb": peak, "forward_ms": forward_ms,
+           "halo": list(shard.stats["halo"]),
+           "gather": list(shard.stats["gather"]),
+           "params": {k: v.cpu() for k, v in model.state_dict().items()}}
+    if rank == 0:
+        out["grads"] = {k: v.cpu() for k, v in grads.items()}
+    torch.save(out, os.path.join(tmp, f"sp_rank{rank}.pt"))
+
+
+def spatial(smi: str) -> dict:
+    """The spatial phase (see the module docstring); returns its numbers."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from two_stage_object_detection_tpu_torch.config import Config
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state)
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(12)
+    out = {}
+    paths = {"flagship": (Config(fpn=True, backbone="resnet50",
+                                 loc_normalize=True),
+                          ("greedy_nms", "windowed_align")),
+             "single-scale": (Config(), ("fused_proposals_batched",
+                                         "roi_pool_max"))}
+    for label, (cfg, expect) in paths.items():
+        out[label] = spatial_predict(cfg, rng, label, expect,
+                                     SP_SHARDS[label])
+
+    cfg = dp_config().replace(batch_size=SP_BATCH, grad_accum_steps=1)
+    batch = train_batch(rng, cfg, SP_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        model, state = create_train_state(cfg, seed=0)
+        torch.save(model.state_dict(), os.path.join(tmp, "sp_weights.pt"))
+        torch.save(batch, os.path.join(tmp, "sp_batch.pt"))
+        ref = _one_process_update(model, state, [batch])
+        del model, state
+        torch.cuda.empty_cache()
+        # the rounding control: one process, every convolution of the
+        # backbone and neck on the 2 shards' row blocks
+        model, state = create_train_state(cfg, seed=0)
+        trunk = model.local_features
+
+        def in_row_halves(images, generator=None):
+            with convolutions_in_row_halves():
+                return trunk(images, generator)
+        model.local_features = in_row_halves
+        ctl = _one_process_update(model, state, [batch])
+        del model, state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.start_processes(_sp_rank, args=(SP_RANKS, tmp), nprocs=SP_RANKS,
+                           start_method="spawn")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"sp_rank{r}.pt"),
+                            weights_only=False) for r in range(SP_RANKS)]
+    for r, got in enumerate(ranks):
+        for name in ("greedy_nms", "windowed_align"):
+            require(got["launches"].get(name, 0) > 0,
+                    f"spatial: rank {r} never launched {name}")
+        require(all(torch.equal(v, ranks[0]["params"][k])
+                    for k, v in got["params"].items()),
+                f"spatial: rank {r}'s state differs from rank 0's")
+    names = sorted(ref["grads"])
+    require(sorted(ranks[0]["grads"]) == names,
+            "spatial: another set of parameters has gradients")
+    sp_err = _rel_by_module(ranks[0]["grads"], ref["grads"], names)
+    ctl_err = _rel_by_module(ctl["grads"], ref["grads"], names)
+    loss_rel = abs(ranks[0]["loss"] - ref["losses"][0]["total"]) / abs(
+        ref["losses"][0]["total"])
+    ctl_loss = abs(ctl["losses"][0]["total"] - ref["losses"][0]["total"]) \
+        / abs(ref["losses"][0]["total"])
+    stats = [k for k in ref["params"] if k.endswith(("running_mean",
+                                                     "running_var"))]
+    stat_err = max(float((ranks[0]["params"][k] - ref["params"][k])
+                         .abs().max()) for k in stats)
+    # written before the first run: the ranks compute one process's
+    # gradient up to rounding; the control rounds every convolution as the
+    # ranks do, and the gate is twice its reading
+    gate = 2.0 * ctl_err["all"]
+    log("spatial: the gradient's relative error by module against one "
+        "process at b=2 -- the ranks; the row-halves control (one process, "
+        "every backbone and neck convolution on the 2 shards' row blocks): "
+        + ", ".join(f"{k} {sp_err[k]:.2e}; {ctl_err[k]:.2e}"
+                    for k in sp_err))
+    log(f"spatial: {SP_RANKS} gloo ranks on cuda:0 as a (1, {SP_RANKS}) "
+        f"mesh (image rows over 'model'), flagship 600x600 f32 (TF32 off), "
+        f"b={SP_BATCH}, one micro-step and update: the ranks' states equal "
+        f"bit for bit; against one process: the gradient's relative error "
+        f"{sp_err['all']:.2e} (gate {gate:.2e}: twice the row-halves "
+        f"control's {ctl_err['all']:.2e}), the loss within {loss_rel:.2e} "
+        f"relative (the control {ctl_loss:.2e}; tolerance 3e-4), running "
+        f"statistics within {stat_err:.2e} (tolerance 1e-5)")
+    require(sp_err["all"] <= gate, "spatial: the gradient differs from one "
+            "process's by more than twice the row-halves control's")
+    require(loss_rel <= 3e-4, "spatial: the loss differs")
+    require(stat_err <= 1e-5, "spatial: the running statistics differ")
+    for r, got in enumerate(ranks):
+        h, g = got["halo"], got["gather"]
+        log(f"spatial rank {r}: micro-step {got['step_ms']:.1f} ms (one "
+            f"process at b={SP_BATCH}: {ref['ms'][0]:.1f}); a forward "
+            f"{got['forward_ms']:.1f} ms with {h[0]} halo exchanges sending "
+            f"{h[1]} bytes in {h[2] * 1e3:.1f} ms and {g[0]} gather of "
+            f"{g[1]} bytes in {g[2] * 1e3:.1f} ms (gloo through pinned host "
+            f"memory, each timed alone between synchronisations); peak "
+            f"memory {got['peak_gb']:.2f} GB (one process: "
+            f"{ref['peak']:.2f} GB); launches {got['launches']}")
+    torch.backends.cudnn.deterministic = False
+    out.update({"grad_rel_err": sp_err["all"], "grad_gate": gate,
+                "grad_rel_by_module": sp_err,
+                "control_rel_by_module": ctl_err, "loss_rel_err": loss_rel,
+                "control_loss_rel_err": ctl_loss, "stat_err": stat_err,
+                "ranks_s": ranks_s, "one_process_step_ms": ref["ms"][0],
+                "one_process_peak_gb": ref["peak"],
+                "ranks": [{k: v for k, v in got.items()
+                           if k not in ("params", "grads")}
+                          for got in ranks]})
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"spatial phase: {out['phase_s']:.1f} s (the ranks {ranks_s:.1f} s); "
+        f"every shard shares the one card, so no time here is a multi-card "
+        f"speed; card: {smi}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the measured numbers here")
@@ -3485,6 +3800,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_run = data_parallel(smi)
     torch.cuda.empty_cache()
+    spatial_run = spatial(smi)
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3506,6 +3823,7 @@ def main() -> int:
                        "roi_routes_s": routes_s, "device_augment": augment,
                        "resident": resident_run, "serving": serving_run,
                        "pth_import": import_run, "data_parallel": dp_run,
+                       "spatial": spatial_run,
                        "fused_proposals_shapes": fused_shapes,
                        "roi_pool_max_shapes": pool_shapes,
                        "roi_pool_bwd_shapes": bwd_shapes,

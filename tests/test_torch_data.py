@@ -7,7 +7,8 @@ batches (thread and process workers) are equal bit for bit, and
 The data are the committed real JPEGs (``tests/data/real_coco``) and a
 synthetic PNG root, at small input sizes.  Both packages decode and resize
 through ``native/preprocess.cpp`` (each through its own build of it) or, where
-that does not build, through the same PIL calls.
+either cannot load it, through the same PIL calls
+(``tests/torch_native.py:same_native_path``).
 """
 
 import filecmp
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import same_native_path
 from two_stage_object_detection_tpu.data import coco as j_coco
 from two_stage_object_detection_tpu.data import pipeline as j_pipeline
 from two_stage_object_detection_tpu.data import synthetic as j_synthetic
@@ -103,9 +105,12 @@ MODES = {
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_dataset_get_matches_jax(synth, mode):
+def test_dataset_get_matches_jax(synth, mode, monkeypatch):
     """Every sample of both roots, epochs 0 and 1 (a cached dataset answers
-    the second epoch from its cache), at a 64x80 input."""
+    the second epoch from its cache), at a 64x80 input; both packages
+    decode through their native library, or both through PIL where one of
+    them cannot load it (:func:`same_native_path`)."""
+    same_native_path(monkeypatch)
     (ann, img_dir), _ = synth
     for path, images, size in ((ann, img_dir, (64, 80)),
                                (REAL_ANN, REAL_IMG, (96, 80))):
@@ -128,9 +133,11 @@ def test_epoch_order_matches_jax(args):
 
 
 @pytest.mark.parametrize("worker_mode", ["thread", "process"])
-def test_loader_batches_match_jax(synth, worker_mode):
+def test_loader_batches_match_jax(synth, worker_mode, monkeypatch):
     """Two shuffled epochs of augmented batches, the loader's epoch clock
-    advancing as each epoch is drained."""
+    advancing as each epoch is drained; both packages on the same decode
+    path (:func:`same_native_path`)."""
+    same_native_path(monkeypatch)
     (ann, img_dir), _ = synth
     kw = dict(input_size=(48, 48), max_gt=5, train=True, seed=1)
     ds = pipeline.DetectionDataset(coco.load_coco(ann, img_dir), **kw)

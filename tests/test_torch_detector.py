@@ -107,15 +107,15 @@ def test_predictor_rejects_bad_requests(carried):
 
 
 def test_unported_routes_raise(carried):
-    """What the port does not do yet raises and names it: serving with
-    image rows over the mesh's model axis (``spatial``, ``parallel/``); a
-    mesh that is not a ``parallel.mesh.Mesh`` is refused (the data axis is
-    ported: ``tests/test_torch_parallel.py``).  The routes that raised
-    before they were ported now build and predict: the single-scale
+    """A mesh that is not a ``parallel.mesh.Mesh`` is refused (the data
+    axis is ported: ``tests/test_torch_parallel.py``).  The routes that
+    raised before they were ported now build and predict: the single-scale
     ``align`` / ``mean`` RoI pooling and the dense FPN route
     (``fpn_roi_window=0``), whose parity with the JAX package is in
-    ``tests/test_torch_roi_routes.py``, and the yuv420 wire
-    (``tests/test_torch_serving.py``)."""
+    ``tests/test_torch_roi_routes.py``, the yuv420 wire
+    (``tests/test_torch_serving.py``), and serving with image rows over
+    the mesh's model axis (``spatial``; ``tests/test_torch_spatial.py``),
+    here over a ``(1, 2)`` mesh of CPU "devices"."""
     x = torch.from_numpy(np.random.RandomState(5).rand(1, 64, 64, 3)
                          .astype(np.float32))
     for kw in ({"fpn": False, "backbone": "hardnet39", "roi_pool_mode": "align"},
@@ -126,8 +126,12 @@ def test_unported_routes_raise(carried):
         assert boxes.shape == (1, 8, 4) and valid.shape == (1, 8)
         assert bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all())
     _, _, pred = carried
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        Predictor(pred.cfg, pred.model, spatial=True)
+    from two_stage_object_detection_tpu_torch.parallel.mesh import make_mesh
+    rows = Predictor(pred.cfg, pred.model, batch_sizes=(1,), spatial=True,
+                     mesh=make_mesh(1, 2, devices=["cpu", "cpu"]))
+    out = rows(x.numpy())
+    assert rows.spatial and out["boxes"].shape == (1, 8, 4)
+    assert np.isfinite(out["boxes"]).all() and np.isfinite(out["scores"]).all()
     with pytest.raises(TypeError, match="Mesh"):
         Predictor(pred.cfg, pred.model, mesh=object())
     assert Predictor(pred.cfg, pred.model, wire="yuv420").wire == "yuv420"

@@ -253,11 +253,14 @@ def test_one_set_takes_several_pairs():
 
 
 def test_unported_options_raise(data_root, tmp_path):
-    """``spatial`` (image rows over the mesh's model axis) raises and names
-    its ROADMAP.md entry; a mesh that is not a ``parallel.mesh.Mesh`` is
-    refused.  (The data and model axes are ported:
-    ``tests/test_torch_parallel*.py``, and a mesh with a model axis builds
-    here;
+    """``spatial`` (image rows over the mesh's model axis) is ported: in one
+    process ``train(spatial=True)`` trains on one device (no model axis,
+    as the JAX package's ``train`` without a mesh), and
+    ``shard_batch_spatial`` refuses a mesh within one process (it places a
+    rank's rows; over ranks: ``tests/test_torch_spatial_train.py``); a
+    mesh that is not a ``parallel.mesh.Mesh`` is refused.  (The data and
+    model axes are ported: ``tests/test_torch_parallel*.py``, and a mesh
+    with a model axis builds here;
     ``cache_device`` and ``device_augment`` too:
     ``tests/test_torch_device_cache.py``; the ``serve`` and ``export``
     commands too: ``tests/test_torch_serving_http.py``,
@@ -265,11 +268,12 @@ def test_unported_options_raise(data_root, tmp_path):
     directory has none.)"""
     from two_stage_object_detection_tpu_torch.parallel.mesh import (
         make_mesh, shard_batch_spatial)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        train(False, CFG, data_root, str(tmp_path), spatial=True)
+    state = train(False, CFG.replace(num_epochs=1), data_root,
+                  str(tmp_path), eval_period=2, spatial=True)
+    assert state.model.spatial is None and state.step > 0
     mesh = make_mesh(n_model=2, devices=["cpu", "cpu"])
     assert mesh.shape == {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(ValueError, match="over processes"):
         shard_batch_spatial({}, mesh)
     with pytest.raises(TypeError, match="Mesh"):
         train(False, CFG, data_root, str(tmp_path), mesh=object())

@@ -48,7 +48,8 @@ def _import_all(forbidden):
 def test_port_imports_no_jax_or_jax_package():
     mods = _import_all(FORBIDDEN)
     assert {port.__name__ + m for m in (".data.device_transforms",
-                                        ".data.device_cache")} <= mods
+                                        ".data.device_cache",
+                                        ".parallel.spatial")} <= mods
 
 
 def test_port_imports_without_pil_matplotlib_or_tqdm():

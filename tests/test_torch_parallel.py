@@ -5,7 +5,7 @@ batch placement; ``should_stop(sync=True)`` across ranks; ``auto_mesh``'s
 axes against the JAX package's; a mesh train step at a world of 1 bit for
 bit the meshless one; ``Predictor(mesh=)`` over two CPU replicas against
 the meshless ``Predictor`` and the JAX one under a ``(data=2)`` mesh; the
-model axis's meshes within a process, and ``spatial`` raising;
+model axis's meshes within a process, and ``spatial`` building;
 ``parallel.dryrun 2``; the profiling hooks.  (The model axis over ranks:
 ``tests/test_torch_parallel_tp.py``.)
 
@@ -221,9 +221,14 @@ def test_model_axis_and_spatial_raise(tmp_path):
     """The model axis is ported: within one process ``make_mesh`` and
     ``auto_mesh`` with ``n_model=2`` build ``(data, model)`` grids, and
     one with too few devices raises ``ValueError``.  Spatial sharding (image
-    rows over ``model``) is the next slice: every route to it raises
-    ``NotImplementedError`` naming ROADMAP.md's ``parallel/`` entry, item
-    C."""
+    rows over ``model``) is ported too, and every route to it builds and
+    runs: ``auto_mesh_spatial`` gives a batch of 1 on 2 devices a ``(1,
+    2)`` mesh, ``shard_batch_spatial`` places a rank's rows (a mesh within
+    one process has no rank: ``ValueError``), ``train(spatial=True)`` in one
+    process trains on one device as ``train()`` does (here it reaches the
+    missing data root), and ``Predictor(spatial=True)`` over a ``(1, 2)``
+    mesh predicts what the plain predictor does (its parity with the JAX
+    package: ``tests/test_torch_spatial.py``)."""
     m = pmesh.make_mesh(n_model=2, devices=["cpu"] * 2)
     assert m.shape == {"data": 1, "model": 2} and m.model_group is None
     assert pmesh.auto_mesh(4, n_model=2, devices=["cpu"] * 4).shape == {
@@ -232,14 +237,20 @@ def test_model_axis_and_spatial_raise(tmp_path):
         pmesh.make_mesh(n_data=2, n_model=2, devices=["cpu"] * 3)
     cfg = Config(**COMMON, device="cpu")
     model, _ = create_train_state(cfg)
-    for call in (lambda: pmesh.auto_mesh_spatial(4),
-                 lambda: pmesh.shard_batch_spatial({}, None),
-                 lambda: train(False, cfg, str(tmp_path), str(tmp_path),
-                               spatial=True),
-                 lambda: Predictor(cfg, model, spatial=True)):
-        with pytest.raises(NotImplementedError,
-                           match=r"parallel/.*ROADMAP.*item C"):
-            call()
+    assert pmesh.auto_mesh_spatial(1, devices=["cpu"] * 2).shape == m.shape
+    with pytest.raises(ValueError, match="over processes"):
+        pmesh.shard_batch_spatial({}, m)
+    with pytest.raises(FileNotFoundError):
+        train(False, cfg, str(tmp_path), str(tmp_path), spatial=True)
+    x = np.random.RandomState(0).rand(1, 64, 64, 3).astype(np.float32)
+    rows = Predictor(cfg, model, batch_sizes=(1,), mesh=m, spatial=True)
+    assert rows.spatial
+    assert not Predictor(cfg, model, spatial=True).spatial   # no mesh
+    got, want = rows(x), Predictor(cfg, model, batch_sizes=(1,))(x)
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=1e-4,
+                               atol=1e-3)
 
 
 def test_meshes_within_one_process():
@@ -307,17 +318,20 @@ def test_predictor_over_a_mesh_of_two_replicas(flagship):
 # ------------------------------------------------------------ dryrun
 def test_dryrun_two_ranks_exits_zero():
     """``python -m ...parallel.dryrun 2``: a data-parallel train step, a
-    resident macro step and a predict in 2 gloo ranks, each section's
-    seconds printed, and the left-out sections named."""
+    resident macro step and a predict in 2 gloo ranks, then the spatial
+    section on a ``(1, 2)`` mesh (a train step and a predict on each
+    rank's rows), each section's seconds printed."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
         [sys.executable, "-m",
          "two_stage_object_detection_tpu_torch.parallel.dryrun", "2"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    for section in ("dp", "resident", "predict"):
+    for section in ("dp", "resident", "predict", "spatial"):
         assert f"[dryrun timing] {section}:" in res.stdout, res.stdout
-    assert "left out" in res.stdout
+    assert ("dryrun spatial: ranks=2 mesh={'data': 1, 'model': 2} loss="
+            in res.stdout), res.stdout
+    assert "left out" not in res.stdout
 
 
 # ------------------------------------------------------------ profiling

@@ -14,7 +14,8 @@ heads over gloo ranks on the CPU, ``tests/torch_dp_workers.py``):
   ``(1, 2)`` mesh and back, bit for bit;
 * ``train()`` on a ``(2, 2)`` mesh, preempted and resumed, bit for bit the
   uninterrupted run;
-* ``parallel.dryrun 4``: its ``dp+tp`` and ``fpn`` sections on ``(2, 2)``;
+* ``parallel.dryrun 4``: its ``dp+tp`` and ``fpn`` sections on ``(2, 2)``,
+  its ``spatial`` section on ``(1, 4)``;
 * the cross-replica batch norm's combine (``models/layers.py``) against
   float64.
 """
@@ -309,7 +310,8 @@ def test_train_on_a_model_axis_resumes_exactly(trained_tp):
 def test_dryrun_four_ranks_runs_the_model_axis_sections():
     """``python -m ...parallel.dryrun 4``: the ``dp+tp`` and ``fpn``
     sections train on a ``(2, 2)`` mesh and print their seconds; the
-    spatial section is named as left out."""
+    spatial section trains and predicts on a ``(1, 4)`` mesh (16 image
+    rows a rank, one row of the stride-16 map)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
         [sys.executable, "-m",
@@ -320,4 +322,7 @@ def test_dryrun_four_ranks_runs_the_model_axis_sections():
         assert (f"dryrun {section}: ranks=4 mesh={{'data': 2, 'model': 2}}"
                 in res.stdout), res.stdout
         assert f"[dryrun timing] {section}:" in res.stdout
-    assert "spatial section" in res.stdout and "left out" in res.stdout
+    assert ("dryrun spatial: ranks=4 mesh={'data': 1, 'model': 4} loss="
+            in res.stdout), res.stdout
+    assert "[dryrun timing] spatial:" in res.stdout
+    assert "left out" not in res.stdout

@@ -12,10 +12,8 @@ with ``test_torch_serving_http.py``, ``test_torch_quantize.py`` and
 ``test_torch_export.py``.
 """
 
-import os
 import sys
 import threading
-import time
 import types
 
 import jax
@@ -25,6 +23,7 @@ import pytest
 import torch
 from flax.core import unfreeze
 
+from tests.torch_native import same_native_path
 from two_stage_object_detection_tpu import serving as jserving
 from two_stage_object_detection_tpu.config import Config as JConfig
 from two_stage_object_detection_tpu.data import native as jnative
@@ -117,36 +116,6 @@ def served():
                                        wire=wire)
               for wire in ("f32", "u8", "yuv420")}
     return pred, jpreds
-
-
-def same_native_path(mp, timeout: float = 60.0) -> bool:
-    """Make both packages take the same host path (native library or
-    numpy/PIL); returns whether both use their library.
-
-    The JAX package builds its library with an in-place ``make`` into
-    ``native/libpreprocess.so`` and caches a failed load for the life of
-    the process (``data/native.py``: ``_tried``).  Under ``pytest -n``
-    one worker can load the file while another worker's ``make`` is still
-    writing it, and keep that failure, while the port's library (built
-    under ``_build/`` and published atomically) loads.  So, through ``mp``
-    (a ``MonkeyPatch``): once the file has stopped changing, the JAX
-    package's cached failure is reset and the load tried again (with its
-    own ``make`` held back, so as not to write the file twice at once); if
-    it still fails, the port's library is hidden too."""
-    if jnative.available() or not native.available():
-        return jnative.available() and native.available()
-    so = jnative._SO_PATH
-    deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline and not (
-            os.path.exists(so) and time.time() - os.path.getmtime(so) > 2.0):
-        time.sleep(0.5)
-    mp.setattr(jnative, "_lib", None)
-    mp.setattr(jnative, "_tried", False)
-    mp.setattr(jnative, "_build", lambda: os.path.exists(so))
-    if jnative.get_lib() is None:
-        mp.setattr(native, "_lib", None)
-        mp.setattr(native, "_tried", True)
-    return jnative.available() and native.available()
 
 
 def _u8(rng, n):
@@ -278,13 +247,26 @@ def test_pipelined_dispatch_keeps_two_in_flight(served, rng):
                                        atol=1e-5)
 
 
-def test_mesh_and_spatial_raise(served):
-    """``spatial`` (the mesh's model axis) raises naming ``parallel/``; a
+def test_mesh_and_spatial_raise(served, rng):
+    """``spatial`` (image rows over the mesh's model axis) builds and runs:
+    without a mesh it is the plain predictor, over a ``(1, 2)`` mesh of
+    CPU "devices" it answers as the plain one within the box tolerance
+    (its parity with the JAX package: ``tests/test_torch_spatial.py``); a
     mesh that is not a ``parallel.mesh.Mesh``, or one over processes, is
     refused (the data axis: ``tests/test_torch_parallel.py``)."""
+    from two_stage_object_detection_tpu_torch.parallel.mesh import make_mesh
     pred, _ = served
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        Predictor(pred.cfg, pred.model, spatial=True)
+    assert not Predictor(pred.cfg, pred.model, spatial=True).spatial
+    rows = Predictor(pred.cfg, pred.model, batch_sizes=(1,), spatial=True,
+                     mesh=make_mesh(1, 2, devices=["cpu", "cpu"]))
+    assert rows.spatial
+    x = rng.rand(1, H, W, 3).astype(np.float32)
+    got, want = rows(x), Predictor(pred.cfg, pred.model,
+                                   batch_sizes=(1,))(x)
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=1e-4,
+                               atol=1e-3)
     with pytest.raises(TypeError, match="Mesh"):
         Predictor(pred.cfg, pred.model, mesh=object())
     from two_stage_object_detection_tpu_torch.parallel.mesh import Mesh

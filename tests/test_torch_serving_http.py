@@ -15,7 +15,8 @@ import pytest
 import torch
 from PIL import Image
 
-from tests.test_torch_serving import KW, jax_model, same_native_path
+from tests.test_torch_serving import KW, jax_model
+from tests.torch_native import same_native_path
 from two_stage_object_detection_tpu import serving as jserving
 from two_stage_object_detection_tpu import serving_http as jhttp
 from two_stage_object_detection_tpu.config import Config as JConfig
@@ -47,7 +48,7 @@ def _one_torch_thread():
 def servers():
     """The port's server and the JAX package's, both on the yuv420 wire
     with the same weights, decoding by the same path (native or PIL:
-    ``test_torch_serving.same_native_path``)."""
+    ``tests/torch_native.py:same_native_path``)."""
     with pytest.MonkeyPatch.context() as mp:
         same_native_path(mp)
         yield from _servers()

@@ -365,3 +365,122 @@ def moments_and_restore_rank(rank, world, tmp, x, cfg_kw, ckpt):
                                checkpoint.LAST)
     return {"mean": mean, "var": var, "count": float(count[0]),
             "held": held}
+
+
+# ------------------------------------------------------------ image rows
+def spatial_step_rank(rank, world, tmp, cfg_kw, state_dict, batches,
+                      n_model):
+    """Micro-steps of ``train_step`` on a ``(world / n_model, n_model)``
+    mesh with image rows over ``model`` (``place_train_state(spatial=
+    True)``) from ``state_dict``: each data index passes its block of every
+    global batch in ``batches``, whole, and the model takes the rank's
+    rows.  Returns the losses, the gradient of the last update, the state
+    and the shard's exchange counts."""
+    from two_stage_object_detection_tpu_torch.config import Config
+    from two_stage_object_detection_tpu_torch.nets.trainer import (
+        create_train_state, train_step)
+    from two_stage_object_detection_tpu_torch.parallel.mesh import (
+        assert_replicated, make_mesh, place_train_state, state_tensors)
+    cfg = Config(**cfg_kw, device="cpu")
+    model, state = create_train_state(cfg, seed=rank + 1)  # rank 0's wins
+    if rank == 0:
+        model.load_state_dict(state_dict)
+    mesh = make_mesh(world // n_model, n_model, devices=["cpu"])
+    place_train_state(state, mesh, debug=True, spatial=True)
+    grads = {}
+
+    def keep_grads(*_):          # the all-reduced mean the update consumes
+        grads.update({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+
+    state.optimizer.register_step_pre_hook(keep_grads)
+    losses = []
+    for g in batches:
+        b = g["image"].shape[0] // mesh.shape["data"]
+        d = mesh.data_index
+        _, out = train_step(state, {k: v[d * b:(d + 1) * b]
+                                    for k, v in g.items()})
+        losses.append({k: float(v) for k, v in out.items()})
+    assert_replicated(state_tensors(state))
+    shard = model.spatial.shard(*cfg.input_size)
+    return {"losses": losses, "grads": grads,
+            "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "stats": {k: list(v) for k, v in shard.stats.items()},
+            "index": (mesh.data_index, mesh.model_index)}
+
+
+def spatial_train_rank(rank, world, tmp, cfg_kw, root, runs, cli):
+    """``train(spatial=True)`` with ``mesh="auto"`` (a batch of 1 over
+    ``world`` ranks: a ``(1, world)`` mesh), one call for each entry of
+    ``runs`` (``(name, weights dir, options)``, as :func:`train_rank`);
+    then ``cli`` (the CLI's arguments) through ``__main__.main``, and
+    ``evaluate_checkpoint`` of the last run's ``_best`` with and without
+    ``spatial``.  Returns each run's final state, the mesh it ran on, the
+    CLI's exit code and the two sweeps."""
+    from two_stage_object_detection_tpu_torch.__main__ import main
+    from two_stage_object_detection_tpu_torch.config import Config
+    from two_stage_object_detection_tpu_torch.evaluate import (
+        evaluate_checkpoint)
+    from two_stage_object_detection_tpu_torch.train import train
+    from two_stage_object_detection_tpu_torch.utils.preemption import (
+        PreemptionGuard)
+
+    class StopAt(PreemptionGuard):
+        def __init__(self, n):
+            super().__init__(sync_every=1)
+            self.n, self.polls = n, 0
+
+        def should_stop(self, sync=None):
+            self.polls += 1
+            if self.polls == self.n and rank == world - 1:
+                self.request()
+            return super().should_stop(sync)
+
+    out = {}
+    for name, weights, opts in runs:
+        cfg = Config(**{**cfg_kw, **opts.get("cfg", {})}, device="cpu")
+        guard = StopAt(opts["stop_at"]) if "stop_at" in opts else None
+        state = train(False, cfg, root, weights, eval_period=2, seed=3,
+                      resume=opts.get("resume", False), guard=guard,
+                      spatial=True)
+        axis = state.model.spatial
+        out[name] = {
+            "state": {k: v.clone() for k, v in
+                      state.model.state_dict().items()},
+            "opt": [{k: v.clone() for k, v in s.items()} for s in
+                    state.optimizer.state_dict()["state"].values()],
+            "step": state.step, "updates": state.updates,
+            "axis": None if axis is None else (axis.size, axis.index),
+            "dirs": sorted(os.listdir(weights))}
+    out["cli"] = main(cli)
+    weights = runs[-1][1]
+    cfg = Config(**cfg_kw, device="cpu")
+    out["sweeps"] = {sp: evaluate_checkpoint(weights, cfg, root, spatial=sp)
+                     for sp in (True, False)}
+    return out
+
+
+def row_norm_rank(rank, world, tmp, x, dy, weight, bias, edges):
+    """The batch norm over the whole group on this rank's rows
+    ``[edges[rank], edges[rank + 1])`` of ``x`` (global ``[N, C, H, W]``;
+    a block may be empty), backward from ``dy``'s rows: output, input
+    gradient, the weight and bias gradients summed over the ranks, the
+    running statistics."""
+    from two_stage_object_detection_tpu_torch.models.layers import (
+        BatchNorm, set_data_group)
+    from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
+        all_reduce_)
+    import torch.distributed as dist
+    rows = slice(edges[rank], edges[rank + 1])
+    bn = BatchNorm(x.shape[1]).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(weight))
+        bn.bias.copy_(torch.from_numpy(bias))
+    set_data_group(bn, dist.group.WORLD)
+    xr = torch.from_numpy(x[:, :, rows]).requires_grad_()
+    y = bn(xr)
+    (y * torch.from_numpy(dy[:, :, rows])).sum().backward()
+    return {"y": y.detach(), "dx": xr.grad,
+            "dweight": all_reduce_(bn.weight.grad.clone()),
+            "dbias": all_reduce_(bn.bias.grad.clone()),
+            "running_mean": bn.running_mean, "running_var": bn.running_var}

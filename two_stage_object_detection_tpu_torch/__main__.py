@@ -26,8 +26,10 @@ GPU, from its environment (``--set batch_size`` is then a rank's batch):
 
 The JAX CLI has no flag for a model axis, and neither has this one:
 tensor-parallel training is ``train(mesh=make_mesh(n_data, n_model))``.
-``--spatial`` (image rows over the mesh's model axis) raises: spatial
-sharding is not ported (ROADMAP.md).
+``train --spatial`` splits image rows over the model axis of
+``auto_mesh_spatial``'s mesh instead (``parallel/spatial.py``):
+
+    torchrun --nproc-per-node 4 -m two_stage_object_detection_tpu_torch train --flagship --spatial --set batch_size=1
 """
 
 from __future__ import annotations
@@ -107,8 +109,7 @@ def _parser() -> argparse.ArgumentParser:
                    help="start from _best weights (fresh optimiser)")
     p.add_argument("--spatial", action="store_true",
                    help="shard image height over the mesh's model axis "
-                        "(spatial sharding of parallel/ is not ported yet: "
-                        "raises)")
+                        "(auto_mesh_spatial; parameters replicated)")
     p.add_argument("--eval-period", type=int, default=10)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no-viz", action="store_true")

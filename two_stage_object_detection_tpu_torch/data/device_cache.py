@@ -13,9 +13,13 @@ inside the train step (``Config.device_augment``,
 Over several processes (a data mesh, ``parallel/``) every rank holds the
 whole decoded dataset on its own card and, each epoch, gathers the rows
 the streaming Loader would give it: the same seeded order, its strided
-slice (``shard_count`` / ``shard_index``).  This is the counterpart of the
-JAX package's single-controller cache sharded over the mesh; the size
-check applies to each card.
+slice (``shard_count`` / ``shard_index``: its data index's).  This is the
+counterpart of the JAX package's single-controller cache sharded over the
+mesh; the size check applies to each card.  With image rows over the
+model axis (``spatial``) the cache stays whole on every card, as the JAX
+package replicates it then, and the ranks of a model group gather the same
+batches: each train step augments them for the data index and only then
+takes its rows (``nets/detector.py:FasterRCNN.features``).
 """
 
 from __future__ import annotations

@@ -23,6 +23,12 @@ applies a given record of draws, and :func:`augment_batch` composes them.
 The record holds, for each image, what the JAX package draws from its key
 tree: six photometric coins, four uniforms (brightness, contrast,
 saturation, hue delta), the flip coin and the jitter index.
+
+The chain mixes rows (the jitter resamples them), so with image rows over
+a mesh's model axis (``parallel/spatial.py``) it runs on each data index's
+whole images, drawn from the data index's generator: every rank of a model
+group augments the same images alike, and the model then takes the rank's
+rows (``nets/trainer.py:train_step``).
 """
 
 from __future__ import annotations

@@ -17,7 +17,10 @@ On a data mesh over several ranks (``state.group``) every rank iterates the
 same full eval set; each batch's rows are split over the ranks and the
 predictions all-gathered (:func:`~..parallel.multiprocess.fetch_global`),
 so every rank scores the same predictions and takes the same ``_best``
-decision.
+decision.  With image rows over the mesh's model axis the ranks of a
+model group take the same rows of the batch, and the model splits each
+image's rows over them (``FasterRCNN.features``); they compute the same
+outputs, and the data group gathers them.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ can only evaluate inside a training run, ``train/train.py:94-117``).  With
 ``cache_device`` the eval set is held on the device and the pass runs over
 it (``data/device_cache.py``).  Under ``torchrun`` the ranks split each
 eval batch's rows and gather the predictions, and every rank returns the
-same scores.
+same scores; with ``spatial`` the ranks of a model group split each
+image's rows as well.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from two_stage_object_detection_tpu_torch.data.pipeline import (
 from two_stage_object_detection_tpu_torch.eval.evaluator import evaluate_sweep
 from two_stage_object_detection_tpu_torch.nets.trainer import create_train_state
 from two_stage_object_detection_tpu_torch.parallel.mesh import (
-    auto_mesh, place_train_state)
+    auto_mesh, auto_mesh_spatial, model_axis_local, place_train_state,
+    spatial_axes)
 from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
     init_distributed, world_size)
 from two_stage_object_detection_tpu_torch.utils import checkpoint as ckpt
@@ -73,7 +75,8 @@ def evaluate_checkpoint(weights_dir: str = "weights",
                         cfg: Optional[Config] = None,
                         data_root: str = "data", name: Optional[str] = None,
                         use_predict: bool = False,
-                        coco_summary: bool = False, seed: int = 0) -> dict:
+                        coco_summary: bool = False, seed: int = 0,
+                        spatial: bool = False) -> dict:
     """Score ``FasterRCNNTrainer_{best,last}`` weights on the val set.
 
     Returns the :func:`~.eval.evaluator.evaluate_sweep` dict —
@@ -89,12 +92,21 @@ def evaluate_checkpoint(weights_dir: str = "weights",
 
     Under ``torchrun`` (:func:`~.parallel.multiprocess.init_distributed`
     reads its environment) each rank runs on its device of the data mesh
-    and scores the same predictions.
+    and scores the same predictions.  ``spatial``: the mesh of
+    :func:`~.parallel.mesh.auto_mesh_spatial`, each data index's images
+    split by rows over its model group, as ``train(spatial=True)``
+    evaluates.
     """
     cfg = cfg or load_config()
     init_distributed(device=cfg.device)
-    mesh = (auto_mesh(cfg.batch_size, devices=[cfg.device])
-            if world_size() > 1 else None)
+    mesh = None
+    if world_size() > 1:
+        # train(spatial=True)'s guard: a model axis crossing nodes falls
+        # back to data parallelism
+        spatial = spatial and model_axis_local(
+            spatial_axes(cfg.batch_size, world_size())[1])
+        mesh = (auto_mesh_spatial if spatial else auto_mesh)(
+            cfg.batch_size, devices=[cfg.device])
     _, state = create_train_state(
         cfg, seed=seed, device=None if mesh is None else mesh.device)
     if ckpt.restore_checkpoint(weights_dir, state, name=name or ckpt.BEST,
@@ -102,7 +114,7 @@ def evaluate_checkpoint(weights_dir: str = "weights",
         raise FileNotFoundError(
             f"no checkpoint {name or ckpt.BEST!r} under {weights_dir!r}")
     if mesh is not None:
-        place_train_state(state, mesh)
+        place_train_state(state, mesh, spatial=spatial)
     loader, _ = build_eval_loader(cfg, data_root, state.model.device)
     try:
         t0 = time.perf_counter()

@@ -18,7 +18,10 @@ carry the flax names (``stem0..2``, ``block{i}.layer{t}.layer1/.layer2``,
 Train mode is the module's own (``.train()`` / ``.eval()``).  ``remat``
 recomputes each ``HarDBlock`` in the backward pass instead of keeping its
 layers' activations (``torch.utils.checkpoint``); arch 85 drops 10% of its
-last block's output in train mode, from an explicit generator.  Only the
+last block's output in train mode, from an explicit generator.  Every
+operation that reads across rows is a :class:`~.layers.Conv` (the
+depth-wise stride-2 downs and the tail included), so the row shards of
+``parallel/spatial.py`` need nothing else here but the dropout's mask.  Only the
 depth-wise form (``depth_wise=True``) is built: it is the only one the
 backbone registry of either package constructs.
 """
@@ -34,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from two_stage_object_detection_tpu_torch.models.layers import (
     BatchNorm, Conv, frozen_running_stats)
+from two_stage_object_detection_tpu_torch.parallel import spatial
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
@@ -222,17 +226,42 @@ class HarDNetFeatureExtraction(nn.Module):
         if not (self.remat and torch.is_grad_enabled()):
             return blk(x)
         calls = []
+        shard = spatial.current()
 
         def run(inp):
             # the backward pass calls this a second time: same values, and
-            # the running statistics have already moved
+            # the running statistics have already moved; on a row shard the
+            # second call runs on the shard too (its halo exchanges again)
             calls.append(None)
-            if len(calls) == 1:
-                return blk(inp)
-            with frozen_running_stats(blk):
-                return blk(inp)
+            with spatial.sharded(shard):
+                if len(calls) == 1:
+                    return blk(inp)
+                with frozen_running_stats(blk):
+                    return blk(inp)
 
         return checkpoint(run, x, use_reentrant=False)
+
+    def _dropout(self, x: torch.Tensor, generator) -> torch.Tensor:
+        """Arch 85's train-mode dropout.  On a row shard the mask is drawn
+        from ``generator`` for the whole map and the shard keeps its rows
+        of it, so the shards of one image (whose train steps draw from
+        equal generators) apply the unsharded mask; without a generator
+        the shards could not agree on one, and it raises."""
+        shard = spatial.current()
+        if shard is None and generator is None:
+            u = torch.rand_like(x, dtype=torch.float32)
+        elif generator is None:
+            raise ValueError("HarDNet-85's train-mode dropout on row shards "
+                             "needs a generator: each shard keeps its rows "
+                             "of one mask drawn for the whole image")
+        else:
+            shape = x.shape if shard is None else (
+                *x.shape[:2], shard.edges(x)[-1], x.shape[3])
+            u = torch.rand(shape, generator=generator,
+                           device=generator.device).to(x.device)
+            if shard is not None:
+                u = shard.own_rows(u, x)
+        return x * (u >= self.DROPOUT).to(x.dtype) / (1.0 - self.DROPOUT)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator = None):
         x = self.stem2(self.stem1(self.stem0(x)))
@@ -240,12 +269,7 @@ class HarDNetFeatureExtraction(nn.Module):
         for i in range(self.n_blocks):
             x = self._block(i, x)
             if i == self.n_blocks - 1 and self.arch == 85 and self.training:
-                if generator is None:
-                    u = torch.rand_like(x, dtype=torch.float32)
-                else:
-                    u = torch.rand(x.shape, generator=generator,
-                                   device=generator.device).to(x.device)
-                x = x * (u >= self.DROPOUT).to(x.dtype) / (1.0 - self.DROPOUT)
+                x = self._dropout(x, generator)
             x = getattr(self, f"transition{i}")(x)
             if i in self.tap_after:
                 taps.append(x)

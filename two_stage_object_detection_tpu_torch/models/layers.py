@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from two_stage_object_detection_tpu_torch.parallel import spatial
+
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
     """flax's default kernel init: truncated normal (+-2 std) of variance
@@ -28,7 +30,11 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
 
 
 class Conv(nn.Module):
-    """2-D convolution on NCHW tensors (``weight`` OIHW, float32)."""
+    """2-D convolution on NCHW tensors (``weight`` OIHW, float32).
+
+    While a row shard is active (``parallel/spatial.py``) it runs on the
+    shard's rows: the halo it reads is exchanged with the other shards and
+    only the image's real top and bottom are zero-padded."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  padding: int = 0, groups: int = 1, bias: bool = True,
@@ -48,8 +54,15 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                        self.padding, 1, self.groups)
+        w = self.weight.to(dt)
+        shard = spatial.current()
+        if shard is not None:
+            return shard.conv(
+                x.to(dt), w.shape[2], self.stride, self.padding,
+                lambda slab: F.conv2d(slab, w, bias, self.stride,
+                                      (0, self.padding), 1, self.groups))
+        return F.conv2d(x.to(dt), w, bias, self.stride, self.padding, 1,
+                        self.groups)
 
 
 class Dense(nn.Module):
@@ -104,8 +117,10 @@ class BatchNorm(nn.Module):
     ``parallel.mesh.place_train_state`` calls over several ranks) the
     train-mode statistics are those of the global batch, every rank's
     images, as in the JAX package's one SPMD program over a data mesh
-    (:class:`_CrossReplicaNorm`).  Without one, the layer is the
-    ``F.batch_norm`` path above.
+    (:class:`_CrossReplicaNorm`); with image rows over the model axis
+    (``spatial``) the group is the whole mesh, and each rank holds a block
+    of rows of its images, which may be empty.  Without one, the layer is
+    the ``F.batch_norm`` path above.
     """
 
     EPS, MOMENTUM = 1e-5, 0.9
@@ -160,7 +175,8 @@ def _global_moments(x: torch.Tensor, group):
     Each rank sends its count, mean and centred sum of squares, gathered,
     then combined in rank order in float64 (Chan et al.'s pairwise update),
     so that every rank computes the same bits and no sum of squares loses
-    the variance to cancellation.  A rank's float32 mean is off by up to
+    the variance to cancellation.  A rank may hold no element (an empty
+    block of rows): it sends a count of 0 and zeros.  A rank's float32 mean is off by up to
     half an ulp of its magnitude, and that error would enter the
     between-rank term of the combine to first order (2e-4 of the variance
     where the mean is 1e4 times the spread: ``tests/test_torch_parallel_tp.py``),
@@ -172,12 +188,13 @@ def _global_moments(x: torch.Tensor, group):
         xf = x.detach().to(torch.float32)
         dims = (0, 2, 3)
         n = float(xf.numel() // xf.shape[1])
-        mean = xf.mean(dims)
+        mean = xf.mean(dims) if n else xf.new_zeros(xf.shape[1])
         d = xf - mean[:, None, None]
         s1 = d.sum(dims).double()
         s2 = (d * d).sum(dims).double()
-        local = torch.stack([torch.full_like(s1, n), mean.double() + s1 / n,
-                             s2 - s1 * s1 / n])
+        local = torch.stack([torch.full_like(s1, n),
+                             mean.double() + s1 / max(n, 1.0),
+                             s2 - s1 * s1 / max(n, 1.0)])
         count, means, m2s = all_gather(local, group).unbind(1)
         total = count.sum(0)
         g_mean = (count * means).sum(0) / total

@@ -5,7 +5,8 @@ numerics: one PReLU per block with a single scalar slope, shared by every
 activation of the block; batch norm in the module's mode (batch statistics
 under ``.train()``, running ones under ``.eval()``); flax's ``SAME``
 padding, which for the 1x1 stride-2 shortcut convs pads nothing; a stem
-max pool that pads with -inf.  Submodules carry the flax names
+max pool that pads with -inf (on a row shard, only at the image's real
+top and bottom: ``parallel/spatial.py``).  Submodules carry the flax names
 (``conv1``, ``bn1``, ``relu``, ``ds_conv``, ``ds_norm``, ``layer{i}_{j}``).
 """
 
@@ -18,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from two_stage_object_detection_tpu_torch.models.layers import BatchNorm, Conv
+from two_stage_object_detection_tpu_torch.parallel import spatial
 
 
 class PReLU(nn.Module):
@@ -129,7 +131,7 @@ class ResNetFeatureExtraction(nn.Module):
         """``generator`` is the backbones' common train-mode argument; this
         one draws nothing."""
         x = self.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = spatial.max_pool(x, 3, 2, 1)
         taps = []
         for names in self.stages:
             for name in names:

@@ -53,6 +53,7 @@ from two_stage_object_detection_tpu_torch.ops.geometry import (
     clip_boxes, device_constant, loc2bbox)
 from two_stage_object_detection_tpu_torch.ops.nms import nms, topk_stable
 from two_stage_object_detection_tpu_torch.ops.proposals import proposals_batched
+from two_stage_object_detection_tpu_torch.parallel import spatial
 
 
 class FasterRCNN(nn.Module):
@@ -97,6 +98,9 @@ class FasterRCNN(nn.Module):
             anchors = make_anchors(cfg)
         self.register_buffer("anchors", torch.from_numpy(anchors),
                              persistent=False)
+        # image rows over a mesh's model axis (parallel/spatial.py), set by
+        # parallel.mesh.place_train_state(spatial=True); None: whole images
+        self.spatial = None
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(dev)
         if dev.type == "cuda":
@@ -123,9 +127,47 @@ class FasterRCNN(nn.Module):
                  generator: Optional[torch.Generator] = None):
         """Backbone (+ FPN neck) on ``[B, H, W, 3]`` images: the stride-16
         map, or (P2..P6) with ``cfg.fpn``; NCHW.  ``generator`` feeds the
-        train-mode dropout of HarDNet-85, the one backbone that has any."""
+        train-mode dropout of HarDNet-85, the one backbone that has any.
+
+        With :attr:`spatial` (image rows over the model axis) every rank
+        of the model group runs the backbone and neck on its block of rows
+        (``images`` are its data index's whole images, of which it takes
+        its rows, or already its rows, ``parallel.mesh.shard_batch_spatial``),
+        exchanging halos with the others, and then gathers the rows: every
+        rank of a process group returns the whole maps; of an in-process
+        group of threads (``Predictor(spatial=True)``) the lead alone does,
+        and the others return None (``parallel.spatial.Shard.gather``)."""
+        if self.spatial is None:
+            return self.local_features(images, generator)
+        h, w = self.cfg.input_size
+        shard = self.spatial.shard(h, w)
+        if images.shape[1] == h:
+            images = shard.own_image_rows(images)
+        with spatial.sharded(shard):
+            local = self.local_features(images, generator)
+        maps = shard.gather(local if self.cfg.fpn else (local,))
+        return maps if maps is None or self.cfg.fpn else maps[0]
+
+    def local_features(self, images: torch.Tensor,
+                       generator: Optional[torch.Generator] = None):
+        """:meth:`features` of the rows given, on the row shard active on
+        this thread (``parallel.spatial.sharded``; none: whole images)."""
         taps = self.extractor(images.permute(0, 3, 1, 2), generator)
         return self.neck(taps) if self.cfg.fpn else taps
+
+    def image_size(self, images: torch.Tensor):
+        """``(H, W)`` of the images ``images`` belong to: their own, or
+        with :attr:`spatial` those of ``cfg.input_size`` when ``images``
+        are a rank's block of rows."""
+        size = tuple(images.shape[1:3])
+        if self.spatial is not None and size != tuple(self.cfg.input_size):
+            h, w = self.cfg.input_size
+            if size != (h // self.spatial.size, w):
+                raise ValueError(
+                    f"images of {size} are neither cfg.input_size {(h, w)} "
+                    f"nor a rank's rows of it over {self.spatial.size}")
+            return (h, w)
+        return size
 
     def _check_anchor_contract(self, n_locs: int):
         n_anchors = self.anchors.shape[0]
@@ -177,7 +219,7 @@ class FasterRCNN(nn.Module):
         """
         cfg = self.cfg
         self.set_mode(train)
-        img_size = tuple(images.shape[1:3])
+        img_size = self.image_size(images)
         feats = self.features(images, generator)
         rpn_locs, rpn_scores = self.rpn_head(feats)
         # proposals are samples, not a differentiable function: the RPN
@@ -251,10 +293,15 @@ class FasterRCNN(nn.Module):
     # --------------------------------------------------------------- predict
     @torch.inference_mode()
     def predict(self, images: torch.Tensor, scale: float = 1.0):
-        """True inference: ``[B, H, W, 3] -> (boxes, scores, labels, valid)``."""
+        """True inference: ``[B, H, W, 3] -> (boxes, scores, labels, valid)``;
+        None on a row shard that is not its thread group's lead (see
+        :meth:`features`)."""
         if self.training:
             self.set_mode(False)
-        return self.detect(self.features(images), tuple(images.shape[1:3]), scale)
+        feats = self.features(images)
+        if feats is None:
+            return None
+        return self.detect(feats, self.image_size(images), scale)
 
     @torch.inference_mode()
     def detect(self, feats, img_size, scale: float = 1.0):

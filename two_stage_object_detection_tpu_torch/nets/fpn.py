@@ -33,18 +33,31 @@ from two_stage_object_detection_tpu_torch.ops.roi_pool import (
     roi_align_mm, scale_pairs)
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     multilevel_roi_align_hybrid_batched, windowed_roi_align_batched)
+from two_stage_object_detection_tpu_torch.parallel import spatial
 
 
-def _upsample2x_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Nearest 2x upsample of ``[B, C, h', w']`` cropped to ``(h, w)``."""
+def _upsample2x_to(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsample of ``[B, C, h', w']`` cropped to ``like``'s
+    map; on a row shard, ``like``'s rows of it, by global rows."""
+    shard = spatial.current()
+    if shard is not None:
+        return shard.upsample2x_to(x, like)
+    h, w = like.shape[2:4]
     return F.interpolate(x, scale_factor=2, mode="nearest")[:, :, :h, :w]
+
+
+def _subsample2x(x: torch.Tensor) -> torch.Tensor:
+    """``x[:, :, ::2, ::2]``; on a row shard, the whole map's even rows."""
+    shard = spatial.current()
+    return x[:, :, ::2, ::2] if shard is None else shard.subsample2x(x)
 
 
 class FPNNeck(nn.Module):
     """Lateral 1x1 + top-down pathway + 3x3 smoothing.
 
     ``(C2, C3, C4, C5) -> (P2, P3, P4, P5, P6)``, all ``channels`` wide;
-    P6 is ``P5[:, :, ::2, ::2]`` (a 1x1 stride-2 max pool).
+    P6 is ``P5[:, :, ::2, ::2]`` (a 1x1 stride-2 max pool).  On a row
+    shard (``parallel/spatial.py``) the upsample and P6 take global rows.
     """
 
     def __init__(self, in_channels: Sequence[int], channels: int = 256,
@@ -61,10 +74,9 @@ class FPNNeck(nn.Module):
         laterals = [getattr(self, f"lateral{i}")(c) for i, c in enumerate(taps)]
         outs = [laterals[-1]]
         for lat in laterals[-2::-1]:
-            outs.insert(0, lat + _upsample2x_to(outs[0], lat.shape[2],
-                                                lat.shape[3]))
+            outs.insert(0, lat + _upsample2x_to(outs[0], lat))
         ps = [getattr(self, f"smooth{i}")(o) for i, o in enumerate(outs)]
-        return (*ps, ps[-1][:, :, ::2, ::2])
+        return (*ps, _subsample2x(ps[-1]))
 
 
 class FPNRPNHead(nn.Module):

@@ -77,8 +77,8 @@ class TrainState:
     parameters' ``.grad``.  ``group``: the process group of a mesh's data
     axis (``parallel.mesh.place_train_state``), over whose ranks each
     update takes the mean gradient; None in one process.  ``model_group``:
-    that of its model axis, over which the tensor-parallel heads gather
-    (None without one).
+    that of its model axis, over which the tensor-parallel heads gather, or
+    the image rows are exchanged with ``spatial`` (None without one).
     """
 
     cfg: Config
@@ -139,11 +139,20 @@ def train_step(state: TrainState, batch: Dict,
     generator) before the samplers do.  Returns ``(state, losses)``;
     ``state`` is the one passed in, updated in place, and ``losses`` holds
     the five detached scalars.
+
+    With image rows over the mesh's model axis (``model.spatial``) the
+    batch is the data index's whole images, augmented whole; the model
+    takes the rank's rows in ``features``.  A batch already cut to the
+    rank's rows (``parallel.mesh.shard_batch_spatial``) trains too, but not
+    with ``device_augment``, which needs the whole images.
     """
     model, k = state.model, max(state.cfg.grad_accum_steps, 1)
     b = _to_device(batch, model.device)
     images, boxes = _images_f32(b["image"]), b["boxes"]
     if device_augment:
+        if tuple(images.shape[1:3]) != model.image_size(images):
+            raise ValueError("device_augment augments whole images: pass "
+                             "the data index's batch, not a rank's rows")
         images, boxes = augment_batch(images, boxes, generator)
     out = model.train_forward(images, boxes, b["labels"], b["valid"],
                               train=True, generator=generator)
@@ -176,7 +185,18 @@ def _all_reduce_mean(model, k: int, group, model_group=None) -> None:
     one over the whole mesh instead, divided by its size: the ranks of a
     model group read the same batch and hold the same gradient there, so
     it is the same mean, and every rank ends with the same bits even where
-    a CUDA backward is not bitwise deterministic across processes."""
+    a CUDA backward is not bitwise deterministic across processes.
+
+    With image rows over the model axis (``spatial``: nothing is split)
+    every gradient takes that whole-mesh reduction.  Each rank of a model
+    group computes the same loss from the gathered maps.  The heads run
+    after the gather, so a rank's head gradient is its data index's, once:
+    the group sums to ``n_model`` times it.  The gather's backward sums the
+    maps' gradients over the group, so a rank's backbone and neck gradient
+    is ``n_model`` times its rows' part of its data index's: the group sums
+    to ``n_model`` times the whole.  Divided by the mesh's size, the sum
+    over the mesh is then the data indices' mean gradient, as without a
+    model axis."""
     from two_stage_object_detection_tpu_torch.parallel.sharding import (
         split_parameters)
     split = set(split_parameters(model))

@@ -18,14 +18,20 @@ parameters because the whole train step is one program.  Here a
   :class:`~..serving.Predictor`, which splits each bucket's rows over the
   data axis.
 
-Image rows over ``model`` (``spatial``) are not ported yet: asking for them
-raises ``NotImplementedError`` naming their ROADMAP.md entry.
+The model axis carries either the tensor-parallel heads or, with
+``spatial``, image rows: :func:`auto_mesh_spatial` builds that mesh with
+the JAX package's arithmetic, :func:`shard_batch_spatial` gives a rank its
+rows, and ``place_train_state(spatial=True)`` replicates the parameters and
+lets the model's backbone and neck run on the rank's rows, exchanging halos
+over the model group (:mod:`.spatial`).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import logging
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -35,14 +41,7 @@ from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
     all_reduce_, broadcast_, put_global, put_local, rank, rank_device,
     world_size)
 
-MODEL_AXIS = ("image rows over the model axis (spatial sharding of "
-              "parallel/, with a halo exchange at every 3x3 convolution and "
-              "pooling window) are the last module of the port still to "
-              "come (ROADMAP.md, 'Modules to port', item C)")
-
-
-def model_axis_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {MODEL_AXIS}")
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -193,14 +192,63 @@ def auto_mesh(batch_size: int, n_model: int = 1,
                                                         devs)
 
 
-def auto_mesh_spatial(batch_size: int, devices=None):
-    """The data + spatial mesh: image rows over ``model``; not ported."""
-    raise model_axis_unported("auto_mesh_spatial")
+def spatial_axes(batch_size: int, n_devices: int) -> Tuple[int, int]:
+    """``(n_data, n_model)`` of the JAX package's ``auto_mesh_spatial``:
+    ``data`` is the largest divisor of the batch that also divides the
+    device count (batch 6 on 8 devices: 2, not 6 with two devices idle),
+    ``model`` every remaining device."""
+    n_data = max(d for d in range(1, n_devices + 1)
+                 if batch_size % d == 0 and n_devices % d == 0)
+    return n_data, n_devices // n_data
 
 
-def shard_batch_spatial(batch, mesh: Mesh, local: bool = True):
-    """Batch over ``data``, image rows over ``model``; not ported."""
-    raise model_axis_unported("shard_batch_spatial")
+def model_axis_local(n_model: int) -> bool:
+    """Whether a model axis of ``n_model`` ranks stays within a node
+    (torchrun's ``LOCAL_WORLD_SIZE``, a multiple of it; without torchrun
+    the ranks are taken to share one).  Warns when it would not: the port's
+    form of the JAX package's fallback to data parallelism when spatial
+    would span processes (its ``train.py``)."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size()))
+    if local % n_model == 0:
+        return True
+    log.warning("spatial=True: a model axis of %d ranks would cross nodes "
+                "(%d ranks a node) — using data parallelism", n_model, local)
+    return False
+
+
+def auto_mesh_spatial(batch_size: int, devices=None) -> Optional[Mesh]:
+    """The data + spatial mesh: :func:`spatial_axes` over every rank under
+    ``torch.distributed`` (``devices``: this rank's), else over ``devices``
+    of this process (default: every CUDA device); image height goes over
+    its ``model`` axis (:func:`shard_batch_spatial`).  None on one device."""
+    if dist.is_initialized():
+        n = world_size()
+        return (None if n <= 1 else
+                make_mesh(*spatial_axes(batch_size, n), devices=devices))
+    devs = list(devices) if devices is not None else _local_devices()
+    if len(devs) <= 1:
+        return None
+    return make_mesh(*spatial_axes(batch_size, len(devs)), devices=devs)
+
+
+def shard_batch_spatial(batch, mesh: Mesh, local: bool = True
+                        ) -> Dict[str, torch.Tensor]:
+    """Batch over ``data``, image rows over ``model``: this rank's data
+    shard of every leaf (:func:`shard_batch`'s ``local`` convention) and,
+    of each 4-D (image) leaf, only its block of rows: the rank's
+    ``1 / n_model`` of the height, which must divide, as the JAX package's
+    placement requires.  A mesh over processes only."""
+    if mesh.group is None:
+        raise ValueError("shard_batch_spatial places a rank's rows: pass a "
+                         "mesh over processes")
+    from two_stage_object_detection_tpu_torch.parallel.spatial import (
+        split_rows)
+    out = shard_batch(batch, mesh, local)
+    for k, v in out.items():
+        if v.dim() == 4:
+            e = split_rows(v.shape[1], mesh.shape["model"])
+            out[k] = v[:, e[mesh.model_index]:e[mesh.model_index + 1]]
+    return out
 
 
 def shard_batch(batch: Dict, mesh: Mesh, local: bool = True
@@ -292,7 +340,8 @@ def assert_replicated(tensors: Sequence[torch.Tensor], group=None) -> None:
                 f"a tensor of shape {tuple(t.shape)} differs across ranks")
 
 
-def place_train_state(state, mesh: Mesh, debug: bool = False):
+def place_train_state(state, mesh: Mesh, debug: bool = False,
+                      spatial: bool = False):
     """Put a :class:`~..nets.trainer.TrainState` on a mesh over processes.
 
     Broadcasts rank 0's parameters, buffers and optimiser state to every
@@ -303,26 +352,44 @@ def place_train_state(state, mesh: Mesh, debug: bool = False):
     (cross-replica statistics, ``models/layers.py``).  With a model axis,
     each rank then keeps its slice of every parameter the tensor-parallel
     rules split, and the optimiser is rebuilt over the slices
-    (:func:`~.sharding.shard_train_state`).  ``debug`` then asserts that
-    the ranks of each data group hold the same bits, and those of each
-    model group the same replicated bits.  Returns ``state``.
+    (:func:`~.sharding.shard_train_state`).
+
+    ``spatial`` (with a model axis): the model axis carries image rows
+    instead, as the JAX package's ``train(spatial=True)`` replicates its
+    state.  Nothing is split; the model's backbone and neck run on the
+    rank's rows over the model group (``FasterRCNN.spatial``,
+    :mod:`.spatial`), every batch norm takes the whole mesh (a data
+    index's images are split over its model group), and the gradient is
+    reduced over the whole mesh.
+
+    ``debug`` then asserts that the ranks of each data group hold the same
+    bits, and those of each model group the same replicated bits.  Returns
+    ``state``.
     """
     from two_stage_object_detection_tpu_torch.models.layers import (
         set_data_group)
     from two_stage_object_detection_tpu_torch.parallel.sharding import (
         shard_train_state)
+    from two_stage_object_detection_tpu_torch.parallel.spatial import (
+        GroupTransport, SpatialAxis)
     if mesh.group is None:
         raise ValueError("place_train_state needs a mesh over processes, one "
                          "device each (launch under torchrun)")
     if state.model.device != mesh.device:
         raise ValueError(f"the state is on {state.model.device}, this rank's "
                          f"mesh device is {mesh.device}")
+    spatial = spatial and mesh.model_group is not None
     with torch.no_grad():
         _coalesced(state_tensors(state), lambda flat: broadcast_(flat, 0))
     state.group, state.model_group = mesh.group, mesh.model_group
-    set_data_group(state.model, mesh.group if mesh.processes > 1 else None)
-    if mesh.model_group is not None:
-        shard_train_state(state, mesh)
+    if spatial:
+        state.model.spatial = SpatialAxis(GroupTransport(mesh.model_group))
+        set_data_group(state.model, dist.group.WORLD)
+    else:
+        set_data_group(state.model, mesh.group if mesh.processes > 1
+                       else None)
+        if mesh.model_group is not None:
+            shard_train_state(state, mesh)
     if debug:
         assert_replicated(state_tensors(state), mesh.group)
         if mesh.model_group is not None:

@@ -43,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from two_stage_object_detection_tpu_torch.models.layers import Conv
+from two_stage_object_detection_tpu_torch.parallel import spatial
 from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
 
 __all__ = ["calibrate", "quantized", "filter_scales", "int8_conv",
@@ -70,10 +71,11 @@ def quantize_input(x: torch.Tensor, s_x: float) -> torch.Tensor:
 
 
 def conv_int32_reference(x_q: torch.Tensor, w_q: torch.Tensor, stride: int,
-                         padding: int) -> torch.Tensor:
+                         padding) -> torch.Tensor:
     """Plain version of :func:`conv_int32`: a float64 convolution of the
     int8 values, exact below 2^53; ``[N, C, H, W]`` int8 and ``[O, C, kh,
-    kw]`` int8 -> ``[N, O, OH, OW]`` int32."""
+    kw]`` int8 -> ``[N, O, OH, OW]`` int32.  ``padding``: one size, or
+    ``(rows, columns)``."""
     acc = F.conv2d(x_q.to(torch.float64), w_q.to(torch.float64), None,
                    stride, padding)
     return acc.to(torch.int32)
@@ -89,7 +91,7 @@ def _pad_to(t: torch.Tensor, dim: int, multiple: int, least: int = 0):
 
 
 def conv_int32(x_q: torch.Tensor, w_q: torch.Tensor, stride: int,
-               padding: int) -> torch.Tensor:
+               padding) -> torch.Tensor:
     """Int8 x int8 -> int32 convolution, NCHW.
 
     On a CUDA tensor: im2col of the padded int8 input (``Tensor.unfold``
@@ -104,7 +106,8 @@ def conv_int32(x_q: torch.Tensor, w_q: torch.Tensor, stride: int,
         return conv_int32_reference(x_q, w_q, stride, padding)
     n, c, _, _ = x_q.shape
     o, _, kh, kw = w_q.shape
-    xp = F.pad(x_q, (padding,) * 4) if padding else x_q
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    xp = F.pad(x_q, (pw, pw, ph, ph)) if ph or pw else x_q
     cols = xp.unfold(2, kh, stride).unfold(3, kw, stride)  # [N,C,OH,OW,kh,kw]
     oh, ow = cols.shape[2:4]
     a = cols.permute(0, 2, 3, 1, 4, 5).reshape(n * oh * ow, c * kh * kw)
@@ -119,9 +122,19 @@ def conv_int32(x_q: torch.Tensor, w_q: torch.Tensor, stride: int,
 def int8_conv(conv: Conv, x: torch.Tensor, s_x: float) -> torch.Tensor:
     """The quantized forward of ``conv`` on ``x``: int8 operands, int32
     accumulation, ``acc * (s_w * s_x) + bias`` in float32, cast to the
-    conv's compute dtype (the JAX ``_quantized_conv``)."""
+    conv's compute dtype (the JAX ``_quantized_conv``).  On a row shard
+    (``parallel/spatial.py``) it runs on the shard's rows and halo, as the
+    float conv does."""
     w_q, s_w = quantize_weight(conv.weight)
-    acc = conv_int32(quantize_input(x, s_x), w_q, conv.stride, conv.padding)
+    shard = spatial.current()
+    if shard is not None:
+        acc = shard.conv(x, w_q.shape[2], conv.stride, conv.padding,
+                         lambda slab: conv_int32(
+                             quantize_input(slab, s_x), w_q, conv.stride,
+                             (0, conv.padding)))
+    else:
+        acc = conv_int32(quantize_input(x, s_x), w_q, conv.stride,
+                         conv.padding)
     y = acc.to(torch.float32) * (s_w * s_x)[:, None, None]
     if conv.bias is not None:
         y = y + conv.bias.to(torch.float32)[:, None, None]

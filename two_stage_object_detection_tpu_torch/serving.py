@@ -29,15 +29,18 @@ JAX package's flax variables as numpy trees.  ``mesh`` (a
 :class:`~.parallel.mesh.Mesh` over devices of this process) serves from one
 replica of the weights a data index, each bucket the data axis divides
 split along the batch over them (a model axis adds no replica: the
-parameters stay whole, as in the JAX package's ``Predictor``); ``spatial``
-(image rows over the mesh's model axis) is not ported and raises, naming
-ROADMAP.md's ``parallel/`` entry.
+parameters stay whole, as in the JAX package's ``Predictor``); with
+``spatial`` a bucket's images are also split by rows over the model axis,
+one worker thread a device, whose backbones and necks exchange halos
+(``parallel/spatial.py``).
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
+import copy
 import os
 import threading
 import time
@@ -146,8 +149,16 @@ class Predictor:
         replica.  A model axis splits nothing: the parameters stay
         replicated and a bucket splits over ``data`` only, as the JAX
         package's ``Predictor`` shards it without ``spatial``.
-      spatial: image rows over the mesh's model axis; not ported
-        (``parallel/``, ROADMAP.md): raises.
+      spatial: with a ``mesh`` whose model axis divides the image height,
+        and not on the yuv420 wire (its planes stack luma and chroma rows),
+        each bucket the data axis divides is also split by image rows over
+        ``model``, as the JAX package's ``P("data", "model")``: one worker
+        thread a device of the grid, each with its own copy of the weights,
+        runs the predict on its rows: ``FasterRCNN.features`` exchanges the
+        halos with the others of its data index through the in-process
+        transport of ``parallel/spatial.py`` and gathers the maps onto the
+        data index's first device, whose worker runs the heads and answers.
+        Other buckets run as without ``spatial``.
       int8_scales: per-conv input absmax from :func:`quantize.calibrate`;
         the dense convs listed run in int8 (``quantize.quantized``).
       calibrate: time every bucket (5 runs on host inputs, outputs fetched,
@@ -167,9 +178,7 @@ class Predictor:
                  spatial: bool = False, int8_scales: Mapping | None = None,
                  calibrate: bool = False, wire: str = "f32"):
         from two_stage_object_detection_tpu_torch.parallel.mesh import (
-            Mesh, model_axis_unported, replicate)
-        if spatial:
-            raise model_axis_unported("Predictor(spatial=True)")
+            Mesh, replicate)
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
                             f"{type(mesh).__name__}")
@@ -184,6 +193,16 @@ class Predictor:
                              f"{(h, w)}")
         self.cfg = cfg
         self.model = model
+        n_model = 1 if mesh is None else mesh.shape["model"]
+        self.spatial = (spatial and n_model > 1 and h % n_model == 0
+                        and wire != "yuv420")
+        if self.spatial:
+            # a copy of the weights a worker, even where the grid repeats a
+            # device: each copy's `spatial` names its worker's shard
+            self._grid = [copy.deepcopy(model).to(d) for d in mesh.devices]
+            self._n_data, self._n_model = mesh.shape["data"], n_model
+            self._workers = concurrent.futures.ThreadPoolExecutor(
+                len(self._grid), thread_name_prefix="spatial-rows")
         self.replicas = [model] if mesh is None else replicate(model, mesh)
         self.wire = wire
         self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
@@ -268,17 +287,69 @@ class Predictor:
         self._plan_memo[n] = tuple(plan)
         return self._plan_memo[n]
 
+    def _to_float(self, x: torch.Tensor) -> torch.Tensor:
+        """The wire's conversion on the device: [0, 1] float images."""
+        if self.wire == "u8":
+            return div_exact(x.to(torch.float32), 255.0)
+        if self.wire == "yuv420":
+            return _yuv420_unpack(x, *self.cfg.input_size)
+        return x
+
+    def _int8_on(self, models) -> contextlib.ExitStack:
+        """The int8 convs of ``models`` switched on (each module once)."""
+        stack = contextlib.ExitStack()
+        if self._int8 is not None:
+            from two_stage_object_detection_tpu_torch.quantize import (
+                quantized)
+            for m in {id(m): m for m in models}.values():
+                stack.enter_context(quantized(m, self._int8))
+        return stack
+
     def _predict(self, model: FasterRCNN, x: torch.Tensor):
         """The wire's conversion on the device, then ``model``'s predict."""
-        if self.wire == "u8":
-            x = div_exact(x.to(torch.float32), 255.0)
-        elif self.wire == "yuv420":
-            x = _yuv420_unpack(x, *self.cfg.input_size)
-        if self._int8 is None:
-            return model.predict(x)
-        from two_stage_object_detection_tpu_torch.quantize import quantized
-        with quantized(model, self._int8):
-            return model.predict(x)
+        with self._int8_on([model]):
+            return model.predict(self._to_float(x))
+
+    def _shard_predict(self, model: FasterRCNN, x: torch.Tensor):
+        """One worker of a spatial bucket: ``model``'s predict on its shard's
+        rows of ``x`` (its data index's images, host memory).  The lead
+        shard's outputs (on the card copied back as in :meth:`_enqueue`);
+        the others', None."""
+        dev = model.device
+        try:
+            with torch.inference_mode(), (
+                    torch.cuda.device(dev) if dev.type == "cuda"
+                    else contextlib.nullcontext()):
+                x = model.spatial.shard(*self.cfg.input_size) \
+                    .own_image_rows(x)
+                res = self._predict(model, x.to(dev, non_blocking=True))
+                if res is None or dev.type != "cuda":
+                    return res, None
+                return (tuple(t.to("cpu", non_blocking=True) for t in res),
+                        torch.cuda.current_stream(dev).record_event())
+        except BaseException:
+            model.spatial.transport.group.abort()   # release the others
+            raise
+
+    def _enqueue_spatial(self, bucket: int, host: torch.Tensor):
+        """Start a spatial bucket run on ``host`` (the padded bucket): each
+        data index's images over its row of the grid, one worker thread a
+        device (a new group of shards a bucket, so a failed worker leaves
+        no broken barrier behind); each data index's lead worker's
+        outputs."""
+        from two_stage_object_detection_tpu_torch.parallel import spatial
+        nd, nm = self._n_data, self._n_model
+        rows = bucket // nd
+        futures = []
+        for d in range(nd):
+            group = spatial.ThreadGroup(nm)
+            for m in range(nm):
+                model = self._grid[d * nm + m]
+                model.spatial = spatial.SpatialAxis(group.transport(m))
+                futures.append(self._workers.submit(
+                    self._shard_predict, model,
+                    host[d * rows:(d + 1) * rows]))
+        return [f.result() for f in futures][::nm]
 
     def _enqueue(self, bucket: int, chunk: np.ndarray):
         """Start one bucket run on ``chunk`` (at most ``bucket`` wire
@@ -297,6 +368,8 @@ class Predictor:
             host[take:] = 0
             if self.wire == "yuv420":
                 host[take:, self.cfg.input_size[0]:] = 128   # zero chroma
+        if self.spatial and bucket % self._n_data == 0:
+            return take, self._enqueue_spatial(bucket, host)
         n = len(self.replicas) if bucket % len(self.replicas) == 0 else 1
         rows = bucket // n
         parts = []

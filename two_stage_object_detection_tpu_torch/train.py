@@ -17,9 +17,9 @@ Several devices: one process each (``torchrun``, or
 every epoch, its batch norms take the global batch's statistics, and each
 update all-reduces the gradient; a mesh with a model axis
 (``make_mesh(n_data, n_model)``) also splits the dense heads over the ranks
-of each model group (``parallel/sharding.py``).  Not ported: ``spatial``
-sharding (image rows over the model axis); it raises
-``NotImplementedError`` naming its ROADMAP.md entry.
+of each model group (``parallel/sharding.py``), or with ``spatial`` carries
+image rows: the ranks of a model group read the same batch and each runs
+the backbone and neck on its rows (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ from two_stage_object_detection_tpu_torch.eval.evaluator import evaluate_sweep
 from two_stage_object_detection_tpu_torch.nets.trainer import (
     create_train_state, train_step)
 from two_stage_object_detection_tpu_torch.parallel.mesh import (
-    Mesh, auto_mesh, model_axis_unported, place_train_state)
+    Mesh, auto_mesh, auto_mesh_spatial, make_mesh, model_axis_local,
+    place_train_state, spatial_axes)
 from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
     all_reduce_, init_distributed, rank, world_size)
 from two_stage_object_detection_tpu_torch.utils import checkpoint as ckpt
@@ -62,7 +63,10 @@ def step_generator(seed: int, epoch: int, step: int, device,
     function of ``(seed, epoch, step)``, as the JAX package's
     ``fold_in(fold_in(rng, epoch), step)``, so that a resumed run draws what
     an uninterrupted one draws; rank ``r > 0`` of a data mesh folds ``r`` in
-    as well, so the ranks draw apart and each resumes exactly."""
+    as well, so the ranks draw apart and each resumes exactly.  ``train()``
+    passes the data index (the rank in the data group), so the ranks of a
+    model group, which read the same batch, draw alike: the same samples
+    and, with image rows over the model axis, the same augmentation."""
     key = (seed, epoch, step) + ((rank,) if rank else ())
     s = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(s) >> 1)
@@ -77,8 +81,9 @@ def build_loaders(cfg: Config, data_root: str = "data",
     of ``mesh``.  Returns ``(train_loader, eval_loader, eval_index)``.
 
     Over a mesh of several processes each rank's train loader yields its
-    shard of every epoch (``shard_count`` / ``shard_index``: the same
-    seeded order everywhere, a strided slice each, equal lengths).  The
+    data index's shard of every epoch (``shard_count`` / ``shard_index``:
+    the same seeded order everywhere, a strided slice each, equal
+    lengths).  The
     eval loader is not sharded: every rank iterates the full eval set, so
     the metrics and the ``_best`` decision keyed on them are the same on
     every rank (the evaluator splits each batch's rows over the ranks and
@@ -90,7 +95,9 @@ def build_loaders(cfg: Config, data_root: str = "data",
     the device (:class:`~.data.device_cache.DeviceDatasetCache`); if they
     exceed ``cache_device_max_bytes``, a warning and the streaming loaders,
     as in the JAX package.  Under a mesh every rank holds both sets on its
-    own card.
+    own card (replicated, as the JAX package holds the cache under
+    ``spatial``), and the ranks of a model group, which share a data index,
+    gather the same batches.
     """
     if cfg.cache_device and not cfg.device_augment:
         raise ValueError("cache_device=True requires device_augment=True "
@@ -157,8 +164,18 @@ def train(visualization: bool = True, cfg: Optional[Config] = None,
     (``make_mesh(n_data, n_model)``) the ranks of a model group read the
     same batch and split the dense heads, and the checkpoints hold the
     full layout.  The eval splits each batch over the data axis only.
-    ``spatial=True`` (image rows over the mesh's model axis) raises: it is
-    not ported.
+
+    ``spatial``: shard image height over the mesh's model axis as well
+    (small batches of large images: a batch smaller than the rank count
+    still uses every rank).  With ``mesh="auto"`` the mesh is then
+    :func:`~.parallel.mesh.auto_mesh_spatial`'s; the parameters are
+    replicated, the ranks of a model group read the same batch (its
+    augmentation drawn for the data index, before the rows are split) and
+    exchange halos (``parallel/spatial.py``), and every batch norm takes
+    the whole mesh.  A model axis that would cross nodes (torchrun's
+    ``LOCAL_WORLD_SIZE`` not a multiple of it) falls back to data
+    parallelism with a warning, as the JAX package falls back over several
+    processes.  On a mesh with no model axis it changes nothing.
 
     ``resume``: restore the full train state (parameters, batch-norm
     statistics, optimiser moments, counters) from the ``_last`` checkpoint
@@ -197,12 +214,15 @@ def train(visualization: bool = True, cfg: Optional[Config] = None,
     batch's; ``images`` counts every rank's).
     """
     cfg = cfg or load_config()
-    if spatial:
-        raise model_axis_unported("train(spatial=True)")
     if mesh == "auto":
         init_distributed(device=cfg.device)
-        mesh = (auto_mesh(cfg.batch_size, devices=[cfg.device])
-                if world_size() > 1 else None)
+        n = world_size()
+        spatial = spatial and n > 1 and model_axis_local(
+            spatial_axes(cfg.batch_size, n)[1])
+        mesh = (None if n <= 1 else
+                auto_mesh_spatial(cfg.batch_size, devices=[cfg.device])
+                if spatial else
+                auto_mesh(cfg.batch_size, devices=[cfg.device]))
     elif mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be 'auto', None or a parallel.mesh.Mesh, "
                         f"got {type(mesh).__name__}")
@@ -210,29 +230,33 @@ def train(visualization: bool = True, cfg: Optional[Config] = None,
         raise ValueError("train() runs one process a device: a mesh over "
                          "several devices of one process does not train; "
                          "launch one process per device (torchrun)")
+    spatial = spatial and mesh is not None and mesh.shape["model"] > 1
+    if spatial and not model_axis_local(mesh.shape["model"]):
+        spatial, mesh = False, make_mesh(devices=[mesh.device])
     dev = resolve_device(cfg.device) if mesh is None else mesh.device
     set_seed(seed)
 
     train_loader, eval_loader, _ = build_loaders(cfg, data_root, mesh)
     try:
-        return _run(visualization, cfg, dev, mesh, train_loader, eval_loader,
-                    weights_dir, pre_train, resume, eval_period, seed,
-                    guard or PreemptionGuard())
+        return _run(visualization, cfg, dev, mesh, spatial, train_loader,
+                    eval_loader, weights_dir, pre_train, resume, eval_period,
+                    seed, guard or PreemptionGuard())
     finally:
         train_loader.close()
         eval_loader.close()
 
 
-def _run(visualization, cfg, dev, mesh, train_loader, eval_loader,
+def _run(visualization, cfg, dev, mesh, spatial, train_loader, eval_loader,
          weights_dir, pre_train, resume, eval_period, seed, guard):
     steps_per_epoch = max(len(train_loader), 1)
     _, state = create_train_state(cfg, seed=seed,
                                   steps_per_epoch=steps_per_epoch, device=dev)
     if mesh is not None:
-        place_train_state(state, mesh)
+        place_train_state(state, mesh, spatial=spatial)
         log.info("training on %d ranks, mesh=%s, data index %d, model "
-                 "index %d on %s", world_size(), mesh.shape,
-                 mesh.data_index, mesh.model_index, dev)
+                 "index %d on %s%s", world_size(), mesh.shape,
+                 mesh.data_index, mesh.model_index, dev,
+                 " (spatial: image height over 'model')" if spatial else "")
     group = None if mesh is None else mesh.group
     lead = rank() == 0              # writes the sidecar; rank 0 checkpoints
     os.makedirs(weights_dir, exist_ok=True)

@@ -29,8 +29,11 @@ many data indices as the save had).  With a model axis each rank holds
 slices of the split dense heads (``parallel/sharding.py``): a save gathers
 them, their optimiser moments and gradients into the full layout, so a
 tensor-parallel checkpoint loads into one process and one process's into
-a mesh, and a restore cuts each rank's slices back out.  Every rank
-restores from the same file.
+a mesh, and a restore cuts each rank's slices back out.  With image rows
+over the model axis (``spatial``) the parameters are whole on every rank,
+but each rank's open-cycle gradient is its own (its rows' part of the
+backbone's): a save keeps one dict a rank.  Every rank restores from the
+same file.
 """
 
 from __future__ import annotations
@@ -63,10 +66,17 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
+def _accum_group(state):
+    """The ranks whose open-cycle gradients differ: the data group, or with
+    image rows over the model axis every rank (a rank holds its rows'
+    part of the backbone's gradient), the default group."""
+    return None if state.model.spatial is not None else state.group
+
+
 def _ranks(state) -> int:
     from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
         world_size)
-    return 1 if state.group is None else world_size(state.group)
+    return 1 if state.group is None else world_size(_accum_group(state))
 
 
 def _accum(state):
@@ -83,7 +93,8 @@ def _accum(state):
         return {n: _to_host(g) for n, g in named}
     from two_stage_object_detection_tpu_torch.parallel.multiprocess import (
         all_gather)
-    gathered = [(n, _to_host(all_gather(g, state.group))) for n, g in named]
+    gathered = [(n, _to_host(all_gather(g, _accum_group(state))))
+                for n, g in named]
     return [{n: g[r] for n, g in gathered} for r in range(_ranks(state))]
 
 
@@ -196,7 +207,7 @@ def restore_checkpoint(path: str, state, name: str = BEST,
                     f"rank(s); resume it with as many, not {_ranks(state)}")
             from two_stage_object_detection_tpu_torch.parallel.multiprocess \
                 import rank
-            accum = accum[rank(state.group)]
+            accum = accum[rank(_accum_group(state))]
         split = split_parameters(state.model)
         for n, p in state.model.named_parameters():
             g = accum.get(n)
