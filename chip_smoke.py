@@ -225,6 +225,36 @@ Then the spatial phase (image rows over the model axis,
   memory beside one process's.  Every shard shares the one card: no time
   here is a multi-card speed.
 
+Last, the quality phase: the JAX package's training-quality recipes
+(``scripts/overfit_check.py``, ``overfit_resident.py`` and
+``ablate_real_fixture.py``) through ``scripts/torch_quality.py``, in
+bf16 from seeded weights, each with the launch counters set to 0 just
+before it:
+
+* q1-q3, ``overfit`` (4 synthetic 320x320 images, b=4, 300 steps):
+  HarDNet-39 ``pool`` with ``roi_bwd="pallas"`` (kernels 3, 5 and 6 must
+  launch while it trains, 5b not), with ``pallas_roi=True`` (3, 5 and 5b;
+  6 not) and the ResNet-50 FPN (1 and 2, the forward of the hybrid
+  RoIAlign); q1p, the twin of q1 and q2 with the plain backward
+  (``roi_bwd="xla"``: 3 and 5, neither 6 nor 5b), whose loss curve is
+  printed beside theirs with the largest gap;
+* q4, ``overfit-resident`` (HarDNet-39s ``align``, 60 cycles of 8
+  micro-steps through ``train_macro_step_resident`` over a
+  ``DeviceDatasetCache`` on the card, augmented there): kernel 3, and the
+  state must count its 480 micro-steps, in cycles of 8 totals, from a
+  cache on the card;
+* q5-q7, ``real`` (the three JPEGs of ``tests/data/real_coco`` at 600x600,
+  ResNet-50, b=3, 400 steps of host-augmented batches): ``single`` (kernel
+  3), ``fpn`` and ``fpn_locnorm`` (1 and 2; the window's coverage of the
+  test-time proposals printed).
+
+Each run's true-inference mAP@0.5 must clear its bar (> 0.3 for q1-q4
+and q1p, the JAX script's assert; >= 0.5 for q5-q7), every loss of every step
+be finite and the last logged total lie below the first.  Each prints
+its mAPs, losses, seconds and images a second beside the mAPs the JAX
+package recorded on the TPU.  These launches stay out of the kernels
+line.
+
 Every check raises on failure, so any failed phase exits nonzero; a rank
 that raises fails the phase.
 
@@ -3697,6 +3727,134 @@ def spatial(smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ quality
+# (run, command of scripts/torch_quality.py, its recipe's arguments, Config
+# fields set over the recipe, kernels that must launch while it trains,
+# kernels that must not, the true-inference mAP@0.5 (and @0.75) that the
+# JAX package recorded on the TPU and where); q1 and q2 tell kernel 5's two
+# routes apart by their backward kernels: 6 recomputes from the values, 5b
+# scatters at the index; q1p is their twin with the plain backward
+# (roi_bwd="xla", neither kernel), the control their loss curves are read
+# against
+_POOL_BWD = ("roi_pool_bwd_recompute", "roi_pool_bwd_scatter")
+QUALITY_RUNS = (
+    ("q1", "overfit", dict(backbone="hardnet39"), dict(roi_bwd="pallas"),
+     ("fused_proposals_batched", "roi_pool_max", "roi_pool_bwd_recompute"),
+     ("roi_pool_bwd_scatter",), "1.0 (README.md:194-196)"),
+    ("q2", "overfit", dict(backbone="hardnet39"), dict(pallas_roi=True),
+     ("fused_proposals_batched", "roi_pool_max", "roi_pool_bwd_scatter"),
+     ("roi_pool_bwd_recompute",), "1.0 (README.md:194-196)"),
+    ("q1p", "overfit", dict(backbone="hardnet39"), dict(roi_bwd="xla"),
+     ("fused_proposals_batched", "roi_pool_max"), _POOL_BWD,
+     "1.0 (README.md:194-196)"),
+    ("q3", "overfit", dict(backbone="resnet50-fpn"), dict(),
+     ("greedy_nms", "windowed_align"), (),
+     "1.0 at 400 steps (BASELINE.md:149-151)"),
+    ("q4", "overfit-resident", dict(), dict(), ("fused_proposals_batched",),
+     (), "0.852 (docs/DESIGN.md:344-347)"),
+    ("q5", "real", dict(variant="single"), dict(),
+     ("fused_proposals_batched",), (), "0.8278 / 0.1667 (ABLATE_REAL.json)"),
+    ("q6", "real", dict(variant="fpn"), dict(),
+     ("greedy_nms", "windowed_align"), (), "1.0 / 0.75 (ABLATE_REAL.json)"),
+    ("q7", "real", dict(variant="fpn_locnorm"), dict(),
+     ("greedy_nms", "windowed_align"), (), "1.0 / 1.0 (ABLATE_REAL.json)"))
+
+
+def torch_quality():
+    """``scripts/torch_quality.py`` of this checkout, as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_quality.py")
+    spec = importlib.util.spec_from_file_location("torch_quality", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quality(smi: str) -> dict:
+    """The quality phase: the JAX package's training-quality recipes
+    through ``scripts/torch_quality.py``'s ``run`` (see the module
+    docstring), in bf16 from seeded weights.  Each run's launch counters are
+    set to 0 just before it and read when it has trained (its kernels must
+    have launched, and the other backward kernel not) and after its
+    evaluation.  Every run is reported, then q1's and q2's loss curves
+    beside q1p's; the phase fails if any run missed its bar."""
+    tq = torch_quality()
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = False
+    out, bad = {}, []
+    for q, command, kw, sets, expect, absent, jax_rec in QUALITY_RUNS:
+        name = " ".join([command] + [f"{k}={v}" for k, v in
+                                     {**kw, **sets}.items()])
+        log(f"=== quality {q}: {name} ===")
+        cs = counters()
+        for fn in cs.values():
+            fn.launches = 0
+        trained = {}
+        res = tq.run(command, sets=sets, log=log, on_trained=lambda: (
+            trained.update({k: fn.launches for k, fn in cs.items()})), **kw)
+        launches = {k: fn.launches for k, fn in cs.items()}
+        fails = [f"{q} {f}" for f in res["failures"]]
+        if res["compute_dtype"] != "bfloat16":
+            fails.append(f"{q}: trained in {res['compute_dtype']}, not bf16")
+        fails += [f"{q}: {k} did not launch while training" for k in expect
+                  if not trained.get(k)]
+        fails += [f"{q}: {k} launched while training" for k in absent
+                  if trained.get(k)]
+        if command == "overfit-resident":
+            n = tq.COMMANDS[command][2] * tq.K     # the recipe's cycles
+            if (res["micro_steps"] != n or res["cycle_totals"] != tq.K
+                    or not res["cache_device"].startswith("cuda")):
+                fails.append(f"{q}: the state counted {res['micro_steps']} "
+                             f"micro-steps in cycles of "
+                             f"{res['cycle_totals']} from a cache on "
+                             f"{res['cache_device']}, not {n} in cycles of "
+                             f"{tq.K} of the resident loop on the card")
+        rec_out = tq.record(res)
+        rec_out.update(run=name, launches_in_training=trained,
+                       launches=launches, failures=fails,
+                       jax_recorded_tpu=jax_rec)
+        out[q] = rec_out
+        m75 = f", mAP@0.75 {res['map75']:.4f}" if "map75" in res else ""
+        cov = res.get("window_coverage")
+        log(f"{q} {name}: mAP@0.5 {res['map50']:.4f}{m75}; loss "
+            f"{res['first_loss']:.4f} -> {res['final_loss']:.4f} (finite: "
+            f"{res['all_finite']}); {res['train_seconds']:.1f} s, "
+            f"{res['images_per_s']:.1f} img/s; launches while training "
+            f"{ {k: n for k, n in trained.items() if n} }"
+            + (f"; window coverage {cov['covered']}/{cov['proposals']}"
+               if cov else "")
+            + f"; the JAX package recorded on the TPU: {jax_rec}")
+        for f in fails:
+            log(f"FAIL {f}")
+        bad += fails
+        del res
+        torch.cuda.empty_cache()
+    # the kernels' backward against the plain one: the same weights, batch
+    # and generator seeds, so the curves part only where the two backward
+    # rules differ (a tied maximum's cotangent to its first element, or
+    # shared) and by rounding, and by what training makes of that
+    curves = {q: [x["total"] for x in out[q]["losses"]]
+              for q in ("q1", "q2", "q1p")}
+    steps = [x["step"] for x in out["q1p"]["losses"]]
+    log("step   " + "  ".join(f"{q:>8}" for q in curves))
+    for i, st in enumerate(steps):
+        log(f"{st:4d}   " + "  ".join(f"{c[i]:8.4f}" for c in curves.values()))
+    out["backward_twin"] = {
+        q: {"max_abs_loss_gap": max(abs(a - b) for a, b in
+                                    zip(curves[q], curves["q1p"])),
+            "final_loss_gap": curves[q][-1] - curves["q1p"][-1],
+            "map50_gap": out[q]["map50"] - out["q1p"]["map50"]}
+        for q in ("q1", "q2")}
+    log(f"q1, q2 against their plain-backward twin q1p: "
+        f"{out['backward_twin']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"quality phase: {out['phase_s']:.1f} s; card: {smi}")
+    require(not bad, "quality phase: " + "; ".join(bad))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the measured numbers here")
@@ -3802,6 +3960,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     spatial_run = spatial(smi)
     torch.cuda.empty_cache()
+    quality_run = quality(smi)
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3823,7 +3983,7 @@ def main() -> int:
                        "roi_routes_s": routes_s, "device_augment": augment,
                        "resident": resident_run, "serving": serving_run,
                        "pth_import": import_run, "data_parallel": dp_run,
-                       "spatial": spatial_run,
+                       "spatial": spatial_run, "quality": quality_run,
                        "fused_proposals_shapes": fused_shapes,
                        "roi_pool_max_shapes": pool_shapes,
                        "roi_pool_bwd_shapes": bwd_shapes,

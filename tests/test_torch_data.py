@@ -20,9 +20,11 @@ import torch
 
 from tests.torch_native import same_native_path
 from two_stage_object_detection_tpu.data import coco as j_coco
+from two_stage_object_detection_tpu.data import native as j_native
 from two_stage_object_detection_tpu.data import pipeline as j_pipeline
 from two_stage_object_detection_tpu.data import synthetic as j_synthetic
-from two_stage_object_detection_tpu_torch.data import coco, pipeline, synthetic
+from two_stage_object_detection_tpu_torch.data import (
+    coco, native, pipeline, synthetic)
 
 REAL = os.path.join(os.path.dirname(__file__), "data", "real_coco")
 REAL_ANN = os.path.join(REAL, "annotations", "instances_train2017.json")
@@ -173,3 +175,20 @@ def test_loader_device_put_gives_the_same_tensors(synth):
     with pytest.raises(FileNotFoundError):
         list(pipeline.Loader(ds, 3, shuffle=False, num_workers=1,
                              persistent_workers=False))
+
+
+@pytest.mark.parametrize("size", [(64, 80), (300, 200)])
+def test_resize_normalize_matches_jax(size, monkeypatch):
+    """``resize_normalize`` of a u8 image, down and up, within 1e-6 of the
+    JAX package's when both native libraries load
+    (:func:`same_native_path`); where one does not, both answer None."""
+    both = same_native_path(monkeypatch)
+    img = (np.random.RandomState(7).rand(97, 131, 3) * 255).astype(np.uint8)
+    got = native.resize_normalize(img, size)
+    want = j_native.resize_normalize(img, size)
+    if not both:
+        assert got is None and want is None
+        return
+    assert got.dtype == np.float32 and got.shape == (*size, 3)
+    assert 0.0 <= got.min() and got.max() <= 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

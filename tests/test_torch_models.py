@@ -204,3 +204,17 @@ def test_fpn_roi_head_matches_flax(rng):
         dl, ds = dense([T(p).permute(0, 3, 1, 2) for p in pyr], T(rois), img)
     assert dl.shape == gl.shape and ds.shape == gs.shape
     assert bool(torch.isfinite(dl).all() and torch.isfinite(ds).all())
+
+
+def test_global_avg_pool_classifier_matches_flax(rng):
+    """``GlobalAvgPoolClassifier``: ``[N, P, P, C] -> [N, C]`` within 1e-6
+    of the flax module."""
+    from two_stage_object_detection_tpu.models.hardnet import (
+        GlobalAvgPoolClassifier as JPool)
+    from two_stage_object_detection_tpu_torch.models.hardnet import (
+        GlobalAvgPoolClassifier)
+    x = rng.randn(3, 7, 7, 16).astype(np.float32)
+    want = np.asarray(JPool().apply({}, jnp.asarray(x)))
+    got = GlobalAvgPoolClassifier()(T(x)).numpy()
+    assert got.shape == (3, 16)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

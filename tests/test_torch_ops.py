@@ -279,3 +279,72 @@ def test_windowed_align_matches_pallas_kernel_on_covered_rois(rng):
     cov = tr.window_coverage(T(rois), T(levels), hw, scales).numpy()
     assert cov.sum() >= 12
     np.testing.assert_allclose(got[cov], want[cov], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------ the public
+# functions without a place on a model's path
+@pytest.mark.parametrize("aligned", [False, True])
+def test_roi_align_matches_jax(rng, aligned):
+    """The single-level RoIAlign within 1e-5 of the JAX one (by gathers):
+    rois inside the map, hanging off it (clipped samples) and thinner than
+    a pixel (``max(side, 1)``), at stride 4, ``aligned`` both ways."""
+    f = rng.randn(2, 17, 23, 8).astype(np.float32)
+    rois = _boxes(rng, 2, 10, size=80.0)
+    rois[:, 0] = [-20.0, -12.0, 30.0, 40.0]          # off the top-left
+    rois[:, 1] = [70.0, 50.0, 130.0, 90.0]           # off the right edge
+    rois[:, 2] = [10.0, 10.0, 11.0, 60.0]            # a sliver
+    want = np.stack([np.asarray(jr.roi_align(
+        jnp.asarray(f[i]), jnp.asarray(rois[i]), 7, 0.25, 2, aligned))
+        for i in range(2)])
+    got = tr.roi_align(T(f), T(rois), 7, 0.25, 2, aligned).numpy()
+    assert got.shape == (2, 10, 7, 7, 8)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.7])
+def test_nms_keep_mask_sorted_matches_jax(rng, thr):
+    """The tiled keep-mask sweep equal to the JAX mask, padding rows (which
+    come back True) included: 50 boxes in clusters (every tile suppresses
+    within itself and across earlier tiles) and 14 zero rows, tiles of 16."""
+    centres = rng.rand(6, 2) * 80.0
+    xy = centres[rng.randint(0, 6, 50)] + rng.randn(50, 2) * 4.0
+    wh = 20.0 + rng.rand(50, 2) * 10.0
+    boxes = np.zeros((64, 4), np.float32)
+    boxes[:50] = np.concatenate([xy, xy + wh], -1)
+    want = np.asarray(jn.nms_keep_mask_sorted(jnp.asarray(boxes), thr,
+                                              tile_size=16))
+    got = tn.nms_keep_mask_sorted(T(boxes), thr, tile_size=16).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[50:].all() and 0 < got[:50].sum() < 50
+
+
+@pytest.mark.parametrize("data", ["random", "ties"])
+def test_roi_pool_structured_matches_jax(rng, data):
+    """``roi_pool_structured``'s forward equal to the JAX one and its
+    gradient within 1e-6, on a random map and on a map of coarse values,
+    half of them exact zeros (ties share the cotangent)."""
+    h, w, c, scale = 13, 11, 8, 1.0 / 16
+    if data == "ties":
+        f = np.maximum(rng.randint(-4, 4, size=(2, h, w, c)), 0) / 2.0
+    else:
+        f = rng.randn(2, h, w, c)
+    xy = rng.rand(2, 6, 2) * np.array([w, h]) * 16 * 0.6
+    rois = np.concatenate([xy, xy + rng.rand(2, 6, 2) * 100 + 20], -1)
+    rois[:, 0] = [-90.0, -80.0, 30.0, 40.0]          # empty bins
+    f, rois = f.astype(np.float32), rois.astype(np.float32)
+    g = rng.randn(2, 6, 7, 7, c).astype(np.float32)
+
+    def j_loss(fi, ri, gi):
+        return jnp.sum(jr.roi_pool_structured(fi, ri, 7, scale) * gi)
+
+    want = [jax.value_and_grad(lambda fi: j_loss(fi, rois[i], g[i]))(
+        jnp.asarray(f[i])) for i in range(2)]
+    want_out = np.stack([np.asarray(jr.roi_pool_structured(
+        jnp.asarray(f[i]), jnp.asarray(rois[i]), 7, scale)) for i in range(2)])
+    ft = T(f).requires_grad_(True)
+    out = tr.roi_pool_structured(ft, T(rois), 7, scale)
+    (out * T(g)).sum().backward()
+    np.testing.assert_array_equal(out.detach().numpy(), want_out)
+    np.testing.assert_allclose(ft.grad.numpy(),
+                               np.stack([np.asarray(d) for _, d in want]),
+                               rtol=1e-6, atol=1e-6)

@@ -101,6 +101,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ]
+        lib.resize_bilinear_normalize.restype = None
+        lib.resize_bilinear_normalize.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ]
         lib.resize_f32.restype = None
         lib.resize_f32.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
@@ -155,6 +160,23 @@ def decode_resize_bytes(data: bytes, size: Tuple[int, int]
     if rc != 0:
         return None
     return out, oh.value, ow.value
+
+
+def resize_normalize(img_u8: np.ndarray, size: Tuple[int, int]
+                     ) -> Optional[np.ndarray]:
+    """Bilinear resize + normalise an RGB u8 HWC array -> float32 [0, 1];
+    None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    img_u8 = np.ascontiguousarray(img_u8, np.uint8)
+    sh, sw = img_u8.shape[:2]
+    dh, dw = size
+    out = np.empty((dh, dw, 3), np.float32)
+    lib.resize_bilinear_normalize(
+        img_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), sh, sw,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), dh, dw)
+    return out
 
 
 def resize_f32(img: np.ndarray, size: Tuple[int, int]) -> Optional[np.ndarray]:

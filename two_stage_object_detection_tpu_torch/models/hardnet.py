@@ -279,3 +279,12 @@ class HarDNetFeatureExtraction(nn.Module):
         if self.pyramid:
             return (*taps, x, self.pyr_down(x))
         return x
+
+
+class GlobalAvgPoolClassifier(nn.Module):
+    """Global average pool + flatten (reference ``HarNetClassifier``,
+    ``models/hardnet.py:203-212``): ``[N, P, P, C] -> [N, C]``, the JAX
+    package's channels-last layout."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(-3, -2))

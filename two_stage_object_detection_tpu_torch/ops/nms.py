@@ -10,13 +10,18 @@ greedy NMS needs.  Semantics kept exactly:
 * suppression is strict ``iou > thr``;
 * IoU is ``inter / (area + barea - inter + 1e-8)`` in that order;
 * outputs are padded to a fixed length with a validity mask, padding zeroed.
+
+:func:`nms_keep_mask_sorted` is the JAX package's tiled sweep: the whole
+keep mask of score-sorted boxes, for a caller that needs every survivor
+rather than a top-k; no model path calls it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from two_stage_object_detection_tpu_torch.ops.geometry import device_constant
+from two_stage_object_detection_tpu_torch.ops.geometry import (
+    bbox_iou, device_constant)
 
 NEG_INF = -1e9
 
@@ -93,3 +98,45 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     kept_boxes = torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
     return (kept_boxes * vf[..., None], torch.gather(scores, -1, idx) * vf,
             keep)
+
+
+def _self_suppress(tile: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS within one score-sorted tile ``[T, 4]``: its alive mask,
+    the fixpoint of "alive unless an earlier alive box overlaps it"."""
+    iou = bbox_iou(tile, tile)
+    idx = torch.arange(tile.shape[0], device=tile.device)
+    can = (iou > iou_threshold) & (idx[:, None] < idx[None, :])
+    alive = torch.ones(tile.shape[0], dtype=torch.bool, device=tile.device)
+    while True:
+        new = ~(can & alive[:, None]).any(dim=0)
+        if torch.equal(new, alive):
+            return alive
+        alive = new
+
+
+def nms_keep_mask_sorted(boxes_sorted: torch.Tensor, iou_threshold: float,
+                         tile_size: int = 256) -> torch.Tensor:
+    """Keep mask of boxes already sorted by descending score, tile by tile.
+
+    ``boxes_sorted [n, 4]`` xyxy, ``n`` a multiple of ``tile_size`` (pad
+    with zero boxes); suppression is strict ``iou > iou_threshold``.  Each
+    tile is first cleared against the boxes kept in earlier tiles, then
+    suppressed within itself; a suppressed box is zeroed.  Returns ``[n]``
+    bool; zero-area padding rows come back True, so callers AND it with
+    their own validity mask.
+    """
+    n = boxes_sorted.shape[0]
+    if n % tile_size:
+        raise ValueError(f"{n} boxes are not a multiple of tile_size "
+                         f"{tile_size}")
+    out = boxes_sorted.clone()
+    for i in range(0, n, tile_size):
+        tile = out[i:i + tile_size]
+        for j in range(0, i, tile_size):
+            dead = (bbox_iou(out[j:j + tile_size], tile)
+                    > iou_threshold).any(dim=0)
+            tile = tile * (~dead[:, None]).to(tile.dtype)
+        alive = _self_suppress(tile, iou_threshold)
+        out[i:i + tile_size] = tile * alive[:, None].to(tile.dtype)
+    survived = (out != 0.0).any(dim=1)
+    return survived | ~(boxes_sorted != 0.0).any(dim=1)

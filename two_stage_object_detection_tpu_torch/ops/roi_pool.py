@@ -52,6 +52,10 @@ Its train route pairs that forward with the gradient of the *dense*
 RoIAlign (:func:`multilevel_roi_align_dense_grad`), two matrix products per
 level; the two forwards are equal wherever the window covers the roi.
 
+:func:`roi_pool_structured` is the JAX function of that name, RoIPool max
+with the structured backward, and :func:`roi_align` the single-level
+RoIAlign by gathers; neither is on a model's path.
+
 Every function takes any number of leading batch axes.
 """
 
@@ -260,6 +264,38 @@ def roi_pool_grad_first_argmax(feats: torch.Tensor, rois: torch.Tensor,
         out[i] = scatter_argmax_grad(argmax, g[i:i + 1].to(torch.float32),
                                      h, w)[0]
     return out.to(feats.dtype)
+
+
+def roi_pool_structured(features: torch.Tensor, rois: torch.Tensor,
+                        output_size: int = 7,
+                        spatial_scale: float = 1.0) -> torch.Tensor:
+    """:func:`roi_pool` whose backward is :func:`roi_pool_grad_structured`
+    (the JAX ``roi_pool_structured``): both max stages recomputed, each
+    stage's credit split evenly among its ties.  ``[..., H, W, C]`` map and
+    ``[..., R, 4]`` rois -> ``[..., R, P, P, C]`` f32; the plain forward on
+    any device."""
+    from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
+        roi_pool_recompute)
+    h, w, c = features.shape[-3:]
+    r, p = rois.shape[-2], output_size
+    out = roi_pool_recompute(features.reshape(-1, h, w, c),
+                             rois.reshape(-1, r, 4), p, spatial_scale,
+                             "structured", use_kernel=False)
+    return out.reshape(*rois.shape[:-2], r, p, p, c)
+
+
+def roi_align(features: torch.Tensor, rois: torch.Tensor,
+              output_size: int = 7, spatial_scale: float = 1.0,
+              sampling_ratio: int = 2, aligned: bool = False) -> torch.Tensor:
+    """Single-level bilinear RoIAlign (the JAX ``roi_align``), computed as
+    :func:`roi_align_mm` on the map in f32: the same bin averages of the
+    same clipped samples, summed in another order.
+
+    ``[..., H, W, C]`` map and ``[..., R, 4]`` xyxy rois (times
+    ``spatial_scale``: map coordinates) -> ``[..., R, P, P, C]`` f32.
+    """
+    return roi_align_mm(features.float(), rois, output_size, spatial_scale,
+                        sampling_ratio, aligned)
 
 
 def scale_pairs(scales, n_levels: int):
