@@ -1,0 +1,306 @@
+"""FasterRCNN: the end-to-end detector (``predict`` and ``train_forward``).
+
+The counterpart of the JAX package's ``nets/detector.py``, both branches:
+
+* ``Config(fpn=True)``: ResNet (or strided HarDNet) trunk -> FPN neck ->
+  shared RPN head over the anchor pyramid -> proposals (top-k cut, greedy
+  NMS) -> windowed RoIAlign and the 2-FC box head;
+* ``Config(fpn=False)`` (the default ``Config()``: HarDNet-39): stride-16
+  map -> 1x1 RPN head over ``make_anchors`` -> whole-table proposals ->
+  RoIPool max, a global mean and two dense heads.
+
+Frozen from the port's ``nets/detector.py`` on its plain route (every
+kernel switched off, no mesh): the benchmark's reference.
+
+Both end in the same per-class decode, score threshold and one
+class-offset NMS (:meth:`FasterRCNN.detect`).  ``predict`` takes
+``[B, H, W, 3]`` float images in [0, 1] and returns ``(boxes [B, D, 4],
+scores [B, D], labels [B, D] (1-based), valid [B, D])`` with
+``D = cfg.max_detections``, invalid slots zeroed.
+
+``train_forward`` takes a padded batch (images, ``gt_boxes [B, G, 4]``,
+``gt_labels [B, G]`` 0-based, ``gt_valid [B, G]``) and returns the four
+losses, their total and the trainer-parity predictions.  Proposals are cut
+from the graph (their inputs are detached), the RoI head pools the sampled
+rois on its train route (``Config.roi_bwd`` for the
+single-scale head, the hybrid RoIAlign for the FPN head), and batch norm
+runs in the module's mode: :meth:`FasterRCNN.set_mode` puts the model in
+train or eval mode and keeps a ``freeze_bn`` trunk on its running
+statistics.  The model is built in eval mode; ``train_forward(train=True)``
+and ``predict`` set the mode they need.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from .config import Config, compute_dtype
+from .registry import build_backbone
+from .fpn import (
+    FPNNeck, FPNRoIHead, FPNRPNHead)
+from .losses import (
+    fast_rcnn_loc_loss, softmax_cross_entropy_with_ignore)
+from .roi_head import RoIHead
+from .rpn import RPNHead
+from .targets import (
+    anchor_target, proposal_target)
+from .anchors import (
+    make_anchors, make_fpn_anchors)
+from .geometry import (
+    clip_boxes, device_constant, loc2bbox)
+from .nms import nms, topk_stable
+from .proposals import proposals_batched
+
+
+class FasterRCNN(nn.Module):
+    """Two-stage detector over a stride-16 map or an FPN pyramid.
+
+    Args:
+      cfg: the recipe (``cfg.fpn`` picks the branch).
+      device: where the model lives.  Weights are uninitialised:
+        :func:`~.layers.init_weights` draws them.
+    """
+
+    def __init__(self, cfg: Config, device="cpu"):
+        super().__init__()
+        self.cfg = cfg
+        dtype = compute_dtype(cfg)
+        self.extractor, feat_channels = build_backbone(
+            cfg.backbone, dtype, remat=cfg.remat_backbone, pyramid=cfg.fpn)
+        n_class = cfg.num_classes + 1
+        if cfg.fpn:
+            self.neck = FPNNeck(feat_channels, cfg.fpn_channels, dtype)
+            self.rpn_head = FPNRPNHead(len(cfg.anchor_ratios),
+                                       cfg.fpn_channels, dtype)
+            self.roi_head = FPNRoIHead(
+                n_class=n_class, channels=cfg.fpn_channels,
+                roi_size=cfg.roi_size, min_level=cfg.fpn_min_level,
+                n_pool_levels=cfg.fpn_max_level - cfg.fpn_min_level,
+                canonical_level=cfg.fpn_canonical_level,
+                canonical_size=cfg.fpn_canonical_size, fc_dim=cfg.fpn_fc_dim,
+                window=cfg.fpn_roi_window,
+                span_aware=cfg.fpn_span_aware, dtype=dtype)
+            anchors = make_fpn_anchors(cfg)
+        else:
+            self.rpn_head = RPNHead(cfg.n_anchors_per_cell, feat_channels,
+                                    dtype)
+            self.roi_head = RoIHead(n_class, feat_channels, cfg.roi_size,
+                                    cfg.roi_pool_mode, dtype,
+                                    roi_bwd=cfg.roi_bwd)
+            anchors = make_anchors(cfg)
+        self.register_buffer("anchors", torch.from_numpy(anchors),
+                             persistent=False)
+        # with keep_candidates, detect leaves every (roi, class) decode
+        # and score of its last call in `candidates`
+        self.keep_candidates, self.candidates = False, None
+        self.to(device)
+        if torch.device(device).type == "cuda":
+            self.to(memory_format=torch.channels_last)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.anchors.device
+
+    def set_mode(self, train: bool) -> "FasterRCNN":
+        """Train or eval mode (batch-norm statistics, dropout); with
+        ``cfg.freeze_bn`` the trunk stays on its running statistics while
+        its weights still train."""
+        self.train(train)
+        if train and self.cfg.freeze_bn:
+            self.extractor.eval()
+        return self
+
+    # ----------------------------------------------------------------- parts
+    def features(self, images: torch.Tensor,
+                 generator: Optional[torch.Generator] = None):
+        """Backbone (+ FPN neck) on ``[B, H, W, 3]`` images: the stride-16
+        map, or (P2..P6) with ``cfg.fpn``; NCHW."""
+        taps = self.extractor(images.permute(0, 3, 1, 2), generator)
+        return self.neck(taps) if self.cfg.fpn else taps
+
+    def image_size(self, images: torch.Tensor):
+        return tuple(images.shape[1:3])
+
+    def _check_anchor_contract(self, n_locs: int):
+        n_anchors = self.anchors.shape[0]
+        if n_locs != n_anchors:
+            raise ValueError(
+                f"image size mismatch: the RPN produced {n_locs} anchor slots "
+                f"but the anchor table built from cfg.input_size="
+                f"{self.cfg.input_size} has {n_anchors}; pass images of "
+                f"cfg.input_size or construct the model with a matching Config")
+
+    def proposals(self, rpn_locs, rpn_scores, img_size, scale: float = 1.0,
+                  train: bool = False):
+        """Proposals ``(rois, scores, valid)``, each ``[B, n_post, ...]``:
+        ``n_test_pre_nms`` / ``n_test_post_nms`` of them, or the ``n_train``
+        pair with ``train``."""
+        cfg = self.cfg
+        self._check_anchor_contract(rpn_locs.shape[1])
+        fg = torch.softmax(rpn_scores, dim=-1)[..., 1]
+        return proposals_batched(
+            rpn_locs, fg, self.anchors, tuple(img_size),
+            nms_iou=cfg.rpn_nms_iou,
+            n_post_nms=cfg.n_train_post_nms if train else cfg.n_test_post_nms,
+            min_size=cfg.proposal_min_size * scale,
+            n_pre_nms=cfg.n_train_pre_nms if train else cfg.n_test_pre_nms)
+
+    # ----------------------------------------------------------------- train
+    def train_forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,
+                      gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                      scale: float = 1.0, train: bool = True,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, Any]:
+        """Losses + predictions for one (padded) batch.
+
+        Args:
+          images: ``[B, H, W, 3]`` float32 in [0, 1].
+          gt_boxes: ``[B, G, 4]`` xyxy, zero-padded; ``gt_valid``: ``[B, G]``.
+          gt_labels: ``[B, G]`` integer, 0-based foreground classes.
+          train: True for training (batch-statistics BN, 12000/600
+            proposals); False for evaluation through the same graph
+            (running-average BN, 3000/300 proposals, no statistics moved).
+          generator: draws the target samplers' random priorities; None
+            samples the first k in index order.
+
+        Returns a dict: ``losses`` (``rpn_loc``, ``rpn_cls``, ``roi_loc``,
+        ``roi_cls``, ``total``), the per-sample ``boxes_pred``,
+        ``classes_pred``, ``classes_score_pred``, ``pred_valid``, and the GT
+        (labels shifted so that background is 0).
+        """
+        cfg = self.cfg
+        self.set_mode(train)
+        img_size = self.image_size(images)
+        feats = self.features(images, generator)
+        rpn_locs, rpn_scores = self.rpn_head(feats)
+        # proposals are samples, not a differentiable function: the RPN
+        # learns through its own losses below
+        rois, _, roi_valid = self.proposals(
+            rpn_locs.detach(), rpn_scores.detach(), img_size, scale, train)
+
+        gt_valid = gt_valid.to(torch.bool)
+        gt_rpn_loc, gt_rpn_label = anchor_target(
+            self.anchors, gt_boxes, gt_valid, n_sample=cfg.rpn_n_sample,
+            pos_iou_thresh=cfg.rpn_pos_iou_thresh,
+            neg_iou_thresh=cfg.rpn_neg_iou_thresh,
+            pos_ratio=cfg.rpn_pos_ratio, generator=generator)
+        rpn_loc_loss = fast_rcnn_loc_loss(rpn_locs, gt_rpn_loc, gt_rpn_label,
+                                          cfg.rpn_sigma).mean()
+        rpn_cls_loss = softmax_cross_entropy_with_ignore(
+            rpn_scores, gt_rpn_label).mean()
+
+        sample_roi, gt_roi_loc, gt_roi_label, sample_valid = proposal_target(
+            rois, roi_valid, gt_boxes, gt_valid, gt_labels,
+            n_sample=cfg.roi_n_sample, pos_ratio=cfg.roi_pos_ratio,
+            pos_iou_thresh=cfg.roi_pos_iou_thresh,
+            neg_iou_thresh_high=cfg.roi_neg_iou_thresh_high,
+            neg_iou_thresh_low=cfg.roi_neg_iou_thresh_low,
+            loc_std=cfg.loc_normalize_std if cfg.loc_normalize else None,
+            generator=generator)
+
+        if cfg.fpn:
+            # the hybrid route: windowed forward, dense backward
+            roi_cls_locs, roi_scores = self.roi_head(
+                feats, sample_roi, img_size, use_window=False)
+        else:
+            roi_cls_locs, roi_scores = self.roi_head(feats, sample_roi,
+                                                     img_size)
+        b, s = sample_roi.shape[:2]
+        locs4 = roi_cls_locs.reshape(b, s, -1, 4)
+        # the GT class's regression
+        roi_loc = torch.gather(
+            locs4, 2, gt_roi_label[..., None, None].expand(b, s, 1, 4))[:, :, 0]
+
+        # padding samples are ignored by the cross-entropy
+        ce_labels = torch.where(sample_valid, gt_roi_label, -1)
+        roi_loc_loss = fast_rcnn_loc_loss(
+            roi_loc, gt_roi_loc, torch.where(sample_valid, gt_roi_label, 0),
+            cfg.roi_sigma).mean()
+        roi_cls_loss = softmax_cross_entropy_with_ignore(
+            roi_scores, ce_labels).mean()
+        total = rpn_loc_loss + rpn_cls_loss + roi_loc_loss + roi_cls_loss
+
+        # trainer-parity predictions (un-normalised before the decode when
+        # the head trains against normalised targets)
+        dec_loc = roi_loc.detach()
+        if cfg.loc_normalize:
+            dec_loc = dec_loc * device_constant(
+                cfg.loc_normalize_std, dec_loc.dtype, dec_loc.device)
+        probs = torch.softmax(roi_scores.detach(), dim=-1)
+        classes_score_pred, classes_pred = probs.max(dim=-1)
+        return {
+            "losses": {"rpn_loc": rpn_loc_loss, "rpn_cls": rpn_cls_loss,
+                       "roi_loc": roi_loc_loss, "roi_cls": roi_cls_loss,
+                       "total": total},
+            "boxes_pred": loc2bbox(sample_roi, dec_loc),        # [B, S, 4]
+            "classes_pred": classes_pred,
+            "classes_score_pred": classes_score_pred,
+            "pred_valid": sample_valid,
+            "gt_boxes": gt_boxes,
+            "gt_labels": gt_labels + 1,                         # bg = 0
+            "gt_valid": gt_valid,
+        }
+
+    # --------------------------------------------------------------- predict
+    @torch.inference_mode()
+    def predict(self, images: torch.Tensor, scale: float = 1.0):
+        """True inference: ``[B, H, W, 3] -> (boxes, scores, labels, valid)``;
+        None on a row shard that is not its thread group's lead (see
+        :meth:`features`)."""
+        if self.training:
+            self.set_mode(False)
+        feats = self.features(images)
+        return self.detect(feats, self.image_size(images), scale)
+
+    @torch.inference_mode()
+    def detect(self, feats, img_size, scale: float = 1.0):
+        """Everything after the backbone: RPN, proposals, box head, decode,
+        class-offset NMS."""
+        cfg = self.cfg
+        rpn_locs, rpn_scores = self.rpn_head(feats)
+        rois, _, roi_valid = self.proposals(rpn_locs, rpn_scores, img_size,
+                                            scale)
+        roi_cls_locs, roi_scores = self.roi_head(feats, rois, img_size)
+
+        b, r = rois.shape[:2]
+        n_class = cfg.num_classes + 1
+        if cfg.loc_normalize:
+            # per-class strided layout [R, C*4]: tile the stds across classes
+            std = device_constant(
+                tuple(cfg.loc_normalize_std) * n_class, roi_cls_locs.dtype,
+                roi_cls_locs.device)
+            roi_cls_locs = roi_cls_locs * std
+        probs = torch.softmax(roi_scores, dim=-1)             # [B, R, C]
+        n_cand = min(4 * cfg.max_detections, r * (n_class - 1))
+
+        # decode every class at once, then ONE class-aware NMS over the
+        # top-k (box, class) candidates, boxes offset by class
+        boxes = clip_boxes(loc2bbox(rois, roi_cls_locs), img_size)
+        boxes = boxes.reshape(b, r, n_class, 4)[:, :, 1:, :]  # drop background
+        fg = probs[..., 1:]
+        if self.keep_candidates:
+            # every (roi, class) decode and score, for the comparison
+            self.candidates = (boxes, fg, roi_valid)
+        ok = roi_valid[..., None] & (fg >= cfg.score_thresh)
+        flat_scores = torch.where(ok, fg, -1.0).reshape(b, -1)
+        cand_scores, cand = topk_stable(flat_scores, n_cand)
+        cand_boxes = torch.gather(boxes.reshape(b, -1, 4), 1,
+                                  cand[..., None].expand(b, n_cand, 4))
+        cand_labels = (cand % (n_class - 1) + 1).to(torch.int32)
+        cand_valid = cand_scores > 0
+
+        span = float(max(img_size)) + 2.0
+        offset = cand_labels.to(torch.float32) * span
+        idx, keep = nms(cand_boxes + offset[..., None], cand_scores,
+                        cfg.predict_nms_iou, cfg.max_detections,
+                        valid=cand_valid)
+        kf = keep.to(torch.float32)
+        det_boxes = torch.gather(cand_boxes, 1, idx[..., None].expand(
+            *idx.shape, 4)) * kf[..., None]
+        det_scores = torch.gather(cand_scores, 1, idx) * kf
+        det_labels = torch.gather(cand_labels, 1, idx) * keep
+        return det_boxes, det_scores, det_labels, keep

@@ -1,0 +1,273 @@
+"""HarDNet feature extractors (NCHW torch modules).
+
+The counterparts of the JAX package's ``models/hardnet.py``: HarDNet-39/68/85
+with harmonic dense blocks, the reference layout (a depth-wise "downsample"
+at stride 1 and a stride-2+2 tail, which gives a stride-16 512-channel map:
+600x600 -> 38x38x512) and the strided ``s`` variants (true stride-2 downs,
+a stride-1 tail, and optional FPN taps at strides 4/8/16/32).
+
+Numerics follow flax: explicit symmetric ``k // 2`` padding, batch norm
+with ``eps=1e-5`` (batch statistics in train mode, running ones in eval
+mode), ReLU6 after each ``ConvLayer``.  The tail is
+two depth-wise 3x3 convs **with bias** and no batch norm (a ReLU between
+them) and a grouped 1x1 conv (``groups=512``) to 512 channels.  Submodules
+carry the flax names (``stem0..2``, ``block{i}.layer{t}.layer1/.layer2``,
+``transition{i}``, ``down{i}``, ``tail0..2``, ``pyr_down``; ``conv``,
+``dwconv``, ``norm``), so ``utils/jax_weights.py`` maps them by rule.
+
+Train mode is the module's own (``.train()`` / ``.eval()``).  ``remat``
+recomputes each ``HarDBlock`` in the backward pass instead of keeping its
+layers' activations (``torch.utils.checkpoint``); arch 85 drops 10% of its
+last block's output in train mode, from an explicit generator.  Every
+operation that reads across rows is a :class:`~.layers.Conv` (the
+depth-wise stride-2 downs and the tail included), so the row shards of
+``parallel/spatial.py`` need nothing else here but the dropout's mask.  Only the
+depth-wise form (``depth_wise=True``) is built: it is the only one the
+backbone registry of either package constructs.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from .layers import (
+    BatchNorm, Conv, frozen_running_stats)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 6.0)
+
+
+class ConvLayer(nn.Module):
+    """Conv (no bias) + BN + ReLU6."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv(in_ch, out_ch, kernel, stride, kernel // 2, bias=False,
+                         compute_dtype=dtype)
+        self.norm = BatchNorm(out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return relu6(self.norm(self.conv(x)))
+
+
+class DWConvLayer(nn.Module):
+    """Depth-wise 3x3 conv (no bias) + BN, no activation."""
+
+    def __init__(self, channels: int, stride: int = 1, dtype=torch.float32):
+        super().__init__()
+        self.dwconv = Conv(channels, channels, 3, stride, 1, groups=channels,
+                           bias=False, compute_dtype=dtype)
+        self.norm = BatchNorm(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(self.dwconv(x))
+
+
+class CombConvLayer(nn.Module):
+    """1x1 ``ConvLayer`` followed by a depth-wise 3x3."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.layer1 = ConvLayer(in_ch, out_ch, kernel=1, dtype=dtype)
+        self.layer2 = DWConvLayer(out_ch, stride=stride, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer2(self.layer1(x))
+
+
+def hard_block_links(n_layers: int, base_ch: int, growth_rate: int,
+                     grmul: float) -> Tuple[List[int], List[int], List[List[int]], int]:
+    """Static link topology of a harmonic dense block.
+
+    Layer ``t`` (1-indexed) consumes the concatenation of layers ``t - 2**i``
+    for every ``i`` with ``t % 2**i == 0`` (layer 0 = block input); its width
+    is ``growth_rate * grmul**(k-1)`` (``k`` links) rounded up to even.
+
+    Returns ``(out_chs, in_chs, links, block_out_ch)``: ``out_chs[t]`` is the
+    width of layer ``t`` (``out_chs[0] = base_ch``), ``links[t-1]`` the
+    producers of layer ``t``, and ``block_out_ch`` the width of the block's
+    concatenated output (without the base).
+    """
+    out_chs = [base_ch]
+    in_chs = []
+    links: List[List[int]] = []
+    block_out = 0
+    for t in range(1, n_layers + 1):
+        link = []
+        ch = float(growth_rate)
+        for i in range(10):
+            dv = 2 ** i
+            if t % dv == 0:
+                link.append(t - dv)
+                if i > 0:
+                    ch *= grmul
+        ch = int(int(ch + 1) / 2) * 2
+        out_chs.append(ch)
+        in_chs.append(sum(out_chs[j] for j in link))
+        links.append(link)
+        if (t - 1) % 2 == 0 or t == n_layers:
+            block_out += ch
+    return out_chs, in_chs, links, block_out
+
+
+class HarDBlock(nn.Module):
+    """Harmonic dense block of ``CombConvLayer``s (``layer0..``).
+
+    The output concatenates, in order, the base (with ``keep_base``), every
+    odd layer and the last layer, along channels.
+    """
+
+    def __init__(self, in_channels: int, growth_rate: int, grmul: float,
+                 n_layers: int, keep_base: bool = False, dtype=torch.float32):
+        super().__init__()
+        out_chs, in_chs, self.links, block_out = hard_block_links(
+            n_layers, in_channels, growth_rate, grmul)
+        self.keep_base = keep_base
+        self.out_channels = block_out + (in_channels if keep_base else 0)
+        for t in range(1, n_layers + 1):
+            self.add_module(f"layer{t - 1}", CombConvLayer(
+                in_chs[t - 1], out_chs[t], dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outputs = [x]
+        for t, link in enumerate(self.links, start=1):
+            tin = [outputs[j] for j in link]
+            inp = torch.cat(tin, dim=1) if len(tin) > 1 else tin[0]
+            outputs.append(getattr(self, f"layer{t - 1}")(inp))
+        n = len(outputs)
+        keep = [o for i, o in enumerate(outputs)
+                if (i == 0 and self.keep_base) or i == n - 1 or i % 2 == 1]
+        return torch.cat(keep, dim=1)
+
+
+_ARCH = {
+    # arch: (first_ch, ch_list, grmul, gr, n_layers, down_samp)
+    39: ((24, 48), (96, 320, 640, 1024), 1.6, (16, 20, 64, 160),
+         (4, 16, 8, 4), (1, 1, 1, 0)),
+    68: ((32, 64), (128, 256, 320, 640, 1024), 1.7, (14, 16, 20, 40, 160),
+         (8, 16, 16, 16, 4), (1, 0, 1, 1, 0)),
+    85: ((48, 96), (192, 256, 320, 480, 720, 1024), 1.7, (24, 24, 28, 36, 48, 256),
+         (8, 16, 16, 16, 16, 4), (1, 0, 1, 0, 1, 0)),
+}
+
+
+class HarDNetFeatureExtraction(nn.Module):
+    """HarDNet backbone ending in a 512-channel stride-16 map.
+
+    stem (3x3 conv s2, 1x1 conv, depth-wise s2) -> HarDBlocks, each followed
+    by a 1x1 transition and, where the arch says so, a depth-wise "down"
+    layer -> tail (two depth-wise 3x3 convs with bias, a grouped 1x1 conv
+    to 512 channels).
+
+    ``strided=True`` makes the first two downs stride 2 and the tail stride
+    1; ``pyramid=True`` (strided only) returns the taps ``(C2, C3, C4, C5)``
+    at strides 4/8/16/32, C5 being one more depth-wise stride-2 step
+    (``pyr_down``).  ``remat=True`` rematerialises every block in the
+    backward pass.  Input and outputs are NCHW.
+    """
+
+    DROPOUT = 0.1       # arch 85, after its last block, train mode only
+
+    def __init__(self, arch: int = 39, dtype=torch.float32,
+                 strided: bool = False, pyramid: bool = False,
+                 remat: bool = False):
+        super().__init__()
+        if pyramid and not strided:
+            raise ValueError("pyramid taps require the strided variant")
+        first_ch, ch_list, grmul, gr, n_layers, down_samp = _ARCH[arch]
+        self.arch, self.strided, self.pyramid = arch, strided, pyramid
+        self.remat = remat
+        self.stem0 = ConvLayer(3, first_ch[0], 3, 2, dtype)
+        self.stem1 = ConvLayer(first_ch[0], first_ch[1], 1, dtype=dtype)
+        self.stem2 = DWConvLayer(first_ch[1], 2, dtype)
+
+        ch = first_ch[1]
+        self.n_blocks = len(n_layers)
+        self.tap_after = []          # block indices whose output is a tap
+        for i in range(self.n_blocks):
+            blk = HarDBlock(ch, gr[i], grmul, n_layers[i], dtype=dtype)
+            self.add_module(f"block{i}", blk)
+            self.add_module(f"transition{i}", ConvLayer(
+                blk.out_channels, ch_list[i], 1, dtype=dtype))
+            ch = ch_list[i]
+            if down_samp[i] == 1:
+                stride = 1
+                if strided and len(self.tap_after) < 2:
+                    self.tap_after.append(i)
+                    stride = 2
+                self.add_module(f"down{i}", DWConvLayer(ch, stride, dtype))
+
+        c_last = ch_list[-1]
+        s = 1 if strided else 2
+        self.tail0 = Conv(c_last, c_last, 3, s, 1, groups=c_last,
+                          compute_dtype=dtype)
+        self.tail1 = Conv(c_last, c_last, 3, s, 1, groups=c_last,
+                          compute_dtype=dtype)
+        self.tail2 = Conv(c_last, 512, 1, groups=512, compute_dtype=dtype)
+        if pyramid:
+            self.pyr_down = DWConvLayer(512, 2, dtype)
+            self.out_channels = (*(ch_list[i] for i in self.tap_after), 512, 512)
+        else:
+            self.out_channels = 512
+        # built in eval mode, as the flax module defaults to ``train=False``
+        self.eval()
+
+    def _block(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        blk = getattr(self, f"block{i}")
+        if not (self.remat and torch.is_grad_enabled()):
+            return blk(x)
+        calls = []
+
+        def run(inp):
+            # the backward pass calls this a second time: same values, and
+            # the running statistics have already moved
+            calls.append(None)
+            if len(calls) == 1:
+                return blk(inp)
+            with frozen_running_stats(blk):
+                return blk(inp)
+
+        return checkpoint(run, x, use_reentrant=False)
+
+    def _dropout(self, x: torch.Tensor, generator) -> torch.Tensor:
+        """Arch 85's train-mode dropout, its mask from ``generator``."""
+        if generator is None:
+            u = torch.rand_like(x, dtype=torch.float32)
+        else:
+            u = torch.rand(x.shape, generator=generator,
+                           device=generator.device).to(x.device)
+        return x * (u >= self.DROPOUT).to(x.dtype) / (1.0 - self.DROPOUT)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator = None):
+        x = self.stem2(self.stem1(self.stem0(x)))
+        taps = []
+        for i in range(self.n_blocks):
+            x = self._block(i, x)
+            if i == self.n_blocks - 1 and self.arch == 85 and self.training:
+                x = self._dropout(x, generator)
+            x = getattr(self, f"transition{i}")(x)
+            if i in self.tap_after:
+                taps.append(x)
+            if hasattr(self, f"down{i}"):
+                x = getattr(self, f"down{i}")(x)
+        x = self.tail2(self.tail1(F.relu(self.tail0(x))))
+        if self.pyramid:
+            return (*taps, x, self.pyr_down(x))
+        return x
+
+
+class GlobalAvgPoolClassifier(nn.Module):
+    """Global average pool + flatten (reference ``HarNetClassifier``,
+    ``models/hardnet.py:203-212``): ``[N, P, P, C] -> [N, C]``, the JAX
+    package's channels-last layout."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(-3, -2))
