@@ -54,6 +54,7 @@ from two_stage_object_detection_tpu_torch.ops.geometry import (
 from two_stage_object_detection_tpu_torch.ops.nms import nms, topk_stable
 from two_stage_object_detection_tpu_torch.ops.proposals import proposals_batched
 from two_stage_object_detection_tpu_torch.parallel import spatial
+from two_stage_object_detection_tpu_torch.utils.profiling import annotate
 
 
 class FasterRCNN(nn.Module):
@@ -137,16 +138,17 @@ class FasterRCNN(nn.Module):
         rank of a process group returns the whole maps; of an in-process
         group of threads (``Predictor(spatial=True)``) the lead alone does,
         and the others return None (``parallel.spatial.Shard.gather``)."""
-        if self.spatial is None:
-            return self.local_features(images, generator)
-        h, w = self.cfg.input_size
-        shard = self.spatial.shard(h, w)
-        if images.shape[1] == h:
-            images = shard.own_image_rows(images)
-        with spatial.sharded(shard):
-            local = self.local_features(images, generator)
-        maps = shard.gather(local if self.cfg.fpn else (local,))
-        return maps if maps is None or self.cfg.fpn else maps[0]
+        with annotate("tsod.features"):
+            if self.spatial is None:
+                return self.local_features(images, generator)
+            h, w = self.cfg.input_size
+            shard = self.spatial.shard(h, w)
+            if images.shape[1] == h:
+                images = shard.own_image_rows(images)
+            with spatial.sharded(shard):
+                local = self.local_features(images, generator)
+            maps = shard.gather(local if self.cfg.fpn else (local,))
+            return maps if maps is None or self.cfg.fpn else maps[0]
 
     def local_features(self, images: torch.Tensor,
                        generator: Optional[torch.Generator] = None):
@@ -217,78 +219,90 @@ class FasterRCNN(nn.Module):
         ``classes_pred``, ``classes_score_pred``, ``pred_valid``, and the GT
         (labels shifted so that background is 0).
         """
-        cfg = self.cfg
-        self.set_mode(train)
-        img_size = self.image_size(images)
-        feats = self.features(images, generator)
-        rpn_locs, rpn_scores = self.rpn_head(feats)
-        # proposals are samples, not a differentiable function: the RPN
-        # learns through its own losses below
-        rois, _, roi_valid = self.proposals(
-            rpn_locs.detach(), rpn_scores.detach(), img_size, scale, train)
+        with annotate("tsod.train_forward"):
+            cfg = self.cfg
+            self.set_mode(train)
+            img_size = self.image_size(images)
+            feats = self.features(images, generator)
+            with annotate("tsod.rpn_head"):
+                rpn_locs, rpn_scores = self.rpn_head(feats)
+            # proposals are samples, not a differentiable function: the RPN
+            # learns through its own losses below
+            with annotate("tsod.proposals"):
+                rois, _, roi_valid = self.proposals(
+                    rpn_locs.detach(), rpn_scores.detach(), img_size, scale,
+                    train)
 
-        gt_valid = gt_valid.to(torch.bool)
-        gt_rpn_loc, gt_rpn_label = anchor_target(
-            self.anchors, gt_boxes, gt_valid, n_sample=cfg.rpn_n_sample,
-            pos_iou_thresh=cfg.rpn_pos_iou_thresh,
-            neg_iou_thresh=cfg.rpn_neg_iou_thresh,
-            pos_ratio=cfg.rpn_pos_ratio, generator=generator)
-        rpn_loc_loss = fast_rcnn_loc_loss(rpn_locs, gt_rpn_loc, gt_rpn_label,
-                                          cfg.rpn_sigma).mean()
-        rpn_cls_loss = softmax_cross_entropy_with_ignore(
-            rpn_scores, gt_rpn_label).mean()
+            gt_valid = gt_valid.to(torch.bool)
+            with annotate("tsod.anchor_target"):
+                gt_rpn_loc, gt_rpn_label = anchor_target(
+                    self.anchors, gt_boxes, gt_valid,
+                    n_sample=cfg.rpn_n_sample,
+                    pos_iou_thresh=cfg.rpn_pos_iou_thresh,
+                    neg_iou_thresh=cfg.rpn_neg_iou_thresh,
+                    pos_ratio=cfg.rpn_pos_ratio, generator=generator)
+            rpn_loc_loss = fast_rcnn_loc_loss(
+                rpn_locs, gt_rpn_loc, gt_rpn_label, cfg.rpn_sigma).mean()
+            rpn_cls_loss = softmax_cross_entropy_with_ignore(
+                rpn_scores, gt_rpn_label).mean()
 
-        sample_roi, gt_roi_loc, gt_roi_label, sample_valid = proposal_target(
-            rois, roi_valid, gt_boxes, gt_valid, gt_labels,
-            n_sample=cfg.roi_n_sample, pos_ratio=cfg.roi_pos_ratio,
-            pos_iou_thresh=cfg.roi_pos_iou_thresh,
-            neg_iou_thresh_high=cfg.roi_neg_iou_thresh_high,
-            neg_iou_thresh_low=cfg.roi_neg_iou_thresh_low,
-            loc_std=cfg.loc_normalize_std if cfg.loc_normalize else None,
-            generator=generator)
+            with annotate("tsod.proposal_target"):
+                sample_roi, gt_roi_loc, gt_roi_label, sample_valid = \
+                    proposal_target(
+                        rois, roi_valid, gt_boxes, gt_valid, gt_labels,
+                        n_sample=cfg.roi_n_sample, pos_ratio=cfg.roi_pos_ratio,
+                        pos_iou_thresh=cfg.roi_pos_iou_thresh,
+                        neg_iou_thresh_high=cfg.roi_neg_iou_thresh_high,
+                        neg_iou_thresh_low=cfg.roi_neg_iou_thresh_low,
+                        loc_std=(cfg.loc_normalize_std if cfg.loc_normalize
+                                 else None),
+                        generator=generator)
 
-        if cfg.fpn:
-            # the hybrid route: windowed forward, dense backward
-            roi_cls_locs, roi_scores = self.roi_head(
-                feats, sample_roi, img_size, use_window=False)
-        else:
-            roi_cls_locs, roi_scores = self.roi_head(feats, sample_roi,
-                                                     img_size)
-        b, s = sample_roi.shape[:2]
-        locs4 = roi_cls_locs.reshape(b, s, -1, 4)
-        # the GT class's regression
-        roi_loc = torch.gather(
-            locs4, 2, gt_roi_label[..., None, None].expand(b, s, 1, 4))[:, :, 0]
+            with annotate("tsod.roi_head"):
+                if cfg.fpn:
+                    # the hybrid route: windowed forward, dense backward
+                    roi_cls_locs, roi_scores = self.roi_head(
+                        feats, sample_roi, img_size, use_window=False)
+                else:
+                    roi_cls_locs, roi_scores = self.roi_head(feats, sample_roi,
+                                                             img_size)
+            b, s = sample_roi.shape[:2]
+            locs4 = roi_cls_locs.reshape(b, s, -1, 4)
+            # the GT class's regression
+            roi_loc = torch.gather(
+                locs4, 2,
+                gt_roi_label[..., None, None].expand(b, s, 1, 4))[:, :, 0]
 
-        # padding samples are ignored by the cross-entropy
-        ce_labels = torch.where(sample_valid, gt_roi_label, -1)
-        roi_loc_loss = fast_rcnn_loc_loss(
-            roi_loc, gt_roi_loc, torch.where(sample_valid, gt_roi_label, 0),
-            cfg.roi_sigma).mean()
-        roi_cls_loss = softmax_cross_entropy_with_ignore(
-            roi_scores, ce_labels).mean()
-        total = rpn_loc_loss + rpn_cls_loss + roi_loc_loss + roi_cls_loss
+            # padding samples are ignored by the cross-entropy
+            ce_labels = torch.where(sample_valid, gt_roi_label, -1)
+            roi_loc_loss = fast_rcnn_loc_loss(
+                roi_loc, gt_roi_loc,
+                torch.where(sample_valid, gt_roi_label, 0),
+                cfg.roi_sigma).mean()
+            roi_cls_loss = softmax_cross_entropy_with_ignore(
+                roi_scores, ce_labels).mean()
+            total = rpn_loc_loss + rpn_cls_loss + roi_loc_loss + roi_cls_loss
 
-        # trainer-parity predictions (un-normalised before the decode when
-        # the head trains against normalised targets)
-        dec_loc = roi_loc.detach()
-        if cfg.loc_normalize:
-            dec_loc = dec_loc * device_constant(
-                cfg.loc_normalize_std, dec_loc.dtype, dec_loc.device)
-        probs = torch.softmax(roi_scores.detach(), dim=-1)
-        classes_score_pred, classes_pred = probs.max(dim=-1)
-        return {
-            "losses": {"rpn_loc": rpn_loc_loss, "rpn_cls": rpn_cls_loss,
-                       "roi_loc": roi_loc_loss, "roi_cls": roi_cls_loss,
-                       "total": total},
-            "boxes_pred": loc2bbox(sample_roi, dec_loc),        # [B, S, 4]
-            "classes_pred": classes_pred,
-            "classes_score_pred": classes_score_pred,
-            "pred_valid": sample_valid,
-            "gt_boxes": gt_boxes,
-            "gt_labels": gt_labels + 1,                         # bg = 0
-            "gt_valid": gt_valid,
-        }
+            # trainer-parity predictions (un-normalised before the decode
+            # when the head trains against normalised targets)
+            dec_loc = roi_loc.detach()
+            if cfg.loc_normalize:
+                dec_loc = dec_loc * device_constant(
+                    cfg.loc_normalize_std, dec_loc.dtype, dec_loc.device)
+            probs = torch.softmax(roi_scores.detach(), dim=-1)
+            classes_score_pred, classes_pred = probs.max(dim=-1)
+            return {
+                "losses": {"rpn_loc": rpn_loc_loss, "rpn_cls": rpn_cls_loss,
+                           "roi_loc": roi_loc_loss, "roi_cls": roi_cls_loss,
+                           "total": total},
+                "boxes_pred": loc2bbox(sample_roi, dec_loc),    # [B, S, 4]
+                "classes_pred": classes_pred,
+                "classes_score_pred": classes_score_pred,
+                "pred_valid": sample_valid,
+                "gt_boxes": gt_boxes,
+                "gt_labels": gt_labels + 1,                     # bg = 0
+                "gt_valid": gt_valid,
+            }
 
     # --------------------------------------------------------------- predict
     @torch.inference_mode()
@@ -307,44 +321,51 @@ class FasterRCNN(nn.Module):
     def detect(self, feats, img_size, scale: float = 1.0):
         """Everything after the backbone: RPN, proposals, box head, decode,
         class-offset NMS."""
-        cfg = self.cfg
-        rpn_locs, rpn_scores = self.rpn_head(feats)
-        rois, _, roi_valid = self.proposals(rpn_locs, rpn_scores, img_size,
-                                            scale)
-        roi_cls_locs, roi_scores = self.roi_head(feats, rois, img_size)
+        with annotate("tsod.detect"):
+            cfg = self.cfg
+            with annotate("tsod.rpn_head"):
+                rpn_locs, rpn_scores = self.rpn_head(feats)
+            with annotate("tsod.proposals"):
+                rois, _, roi_valid = self.proposals(rpn_locs, rpn_scores,
+                                                    img_size, scale)
+            with annotate("tsod.roi_head"):
+                roi_cls_locs, roi_scores = self.roi_head(feats, rois,
+                                                         img_size)
+            with annotate("tsod.post_process"):
+                b, r = rois.shape[:2]
+                n_class = cfg.num_classes + 1
+                if cfg.loc_normalize:
+                    # per-class strided layout [R, C*4]: tile the stds
+                    # across classes
+                    std = device_constant(
+                        tuple(cfg.loc_normalize_std) * n_class,
+                        roi_cls_locs.dtype, roi_cls_locs.device)
+                    roi_cls_locs = roi_cls_locs * std
+                probs = torch.softmax(roi_scores, dim=-1)     # [B, R, C]
+                n_cand = min(4 * cfg.max_detections, r * (n_class - 1))
 
-        b, r = rois.shape[:2]
-        n_class = cfg.num_classes + 1
-        if cfg.loc_normalize:
-            # per-class strided layout [R, C*4]: tile the stds across classes
-            std = device_constant(
-                tuple(cfg.loc_normalize_std) * n_class, roi_cls_locs.dtype,
-                roi_cls_locs.device)
-            roi_cls_locs = roi_cls_locs * std
-        probs = torch.softmax(roi_scores, dim=-1)             # [B, R, C]
-        n_cand = min(4 * cfg.max_detections, r * (n_class - 1))
+                # decode every class at once, then ONE class-aware NMS over
+                # the top-k (box, class) candidates, boxes offset by class
+                boxes = clip_boxes(loc2bbox(rois, roi_cls_locs), img_size)
+                # drop the background
+                boxes = boxes.reshape(b, r, n_class, 4)[:, :, 1:, :]
+                fg = probs[..., 1:]
+                ok = roi_valid[..., None] & (fg >= cfg.score_thresh)
+                flat_scores = torch.where(ok, fg, -1.0).reshape(b, -1)
+                cand_scores, cand = topk_stable(flat_scores, n_cand)
+                cand_boxes = torch.gather(boxes.reshape(b, -1, 4), 1,
+                                          cand[..., None].expand(b, n_cand, 4))
+                cand_labels = (cand % (n_class - 1) + 1).to(torch.int32)
+                cand_valid = cand_scores > 0
 
-        # decode every class at once, then ONE class-aware NMS over the
-        # top-k (box, class) candidates, boxes offset by class
-        boxes = clip_boxes(loc2bbox(rois, roi_cls_locs), img_size)
-        boxes = boxes.reshape(b, r, n_class, 4)[:, :, 1:, :]  # drop background
-        fg = probs[..., 1:]
-        ok = roi_valid[..., None] & (fg >= cfg.score_thresh)
-        flat_scores = torch.where(ok, fg, -1.0).reshape(b, -1)
-        cand_scores, cand = topk_stable(flat_scores, n_cand)
-        cand_boxes = torch.gather(boxes.reshape(b, -1, 4), 1,
-                                  cand[..., None].expand(b, n_cand, 4))
-        cand_labels = (cand % (n_class - 1) + 1).to(torch.int32)
-        cand_valid = cand_scores > 0
-
-        span = float(max(img_size)) + 2.0
-        offset = cand_labels.to(torch.float32) * span
-        idx, keep = nms(cand_boxes + offset[..., None], cand_scores,
-                        cfg.predict_nms_iou, cfg.max_detections,
-                        valid=cand_valid)
-        kf = keep.to(torch.float32)
-        det_boxes = torch.gather(cand_boxes, 1, idx[..., None].expand(
-            *idx.shape, 4)) * kf[..., None]
-        det_scores = torch.gather(cand_scores, 1, idx) * kf
-        det_labels = torch.gather(cand_labels, 1, idx) * keep
-        return det_boxes, det_scores, det_labels, keep
+                span = float(max(img_size)) + 2.0
+                offset = cand_labels.to(torch.float32) * span
+                idx, keep = nms(cand_boxes + offset[..., None], cand_scores,
+                                cfg.predict_nms_iou, cfg.max_detections,
+                                valid=cand_valid)
+                kf = keep.to(torch.float32)
+                det_boxes = torch.gather(cand_boxes, 1, idx[..., None].expand(
+                    *idx.shape, 4)) * kf[..., None]
+                det_scores = torch.gather(cand_scores, 1, idx) * kf
+                det_labels = torch.gather(cand_labels, 1, idx) * keep
+                return det_boxes, det_scores, det_labels, keep

@@ -47,6 +47,7 @@ from two_stage_object_detection_tpu_torch.data.device_transforms import (
     augment_batch)
 from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
 from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
+from two_stage_object_detection_tpu_torch.utils.profiling import annotate
 
 
 def make_optimizer(cfg: Config, params, steps_per_epoch: int = 1
@@ -146,31 +147,38 @@ def train_step(state: TrainState, batch: Dict,
     rank's rows (``parallel.mesh.shard_batch_spatial``) trains too, but not
     with ``device_augment``, which needs the whole images.
     """
-    model, k = state.model, max(state.cfg.grad_accum_steps, 1)
-    b = _to_device(batch, model.device)
-    images, boxes = _images_f32(b["image"]), b["boxes"]
-    if device_augment:
-        if tuple(images.shape[1:3]) != model.image_size(images):
-            raise ValueError("device_augment augments whole images: pass "
-                             "the data index's batch, not a rank's rows")
-        images, boxes = augment_batch(images, boxes, generator)
-    out = model.train_forward(images, boxes, b["labels"], b["valid"],
-                              train=True, generator=generator)
-    out["losses"]["total"].backward()
-    state.step += 1
-    if state.step % k == 0:
-        if state.group is not None:
-            _all_reduce_mean(model, k, state.group, state.model_group)
-        elif k > 1:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(k)
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.lr_of_update(state.updates)
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        state.updates += 1
-    return state, {name: v.detach() for name, v in out["losses"].items()}
+    with annotate("tsod.micro_step"):
+        model, k = state.model, max(state.cfg.grad_accum_steps, 1)
+        b = _to_device(batch, model.device)
+        if device_augment:
+            with annotate("tsod.augment"):
+                images = _images_f32(b["image"])
+                if tuple(images.shape[1:3]) != model.image_size(images):
+                    raise ValueError(
+                        "device_augment augments whole images: pass the "
+                        "data index's batch, not a rank's rows")
+                images, boxes = augment_batch(images, b["boxes"], generator)
+        else:
+            images, boxes = _images_f32(b["image"]), b["boxes"]
+        out = model.train_forward(images, boxes, b["labels"], b["valid"],
+                                  train=True, generator=generator)
+        with annotate("tsod.backward"):
+            out["losses"]["total"].backward()
+        state.step += 1
+        if state.step % k == 0:
+            with annotate("tsod.update"):
+                if state.group is not None:
+                    _all_reduce_mean(model, k, state.group, state.model_group)
+                elif k > 1:
+                    for p in model.parameters():
+                        if p.grad is not None:
+                            p.grad.div_(k)
+                for group in state.optimizer.param_groups:
+                    group["lr"] = state.lr_of_update(state.updates)
+                state.optimizer.step()
+                state.optimizer.zero_grad(set_to_none=True)
+                state.updates += 1
+        return state, {name: v.detach() for name, v in out["losses"].items()}
 
 
 def _all_reduce_mean(model, k: int, group, model_group=None) -> None:
@@ -249,8 +257,9 @@ def train_macro_step_resident(state: TrainState, data: Dict[str, torch.Tensor],
     B]`` sample indices of one accumulation cycle (numpy or a tensor),
     copied to the device once; the cycle's micro-batches are one gather of
     every leaf.  Returns ``(state, totals [K])`` as :func:`train_macro_step`."""
-    return train_macro_step(state, _gather(data, idx), generators,
-                            device_augment)
+    with annotate("tsod.gather"):
+        batches = _gather(data, idx)
+    return train_macro_step(state, batches, generators, device_augment)
 
 
 def _gather(data: Dict[str, torch.Tensor], idx) -> Dict[str, torch.Tensor]:

@@ -52,6 +52,7 @@ import torch
 from two_stage_object_detection_tpu_torch.config import Config
 from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
 from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
+from two_stage_object_detection_tpu_torch.utils.profiling import annotate
 
 FIELDS = ("boxes", "scores", "labels", "valid")
 
@@ -358,47 +359,50 @@ class Predictor:
         copied on its side stream, and the outputs are copied back
         asynchronously into pinned memory; they are valid once their
         ``event`` has completed."""
-        take = chunk.shape[0]
-        pinned = any(s is not None for s in self._copy_streams)
-        host = torch.empty((bucket, *self._wire_shape),
-                           dtype=torch.float32 if self.wire == "f32"
-                           else torch.uint8, pin_memory=pinned)
-        host[:take] = torch.from_numpy(np.ascontiguousarray(chunk))
-        if take < bucket:
-            host[take:] = 0
-            if self.wire == "yuv420":
-                host[take:, self.cfg.input_size[0]:] = 128   # zero chroma
-        if self.spatial and bucket % self._n_data == 0:
-            return take, self._enqueue_spatial(bucket, host)
-        n = len(self.replicas) if bucket % len(self.replicas) == 0 else 1
-        rows = bucket // n
-        parts = []
-        for model, stream, x in zip(self.replicas, self._copy_streams,
-                                    host.split(rows)):
-            if stream is None:
-                parts.append((self._predict(model, x), None))
-                continue
-            dev = model.device
-            # the kernels' ctypes launches go to the current device
-            with torch.cuda.device(dev):
-                compute = torch.cuda.current_stream(dev)
-                with torch.cuda.stream(stream):
-                    x = x.to(dev, non_blocking=True)
-                compute.wait_event(stream.record_event())
-                x.record_stream(compute)  # x was allocated on the copy stream
-                res = self._predict(model, x)
-                parts.append((tuple(t.to("cpu", non_blocking=True)
-                                    for t in res), compute.record_event()))
-        return take, parts
+        with annotate("tsod.enqueue"):
+            take = chunk.shape[0]
+            pinned = any(s is not None for s in self._copy_streams)
+            host = torch.empty((bucket, *self._wire_shape),
+                               dtype=torch.float32 if self.wire == "f32"
+                               else torch.uint8, pin_memory=pinned)
+            host[:take] = torch.from_numpy(np.ascontiguousarray(chunk))
+            if take < bucket:
+                host[take:] = 0
+                if self.wire == "yuv420":
+                    host[take:, self.cfg.input_size[0]:] = 128   # zero chroma
+            if self.spatial and bucket % self._n_data == 0:
+                return take, self._enqueue_spatial(bucket, host)
+            n = len(self.replicas) if bucket % len(self.replicas) == 0 else 1
+            rows = bucket // n
+            parts = []
+            for model, stream, x in zip(self.replicas, self._copy_streams,
+                                        host.split(rows)):
+                if stream is None:
+                    parts.append((self._predict(model, x), None))
+                    continue
+                dev = model.device
+                # the kernels' ctypes launches go to the current device
+                with torch.cuda.device(dev):
+                    compute = torch.cuda.current_stream(dev)
+                    with torch.cuda.stream(stream):
+                        x = x.to(dev, non_blocking=True)
+                    compute.wait_event(stream.record_event())
+                    # x was allocated on the copy stream
+                    x.record_stream(compute)
+                    res = self._predict(model, x)
+                    parts.append((tuple(t.to("cpu", non_blocking=True)
+                                        for t in res), compute.record_event()))
+            return take, parts
 
     @staticmethod
     def _fetch(pending):
-        take, parts = pending
-        for _, done in parts:
-            if done is not None:
-                done.synchronize()
-        return tuple(torch.cat(ts)[:take].numpy()
-                     for ts in zip(*(outs for outs, _ in parts)))
+        with annotate("tsod.fetch"):
+            take, parts = pending
+            for _, done in parts:
+                if done is not None:
+                    done.synchronize()
+            return tuple(torch.cat(ts)[:take].numpy()
+                         for ts in zip(*(outs for outs, _ in parts)))
 
     def __call__(self, images: np.ndarray) -> Dict[str, np.ndarray]:
         """Detect on a request of any ``N >= 1`` images in the wire's
@@ -408,22 +412,24 @@ class Predictor:
         ``labels [N, D]`` (1-based classes) and ``valid [N, D]`` with
         ``D = cfg.max_detections``.
         """
-        images = self._to_wire(np.asarray(images))
-        n = images.shape[0]
-        # at most 2 buckets in flight: the oldest one's outputs are fetched
-        # before a third is enqueued, which bounds the device memory a
-        # large request holds
-        outs, pending = [], []
-        i = 0
-        for bucket in self._plan(n):
-            if len(pending) == 2:
-                outs.append(self._fetch(pending.pop(0)))
-            take = min(n - i, bucket)
-            pending.append(self._enqueue(bucket, images[i:i + take]))
-            i += take
-        outs += [self._fetch(p) for p in pending]
-        cat = tuple(np.concatenate(parts) for parts in zip(*outs))
-        return dict(zip(FIELDS, cat))
+        with annotate("tsod.request"):
+            with annotate("tsod.wire"):
+                images = self._to_wire(np.asarray(images))
+            n = images.shape[0]
+            # at most 2 buckets in flight: the oldest one's outputs are
+            # fetched before a third is enqueued, which bounds the device
+            # memory a large request holds
+            outs, pending = [], []
+            i = 0
+            for bucket in self._plan(n):
+                if len(pending) == 2:
+                    outs.append(self._fetch(pending.pop(0)))
+                take = min(n - i, bucket)
+                pending.append(self._enqueue(bucket, images[i:i + take]))
+                i += take
+            outs += [self._fetch(p) for p in pending]
+            cat = tuple(np.concatenate(parts) for parts in zip(*outs))
+            return dict(zip(FIELDS, cat))
 
     def _to_wire(self, images: np.ndarray) -> np.ndarray:
         """Validate a request and put it in the wire layout ``[N,

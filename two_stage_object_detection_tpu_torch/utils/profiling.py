@@ -5,7 +5,11 @@ The port's counterpart of the JAX package's ``utils/profiling.py``:
 * :func:`trace`: a context manager around ``torch.profiler`` (host and, on
   the card, CUDA activity) writing a Chrome / Perfetto trace file;
 * :func:`annotate`: a named region inside a trace
-  (``torch.profiler.record_function``);
+  (``torch.profiler.record_function``) while a profiler records, one shared
+  no-op context otherwise.  The program's own spans (``tsod.<layer>``, at
+  the layer boundaries of ``Predictor``, ``FasterRCNN`` and
+  ``nets/trainer.py``) all go through it, so while nothing records each
+  costs one check and no ``record_function``;
 * :func:`enable_nan_checks`: ``torch.autograd.set_detect_anomaly``;
 * :func:`device_memory_stats`: ``torch.cuda.memory_stats`` per device.
 """
@@ -35,9 +39,21 @@ def trace(log_dir: str = "torch-trace"):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region inside an active trace: ``with annotate("train_step"):``."""
-    return torch.profiler.record_function(name)
+    """Named region inside a trace: ``with annotate("tsod.backward"):``.
+
+    A ``torch.profiler.record_function(name)`` when a profiler records on
+    this thread (:func:`trace`, a benchmark's profiled slice or an
+    operator's own ``torch.profiler.profile``), else one module-level
+    ``contextlib.nullcontext``: a ``record_function`` does its work even
+    with no profiler on, the check costs a fraction of it.  The name is
+    recorded as given."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def enable_nan_checks(enable: bool = True) -> None:
