@@ -7,9 +7,11 @@ Builds the port's CUDA kernels from ``two_stage_object_detection_tpu_torch/
 csrc`` (one nvcc per source, in parallel), holds each kernel against its
 plain PyTorch version at the shapes of the path that runs it, and times
 both; kernels 1 and 2 at the flagship's predict and train shapes (kernel 1
-K=3000 -> 300 and K=12,000 -> 600, bit for bit, also on images with every
-row masked, with fewer survivors than ``n_post`` and with one box
-repeated; kernel 2 R=300 and R=128), kernel 3 (two launches: decode and
+K=3000 -> 300 and K=12,000 -> 600, and the detector post-process's K=400 ->
+100 at its IoU threshold, each of the four outputs, the kept rows' index
+too, bit for bit, also on images with every row masked, with fewer
+survivors than ``n_post`` and with one box repeated; kernel 2 R=300 and
+R=128), kernel 3 (two launches: decode and
 sort in ``csrc/proposals.cu``, kernel 1's walk in ``csrc/nms.cu``) bit for
 bit at the single scale's 12,996 anchors (n_post 300 and 600), at the
 16,368 of a 256x256 FPN input and at the 65,472 of a 512x512 one (n_post
@@ -307,6 +309,26 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, name: str, iters: int):
+    """Mean time on the card of the kernels whose name holds ``name``, per
+    call of ``fn()``, over ``iters`` calls, from ``torch.profiler``'s
+    device records: the kernel alone, where :func:`cuda_time_ms` of a small
+    launch reads the rate at which the host launches.  None where the
+    profiler records no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(us) / 1e3 / iters if us else None
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -342,16 +364,14 @@ def nms_inputs(rng, b: int, k: int, dev, edges: bool = False):
     return torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
 
 
-def nms_bound_ms(boxes, out_boxes, valid, n_post: int):
-    """Bytes: inputs once, outputs once.  Operations: the IoUs greedy NMS
-    needs on this data -- each kept row i against the K - 1 - i rows after
-    it -- plus one area per row."""
+def nms_bound_ms(boxes, index, valid, n_post: int):
+    """Bytes: inputs once, outputs (boxes, scores, mask, index) once.
+    Operations: the IoUs greedy NMS needs on this data -- each kept row i
+    (``index``) against the K - 1 - i rows after it -- plus one area per
+    row."""
     b, k, _ = boxes.shape
-    nbytes = b * k * (16 + 4) + b * n_post * (16 + 4 + 1)
-    # row index of each kept box in its image
-    match = (out_boxes[:, :, None, :] == boxes[:, None, :, :]).all(-1)
-    row = match.to(torch.uint8).argmax(-1)
-    ious = int(((k - 1 - row) * valid).sum())
+    nbytes = b * k * (16 + 4) + b * n_post * (16 + 4 + 1 + 4)
+    ious = int(((k - 1 - index.long()) * valid).sum())
     ops = ious * IOU_FLOPS + b * k * 3
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -359,31 +379,41 @@ def nms_bound_ms(boxes, out_boxes, valid, n_post: int):
 
 # kernel 1's (K, n_post): predict, then train; kernel 2's R: the same
 NMS_SHAPES = ((3000, 300), (12000, 600))
+# kernel 1's (K, n_post) in the detector's post-process, at its IoU
+# threshold: 4 * max_detections candidates -> max_detections
+POST_NMS_SHAPE = (400, 100)
 ALIGN_ROIS = (300, 128)
 
 
 def check_nms(rng, dev):
-    """Kernel 1 at the predict and train shapes, B=16: bit for bit against
-    the plain version, on the timed batch and on one with three edge images
+    """Kernel 1 at the predict and train shapes (IoU 0.7) and the
+    post-process's (:data:`POST_NMS_SHAPE`, ``Config().predict_nms_iou``),
+    B=16: all four outputs, the index too, bit for bit against the plain
+    version, on the timed batch and on one with three edge images
     (``nms_inputs(edges=True)``).  Returns the predict shape's row of the
     kernels line and each shape's numbers."""
+    from two_stage_object_detection_tpu_torch.config import Config
     from two_stage_object_detection_tpu_torch.ops.proposals import (
         greedy_nms, greedy_nms_rows_reference)
     shapes = {}
-    for k, n_post in NMS_SHAPES:
+    post_iou = Config().predict_nms_iou
+    for k, n_post, iou in (*((k, n, 0.7) for k, n in NMS_SHAPES),
+                           (*POST_NMS_SHAPE, post_iou)):
         for edges in (False, True):
             boxes, scores = nms_inputs(rng, 16, k, dev, edges=edges)
             run = lambda: greedy_nms(boxes, scores, n_post=n_post,  # noqa: E731
-                                     iou_threshold=0.7)
+                                     iou_threshold=iou)
             plain = lambda: greedy_nms_rows_reference(              # noqa: E731
-                boxes, scores, n_post=n_post, iou_threshold=0.7)
+                boxes, scores, n_post=n_post, iou_threshold=iou)
             got, want = run(), plain()
             torch.cuda.synchronize()
-            for name, g, w in zip(("boxes", "scores", "valid"), got, want):
+            require(len(got) == len(want) == 4, "nms: four outputs expected")
+            for name, g, w in zip(("boxes", "scores", "valid", "index"), got,
+                                  want):
                 require(torch.equal(g, w), f"nms K={k} edges={edges}: {name} "
                         "differ from the plain version (must be bitwise equal)")
             kept = got[2].sum(1).tolist()
-            log(f"kernel greedy_nms B=16 K={k} n_post={n_post}"
+            log(f"kernel greedy_nms B=16 K={k} n_post={n_post} IoU {iou}"
                 f"{' edge images' if edges else ''}: bitwise equal to plain, "
                 f"{sum(kept)} kept (images 0-2: {kept[:3]})")
             if edges:
@@ -393,12 +423,17 @@ def check_nms(rng, dev):
                 continue
             require(sum(kept) > 0, "nms kept nothing")
             ms = cuda_time_ms(run, 50 if k <= 3000 else 20)
+            k_ms = kernel_ms(run, "nms_cluster_kernel", 50 if k <= 3000 else 20)
             plain_ms = cuda_time_ms(plain, 2, warmup=1)
-            bound_ms, bound_by = nms_bound_ms(boxes, got[0], got[2], n_post)
-            log(f"kernel greedy_nms B=16 K={k} n_post={n_post}: {ms:.4f} ms, "
-                f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            bound_ms, bound_by = nms_bound_ms(boxes, got[3], got[2], n_post)
+            log(f"kernel greedy_nms B=16 K={k} n_post={n_post} IoU {iou}: "
+                f"{ms:.4f} ms a call, the kernel alone "
+                f"{'not measured' if k_ms is None else f'{k_ms:.4f} ms'}, "
+                f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by})")
             shapes[f"K{k}"] = dict(
-                n_post=n_post, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                n_post=n_post, iou=iou, ms=ms, kernel_ms=k_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, kept=sum(kept),
                 max_abs_err=float((got[0] - want[0]).abs().max()))
     pred = shapes[f"K{NMS_SHAPES[0][0]}"]

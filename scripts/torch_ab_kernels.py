@@ -9,7 +9,10 @@ Each turn is a fresh Python process whose working directory is the
 checkout: it builds that checkout's kernels and times, with CUDA events,
 
 * ``greedy_nms`` (kernel 1) at B=16, K=3000 -> 300 (predict) and
-  K=12,000 -> 600 (train), 50 and 20 launches;
+  K=12,000 -> 600 (train), 50 and 20 launches, and at the post-process's
+  K=400 -> 100 (its IoU threshold), 50 launches, each also as the
+  kernel's own time in ``torch.profiler``'s device records (``kernel_ms``:
+  a launch this small is paced by the host);
 * ``windowed_roi_align_batched`` (kernel 2) at B=16, R=300 (predict) and
   R=128 (train), C=256 bf16 over P2..P5 of a 600x600 image, 20 launches;
 * ``fused_proposals_batched`` (kernel 3) at B=16 over the 12,996 anchors
@@ -69,8 +72,20 @@ def worker() -> None:
         got = run()
         out[f"greedy_nms_K{k}"] = {
             "ms": cs.cuda_time_ms(run, 50 if k <= 3000 else 20),
+            "kernel_ms": cs.kernel_ms(run, "nms_cluster_kernel",
+                                      50 if k <= 3000 else 20),
             "kept": int(got[2].sum()),
             "checksum": float(got[0].double().sum())}
+    k, n_post = cs.POST_NMS_SHAPE
+    boxes, scores = cs.nms_inputs(np.random.RandomState(k), 16, k, dev)
+    run = lambda: greedy_nms(boxes, scores, n_post=n_post,  # noqa: E731
+                             iou_threshold=Config().predict_nms_iou)
+    got = run()
+    out[f"greedy_nms_K{k}_post"] = {
+        "ms": cs.cuda_time_ms(run, 50),
+        "kernel_ms": cs.kernel_ms(run, "nms_cluster_kernel", 50),
+        "kept": int(got[2].sum()),
+        "checksum": float(got[0].double().sum())}
     for r in cs.ALIGN_ROIS:
         pyr, rois, levels, scales = cs.align_inputs(
             np.random.RandomState(r), dev, torch.bfloat16, r=r)
@@ -140,7 +155,9 @@ def main() -> int:
         res = json.loads(lines[-1][len("AB_RESULT "):])
         turns.append({"tree": which, "dir": dirs[which], **res})
         print(f"{which}: " + ", ".join(
-            f"{name} {r['ms']:.4f} ms" for name, r in res.items()), flush=True)
+            f"{name} {r['ms']:.4f} ms" + (
+                f" (kernel {r['kernel_ms']:.4f} ms)" if r.get("kernel_ms")
+                else "") for name, r in res.items()), flush=True)
     for name in turns[0]:
         if name in ("tree", "dir"):
             continue

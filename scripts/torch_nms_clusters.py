@@ -66,11 +66,13 @@ def main() -> int:
             def run(cluster):
                 out = (torch.empty((b, n_post, 4), device=dev),
                        torch.empty((b, n_post), device=dev),
-                       torch.empty((b, n_post), dtype=torch.bool, device=dev))
+                       torch.empty((b, n_post), dtype=torch.bool, device=dev),
+                       torch.empty((b, n_post), dtype=torch.int32, device=dev))
                 _cuda.check(launch(boxes.data_ptr(), scores.data_ptr(), b, k,
-                                   n_post, 0.7, cluster,
-                                   *[t.data_ptr() for t in out],
-                                   _cuda.stream_handle(boxes)), "nms_launch")
+                                   k, n_post, 0.7, cluster,
+                                   *[t.data_ptr() for t in out], 0,
+                                   None, _cuda.stream_handle(boxes)),
+                            "nms_launch")
                 return out
 
             picked = P._nms_cluster(dev.index, b, k)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from two_stage_object_detection_tpu_torch.config import Config
+from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
 from two_stage_object_detection_tpu_torch.ops.anchors import make_fpn_anchors
 from two_stage_object_detection_tpu_torch.ops.proposals import (
     MAX_KERNEL_ROWS, _decode_masked, fused_proposals, fused_proposals_batched,
@@ -36,6 +37,9 @@ from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     windowed_align_op, windowed_roi_align_batched)
 from two_stage_object_detection_tpu_torch.quantize import (
     conv_int32, conv_int32_reference)
+# the module beside this file, by its own name: an installed package
+# named ``tests`` would shadow the directory's
+from torch_nms_cases import offset_candidates
 
 pytestmark = pytest.mark.cuda
 
@@ -157,6 +161,131 @@ def test_greedy_nms_kernel_above_the_row_cap(rng, dev, k, case):
     else:
         assert bool((first.sum(1) == n_post).all())
     assert bool((got[2].sum(1) == n_post).all())
+
+
+def _offset_rows(rng, b, r, n_class, case, size=600):
+    """:func:`torch_nms_cases.offset_candidates` as
+    ``class_offset_nms`` hands them to kernel 1: each class's boxes shifted
+    by ``label * (size + 2)``, the invalid rows' scores at -1e9."""
+    boxes, scores, labels = offset_candidates(rng, b, r, n_class, case, size)
+    boxes = boxes + labels.to(torch.float32)[..., None] * (size + 2.0)
+    return boxes.contiguous(), torch.where(scores > 0, scores, -1e9)
+
+
+@pytest.mark.parametrize("n_post", [100, 7])
+@pytest.mark.parametrize("case,b,r,n_class,thr", [
+    ("tied_scores", 16, 300, 80, 0.1),
+    ("same_box_two_classes", 3, 40, 10, 0.1),
+    ("under_thresh", 3, 60, 20, 0.1),
+    ("no_valid_image", 3, 30, 5, 0.3),
+    ("few_survivors", 2, 100, 20, 0.1),
+    ("suppress_most", 2, 200, 2, 0.05),
+])
+def test_greedy_nms_kernel_index_equals_plain(rng, dev, case, b, r, n_class,
+                                              thr, n_post):
+    """Kernel 1 with its index output at the post-process's shapes (K=400,
+    or fewer candidates) == the plain version, bit for bit: boxes, scores,
+    mask and each kept row's index (0 in the slots not kept), one counted
+    launch."""
+    boxes, scores = (t.to(dev) for t in _offset_rows(rng, b, r, n_class,
+                                                      case))
+    before = greedy_nms.launches
+    got = greedy_nms(boxes, scores, n_post=n_post, iou_threshold=thr)
+    want = greedy_nms_rows_reference(boxes, scores, n_post=n_post,
+                                     iou_threshold=thr)
+    torch.cuda.synchronize()
+    assert greedy_nms.launches == before + 1
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[3].dtype == torch.int32
+    if case == "no_valid_image":
+        assert int(got[2][1].sum()) == 0 and bool((got[3][1] == 0).all())
+
+
+@pytest.mark.parametrize("case", ["first_chunk", "crossing"])
+def test_greedy_nms_kernel_index_across_chunks(rng, dev, case):
+    """Above ``MAX_KERNEL_ROWS`` each chunk's launch counts the index from
+    the table's first row: equal to the plain version bit for bit, with
+    kept rows past the first chunk where the kept set crosses chunks."""
+    b, n_post, k = 2, 300, MAX_KERNEL_ROWS + 1
+    if case == "crossing":
+        boxes, scores = _crowded_rows(rng, b, k, n_dup=int(0.6 * k))
+    else:
+        boxes, scores = _sorted_rows(rng, b, k)
+    boxes, scores = boxes.to(dev), scores.to(dev)
+    got = greedy_nms(boxes, scores, n_post=n_post, iou_threshold=0.7)
+    want = greedy_nms_rows_reference(boxes, scores, n_post=n_post,
+                                     iou_threshold=0.7)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rows0 = nms_chunks(k)[0][1]
+    if case == "crossing":
+        assert int(got[3].max()) >= rows0
+    else:
+        assert int(got[3].max()) < rows0
+
+
+def test_proposal_routes_drop_the_index(rng, dev):
+    """The proposal routes return three outputs, kernel 1's index dropped:
+    the truncated route (one launch of kernel 1 at the flagship's predict
+    shape, B=2, K=3000 -> 300) and the whole-table route (kernel 3, whose
+    walk stores the index too), each equal to its plain route bit for
+    bit."""
+    locs, fg, anchors = (t.to(dev) for t in _proposal_data(rng, 2, 20000))
+    kw = dict(nms_iou=0.7, n_post_nms=300, min_size=16.0)
+    for n_pre_nms, counter in ((3000, greedy_nms),
+                               (None, fused_proposals_batched)):
+        before = counter.launches
+        got = proposals_batched(locs, fg, anchors, (600, 600),
+                                n_pre_nms=n_pre_nms, **kw)
+        want = proposals_batched(locs, fg, anchors, (600, 600),
+                                 n_pre_nms=n_pre_nms, use_kernel=False, **kw)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_post_process_makes_no_synchronising_call(dev):
+    """``FasterRCNN.post_process`` on the card (HarDNet-39 at 160x160, every
+    score over the threshold so that its NMS does work) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no call waits for the
+    device.  Its class-offset NMS is one launch of kernel 1, and its
+    detections equal the plain route's bit for bit."""
+    cfg = Config(input_size=(160, 160), score_thresh=0.0)
+    model = FasterRCNN(cfg, device=dev)
+    images = torch.rand((2, 160, 160, 3), generator=torch.Generator()
+                        .manual_seed(0)).to(dev)
+    grabbed = []
+    post_process = model.post_process
+
+    def grab(*args):
+        grabbed.append(args)
+        return post_process(*args)
+
+    model.post_process = grab
+    model.predict(images)          # warm-up: constants, cluster choice
+    del model.post_process
+    args = grabbed[0]
+    torch.cuda.synchronize()
+    before = greedy_nms.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            got = model.post_process(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert greedy_nms.launches == before + 1
+    model.cfg = cfg.replace(pallas="off")
+    with torch.inference_mode():
+        want = model.post_process(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[3].sum()) > 0
 
 
 @pytest.mark.parametrize("dtype,c,r,p,s", [

@@ -81,8 +81,8 @@ def test_greedy_nms_rows_edges_match_pallas_kernel(rng, k, n_post, n_valid):
     jb, js, jv = _truncated_nms_call(jnp.asarray(boxes), jnp.asarray(scores),
                                      nms_iou=0.7, n_post_nms=n_post,
                                      interpret=True)
-    tb, ts, tv = greedy_nms_rows_reference(T(boxes), T(scores), n_post=n_post,
-                                           iou_threshold=0.7)
+    tb, ts, tv, _ = greedy_nms_rows_reference(
+        T(boxes), T(scores), n_post=n_post, iou_threshold=0.7)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-6)

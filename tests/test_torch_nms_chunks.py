@@ -1,4 +1,5 @@
-"""PyTorch port: kernel 1's walk in chunks, on the CPU.
+"""PyTorch port: kernel 1's walk in chunks, and its plain route as the
+detector's class-offset NMS, on the CPU.
 
 Kernel 1 (``csrc/nms.cu``) holds at most ``MAX_KERNEL_ROWS`` (112,128) rows
 an image in one launch's shared memory.  Above that ``ops/proposals.py``
@@ -11,6 +12,11 @@ for bit against the plain one-pass steps and against the JAX package's
 ``_batched_nms_kernel`` run interpreted; then the chunk planner.  The
 kernel itself runs only on the card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
+
+The detector's post-process runs its class-offset NMS as one call of
+kernel 1 with the kept rows' index (``nets/detector.py:class_offset_nms``);
+its plain route is held index for index against ``ops/nms.py:nms``, the
+loop it replaced.
 """
 
 import jax.numpy as jnp
@@ -20,7 +26,11 @@ import torch
 
 from two_stage_object_detection_tpu.ops.pallas_proposals import (
     _truncated_nms_call)
+from two_stage_object_detection_tpu_torch.nets.detector import (
+    class_offset_nms)
 from two_stage_object_detection_tpu_torch.ops import proposals as tp
+from two_stage_object_detection_tpu_torch.ops.nms import nms
+from torch_nms_cases import offset_candidates
 
 T = torch.from_numpy
 THR = 0.7
@@ -115,7 +125,7 @@ def test_chunked_walk_equals_interpreted_pallas_kernel(rng, chunk, case):
     jb, js, jv = _truncated_nms_call(jnp.asarray(boxes), jnp.asarray(scores),
                                      nms_iou=THR, n_post_nms=n_post,
                                      interpret=True)
-    tb, ts, tv = tp.greedy_nms_chunked_reference(
+    tb, ts, tv, _ = tp.greedy_nms_chunked_reference(
         T(boxes), T(scores), n_post=n_post, iou_threshold=THR, chunk=chunk)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
@@ -140,3 +150,78 @@ def test_nms_chunks_plan(k, n_chunks):
     sizes = [rows for _, rows in chunks]
     assert all(s == sizes[0] and s % tp.NMS_TILE == 0 for s in sizes[:-1])
     assert sizes[-1] <= sizes[0]
+
+
+@pytest.mark.parametrize("case", ["first_chunk", "crossing", "signed_zeros"])
+@pytest.mark.parametrize("chunk", [64, 100, 1000])
+def test_chunked_walk_index_equals_plain_steps(rng, chunk, case):
+    """The chunked walk's row index of each kept box, counted from the
+    table's first row across chunks, equals the one-pass steps' index, 0 in
+    the slots not kept; the index gathers the kept boxes."""
+    boxes, scores, n_post = _case(rng, chunk, case)
+    got = tp.greedy_nms_chunked_reference(T(boxes), T(scores), n_post=n_post,
+                                          iou_threshold=THR, chunk=chunk)
+    want = tp.greedy_nms_rows_reference(T(boxes), T(scores), n_post=n_post,
+                                        iou_threshold=THR)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    index, valid = want[3], want[2]
+    assert index.dtype == torch.int32
+    assert bool((index[~valid] == 0).all())
+    rows = torch.gather(T(boxes), 1, index.long()[..., None].expand(-1, -1, 4))
+    assert torch.equal(rows[valid], want[0][valid])
+    if case == "crossing":
+        assert int(index.max()) >= chunk       # kept rows past the first chunk
+
+
+# ------------------------------------- the post-process's class-offset NMS
+@pytest.mark.parametrize("n_post", [100, 7])
+@pytest.mark.parametrize("case,b,r,n_class,thr", [
+    ("tied_scores", 3, 50, 8, 0.1),
+    ("same_box_two_classes", 2, 40, 10, 0.1),
+    ("under_thresh", 3, 60, 20, 0.1),
+    ("no_valid_image", 3, 30, 5, 0.3),
+    ("few_survivors", 2, 100, 20, 0.1),
+    ("suppress_most", 2, 200, 2, 0.05),
+])
+def test_class_offset_nms_plain_route_equals_nms_loop(rng, case, b, r, n_class,
+                                                      thr, n_post):
+    """The post-process's class-offset NMS on its plain route (kernel 1's
+    plain version with the index) keeps the same candidates as
+    ``ops/nms.py:nms`` over the offset boxes, index for index and mask for
+    mask: on tied scores, one box under two classes (which the offset keeps
+    apart), rows under the score threshold, an image with no valid
+    candidate, fewer survivors than ``n_post``, and a crowd in which the
+    threshold suppresses most rows."""
+    cand_boxes, cand_scores, cand_labels = offset_candidates(
+        rng, b, r, n_class, case, size=64)
+    img_size = (64, 64)
+    idx, keep = class_offset_nms(cand_boxes, cand_scores, cand_labels,
+                                 img_size, iou_threshold=thr,
+                                 max_detections=n_post, use_kernel=False)
+    offset = cand_labels.to(torch.float32) * (64.0 + 2.0)
+    want_idx, want_keep = nms(cand_boxes + offset[..., None], cand_scores,
+                              thr, n_post, valid=cand_scores > 0)
+    assert idx.dtype == want_idx.dtype == torch.int64
+    assert torch.equal(keep, want_keep)
+    assert torch.equal(idx, want_idx)
+
+    n_valid = (cand_scores > 0).sum(1)
+    kept = keep.sum(1)
+    assert bool((kept <= torch.clamp(n_valid, max=n_post)).all())
+    if case == "tied_scores":
+        s = cand_scores[0][cand_scores[0] > 0]
+        assert len(torch.unique(s)) < len(s)
+    elif case == "same_box_two_classes" and n_post == 100:
+        got = torch.gather(cand_boxes, 1, idx[..., None].expand(-1, -1, 4))
+        k0 = got[0][keep[0]]
+        assert len(torch.unique(k0, dim=0)) < len(k0)   # one box, two labels
+    elif case == "under_thresh":
+        assert bool((n_valid < cand_scores.shape[1]).all())
+    elif case == "no_valid_image":
+        assert int(kept[1]) == 0 and int(kept[0]) > 0
+        assert bool((idx[1] == 0).all())
+    elif case == "few_survivors" and n_post == 100:
+        assert bool((kept < n_post).all()) and bool((kept > 0).all())
+    elif case == "suppress_most":
+        assert bool((kept <= n_class).all()) and bool((n_valid > 50).all())

@@ -1,4 +1,5 @@
-// Greedy NMS over score-sorted boxes, for the RPN proposal path.
+// Greedy NMS over score-sorted boxes, for the RPN proposal path and the
+// class-offset NMS of the detector's post-process.
 //
 // Replaces the TPU kernel `_batched_nms_kernel` of the JAX package
 // (ops/pallas_proposals.py, its loop `_greedy_nms_rows`): `n_post` greedy
@@ -57,6 +58,11 @@
 // host never reads it) and first clears its rows against the boxes already
 // in the outputs, with the same IoU code, then walks its tiles and
 // appends.  A launch that finds `n_post` already kept returns at once.
+//
+// The row index of each kept row (`out_index`): the walk also stores the
+// row of each kept box in the whole [B, K] table (a chunk's launch is told
+// its first row), and 0 in the slots not kept, as the plain version pads
+// them.  The post-process gathers labels by it; the proposal paths drop it.
 //
 // Exactness: the IoU is computed with __fmul_rn/__fadd_rn/__fsub_rn in the
 // order inter / (area + barea - inter + 1e-8), with area = (x2-x1)*(y2-y1),
@@ -179,9 +185,10 @@ __device__ __forceinline__ void clear_rows(const float4* box_s,
 
 // grid (cluster size, B), cluster (cluster size, 1, 1), kThreads threads.
 // The launch walks rows [0, k) of each image's `stride` rows (a chunk: the
-// pointers start at the chunk's first row).  With `kept_count`, the count
-// each image kept in earlier chunks (the outputs' first slots) is read
-// first and the new count written last.
+// pointers start at the chunk's first row, which is row `row0` of the
+// table; `out_index` gets row0 + the local row of each kept box).  With
+// `kept_count`, the count each image kept in earlier chunks (the outputs'
+// first slots) is read first and the new count written last.
 // Dynamic shared memory: the block's tiles' boxes [tiles * 64] float4, then
 // their alive bits [tiles * 2] uint32 (bit l of word w: local row 32w + l).
 //
@@ -197,7 +204,8 @@ nms_cluster_kernel(const float4* __restrict__ boxes,
                    int n_post, float thr, int tiles_per_block,
                    float4* __restrict__ out_boxes,
                    float* __restrict__ out_scores,
-                   bool* __restrict__ out_valid, int* __restrict__ kept_count) {
+                   bool* __restrict__ out_valid, int* __restrict__ out_index,
+                   int row0, int* __restrict__ kept_count) {
   extern __shared__ __align__(16) unsigned char smem[];
   float4* box_s = reinterpret_cast<float4*>(smem);
   uint32_t* alive =
@@ -224,6 +232,7 @@ nms_cluster_kernel(const float4* __restrict__ boxes,
   float4* ob = out_boxes + (size_t)img * n_post;
   float* os = out_scores + (size_t)img * n_post;
   bool* ov = out_valid + (size_t)img * n_post;
+  int* oi = out_index + (size_t)img * n_post;
   // kept in earlier chunks: the same in every block of the cluster, so a
   // full image leaves before any cluster barrier, all blocks alike
   const int prior = kept_count != nullptr ? kept_count[img] : 0;
@@ -303,6 +312,7 @@ nms_cluster_kernel(const float4* __restrict__ boxes,
           ob[n_kept + slot] = b;
           os[n_kept + slot] = sc[t * kTile + i];
           ov[n_kept + slot] = true;
+          oi[n_kept + slot] = row0 + t * kTile + i;
         }
       }
       if (lane == 0) pub_cnt[buf] = cnt;
@@ -346,6 +356,7 @@ nms_cluster_kernel(const float4* __restrict__ boxes,
       ob[s] = make_float4(0.f, 0.f, 0.f, 0.f);
       os[s] = 0.f;
       ov[s] = false;
+      oi[s] = 0;
     }
     if (kept_count != nullptr && threadIdx.x == 0) kept_count[img] = n_kept;
   }
@@ -413,16 +424,20 @@ extern "C" int nms_pick_cluster(int batch, int k, int max_cluster,
 // One launch over rows [0, k) of each image, `stride` rows apart (boxes and
 // scores point at the chunk's first row).  `cluster`: blocks per image,
 // 1..min(8, ceil(k / 64)) (nms_pick_cluster); launch_config refuses one
-// whose blocks cannot hold their rows.  `kept_count` ([batch] int32, zeroed
-// before the first chunk, or null for a single launch): read first,
-// written last.  Returns a cudaError_t code.
+// whose blocks cannot hold their rows.  `out_index` ([batch, n_post]
+// int32): the row of each kept box in the table, counted from the table's
+// first row, which is `row0` rows before the chunk's.
+// `kept_count` ([batch] int32, zeroed before the first chunk, or null for a
+// single launch): read first, written last.  Returns a cudaError_t code.
 extern "C" int nms_launch(const void* boxes, const void* scores, int batch,
                           int k, int stride, int n_post, float thr,
                           int cluster, void* out_boxes, void* out_scores,
-                          void* out_valid, void* kept_count, void* stream) {
+                          void* out_valid, void* out_index, int row0,
+                          void* kept_count, void* stream) {
   const int n_tiles = (k + kTile - 1) / kTile;
-  if (batch < 1 || k < 1 || stride < k || n_post < 0 || cluster < 1 ||
-      cluster > kMaxCluster || cluster > n_tiles) {
+  if (batch < 1 || k < 1 || stride < k || n_post < 0 || row0 < 0 ||
+      out_index == nullptr || cluster < 1 || cluster > kMaxCluster ||
+      cluster > n_tiles) {
     return (int)cudaErrorInvalidValue;
   }
   cudaLaunchAttribute attr[1];
@@ -436,7 +451,8 @@ extern "C" int nms_launch(const void* boxes, const void* scores, int batch,
       &cfg, nms_cluster_kernel, static_cast<const float4*>(boxes),
       static_cast<const float*>(scores), k, stride, n_post, thr, per_block,
       static_cast<float4*>(out_boxes), static_cast<float*>(out_scores),
-      static_cast<bool*>(out_valid), static_cast<int*>(kept_count));
+      static_cast<bool*>(out_valid), static_cast<int*>(out_index), row0,
+      static_cast<int*>(kept_count));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -11,10 +11,10 @@ The counterpart of the JAX package's ``nets/detector.py``, both branches:
   (kernel 3) -> RoIPool max (kernel 5), a global mean and two dense heads.
 
 Both end in the same per-class decode, score threshold and one
-class-offset NMS (:meth:`FasterRCNN.detect`).  ``predict`` takes
-``[B, H, W, 3]`` float images in [0, 1] and returns ``(boxes [B, D, 4],
-scores [B, D], labels [B, D] (1-based), valid [B, D])`` with
-``D = cfg.max_detections``, invalid slots zeroed.
+class-offset NMS (:meth:`FasterRCNN.post_process`, kernel 1 on the card).
+``predict`` takes ``[B, H, W, 3]`` float images in [0, 1] and returns
+``(boxes [B, D, 4], scores [B, D], labels [B, D] (1-based), valid [B, D])``
+with ``D = cfg.max_detections``, invalid slots zeroed.
 
 ``train_forward`` takes a padded batch (images, ``gt_boxes [B, G, 4]``,
 ``gt_labels [B, G]`` 0-based, ``gt_valid [B, G]``) and returns the four
@@ -51,10 +51,39 @@ from two_stage_object_detection_tpu_torch.ops.anchors import (
     make_anchors, make_fpn_anchors)
 from two_stage_object_detection_tpu_torch.ops.geometry import (
     clip_boxes, device_constant, loc2bbox)
-from two_stage_object_detection_tpu_torch.ops.nms import nms, topk_stable
+from two_stage_object_detection_tpu_torch.ops import proposals as proposal_ops
+from two_stage_object_detection_tpu_torch.ops.nms import NEG_INF, topk_stable
 from two_stage_object_detection_tpu_torch.ops.proposals import proposals_batched
 from two_stage_object_detection_tpu_torch.parallel import spatial
 from two_stage_object_detection_tpu_torch.utils.profiling import annotate
+
+
+def class_offset_nms(cand_boxes, cand_scores, cand_labels, img_size, *,
+                     iou_threshold: float, max_detections: int,
+                     use_kernel: bool):
+    """Greedy NMS over ``[B, N, 4]`` candidates sorted by score, descending,
+    ties to the lower index (:func:`topk_stable`'s order), each class's
+    boxes shifted by ``label * (max(img_size) + 2)`` so that boxes of two
+    classes never overlap.  A candidate is valid where its score is above 0.
+
+    One call of kernel 1 (:func:`~..ops.proposals.greedy_nms`, looked up
+    at call time), whose fourth output is the kept rows' index: one launch
+    on the kernel route, its plain version on the CPU or with
+    ``use_kernel=False``.
+    Invalid rows score ``NEG_INF`` and sort last, so the selection is
+    :func:`~..ops.nms.nms`'s over the same candidates, index for index.
+    Returns ``(index [B, max_detections] int64, 0 in slots not kept;
+    keep [B, max_detections] bool)``.
+    """
+    span = float(max(img_size)) + 2.0
+    offset = cand_labels.to(torch.float32) * span
+    boxes = cand_boxes.to(torch.float32) + offset[..., None]
+    scores = torch.where(cand_scores > 0, cand_scores.to(torch.float32),
+                         NEG_INF)
+    _, _, keep, index = proposal_ops.greedy_nms(
+        boxes, scores, n_post=max_detections, iou_threshold=iou_threshold,
+        use_kernel=use_kernel)
+    return index.to(torch.int64), keep
 
 
 class FasterRCNN(nn.Module):
@@ -332,40 +361,46 @@ class FasterRCNN(nn.Module):
                 roi_cls_locs, roi_scores = self.roi_head(feats, rois,
                                                          img_size)
             with annotate("tsod.post_process"):
-                b, r = rois.shape[:2]
-                n_class = cfg.num_classes + 1
-                if cfg.loc_normalize:
-                    # per-class strided layout [R, C*4]: tile the stds
-                    # across classes
-                    std = device_constant(
-                        tuple(cfg.loc_normalize_std) * n_class,
-                        roi_cls_locs.dtype, roi_cls_locs.device)
-                    roi_cls_locs = roi_cls_locs * std
-                probs = torch.softmax(roi_scores, dim=-1)     # [B, R, C]
-                n_cand = min(4 * cfg.max_detections, r * (n_class - 1))
+                return self.post_process(rois, roi_valid, roi_cls_locs,
+                                         roi_scores, img_size)
 
-                # decode every class at once, then ONE class-aware NMS over
-                # the top-k (box, class) candidates, boxes offset by class
-                boxes = clip_boxes(loc2bbox(rois, roi_cls_locs), img_size)
-                # drop the background
-                boxes = boxes.reshape(b, r, n_class, 4)[:, :, 1:, :]
-                fg = probs[..., 1:]
-                ok = roi_valid[..., None] & (fg >= cfg.score_thresh)
-                flat_scores = torch.where(ok, fg, -1.0).reshape(b, -1)
-                cand_scores, cand = topk_stable(flat_scores, n_cand)
-                cand_boxes = torch.gather(boxes.reshape(b, -1, 4), 1,
-                                          cand[..., None].expand(b, n_cand, 4))
-                cand_labels = (cand % (n_class - 1) + 1).to(torch.int32)
-                cand_valid = cand_scores > 0
+    def post_process(self, rois, roi_valid, roi_cls_locs, roi_scores,
+                     img_size):
+        """The tail of :meth:`detect`: decode every class of the box head's
+        outputs, cut to the best ``4 * max_detections`` (box, class)
+        candidates over the score threshold, and one class-offset NMS
+        (:func:`class_offset_nms`)."""
+        cfg = self.cfg
+        b, r = rois.shape[:2]
+        n_class = cfg.num_classes + 1
+        if cfg.loc_normalize:
+            # per-class strided layout [R, C*4]: tile the stds across classes
+            std = device_constant(tuple(cfg.loc_normalize_std) * n_class,
+                                  roi_cls_locs.dtype, roi_cls_locs.device)
+            roi_cls_locs = roi_cls_locs * std
+        probs = torch.softmax(roi_scores, dim=-1)     # [B, R, C]
+        n_cand = min(4 * cfg.max_detections, r * (n_class - 1))
 
-                span = float(max(img_size)) + 2.0
-                offset = cand_labels.to(torch.float32) * span
-                idx, keep = nms(cand_boxes + offset[..., None], cand_scores,
-                                cfg.predict_nms_iou, cfg.max_detections,
-                                valid=cand_valid)
-                kf = keep.to(torch.float32)
-                det_boxes = torch.gather(cand_boxes, 1, idx[..., None].expand(
-                    *idx.shape, 4)) * kf[..., None]
-                det_scores = torch.gather(cand_scores, 1, idx) * kf
-                det_labels = torch.gather(cand_labels, 1, idx) * keep
-                return det_boxes, det_scores, det_labels, keep
+        # decode every class at once, then ONE class-aware NMS over the
+        # top-k (box, class) candidates, boxes offset by class
+        boxes = clip_boxes(loc2bbox(rois, roi_cls_locs), img_size)
+        # drop the background
+        boxes = boxes.reshape(b, r, n_class, 4)[:, :, 1:, :]
+        fg = probs[..., 1:]
+        ok = roi_valid[..., None] & (fg >= cfg.score_thresh)
+        flat_scores = torch.where(ok, fg, -1.0).reshape(b, -1)
+        cand_scores, cand = topk_stable(flat_scores, n_cand)
+        cand_boxes = torch.gather(boxes.reshape(b, -1, 4), 1,
+                                  cand[..., None].expand(b, n_cand, 4))
+        cand_labels = (cand % (n_class - 1) + 1).to(torch.int32)
+
+        idx, keep = class_offset_nms(
+            cand_boxes, cand_scores, cand_labels, img_size,
+            iou_threshold=cfg.predict_nms_iou,
+            max_detections=cfg.max_detections, use_kernel=use_kernels(cfg))
+        kf = keep.to(torch.float32)
+        det_boxes = torch.gather(cand_boxes, 1, idx[..., None].expand(
+            *idx.shape, 4)) * kf[..., None]
+        det_scores = torch.gather(cand_scores, 1, idx) * kf
+        det_labels = torch.gather(cand_labels, 1, idx) * keep
+        return det_boxes, det_scores, det_labels, keep

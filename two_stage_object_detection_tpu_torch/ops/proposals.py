@@ -24,6 +24,11 @@ two routes (:func:`proposals_batched` picks one as
   with ``B = 1``; like the JAX package's ``_fused_kernel`` it is on neither
   the predict nor the train path.
 
+Kernel 1 also ends ``FasterRCNN.detect``: the class-offset NMS over its
+``4 * max_detections`` score-sorted candidates.  Every launch stores the
+index of each kept row, by which the post-process gathers labels and boxes;
+the proposal routes drop it.
+
 On the card both go through ``torch.library`` custom ops,
 ``tsod::greedy_nms`` (:func:`greedy_nms_op`) and ``tsod::fused_proposals``
 (:func:`fused_proposals_op`), whose fake implementations give the output
@@ -72,7 +77,8 @@ def greedy_nms_rows_reference(boxes: torch.Tensor, scores: torch.Tensor, *,
     ``scores [B, K]``: each step takes the best still-alive score (first
     index on ties), emits it (valid where ``score > NEG_INF/2``), and kills
     every box with ``iou > thr`` and itself.  Returns ``(boxes [B, n_post,
-    4], scores [B, n_post], valid [B, n_post])``, invalid slots zeroed.
+    4], scores [B, n_post], valid [B, n_post], index [B, n_post])``, the
+    index int32, the row each step took; invalid slots zeroed.
     """
     b, _, _ = boxes.shape
     x1, y1, x2, y2 = boxes.unbind(-1)
@@ -83,6 +89,7 @@ def greedy_nms_rows_reference(boxes: torch.Tensor, scores: torch.Tensor, *,
     out_boxes = torch.zeros((b, n_post, 4), dtype=boxes.dtype, device=boxes.device)
     out_scores = torch.zeros((b, n_post), dtype=scores.dtype, device=boxes.device)
     out_valid = torch.zeros((b, n_post), dtype=torch.bool, device=boxes.device)
+    out_index = torch.zeros((b, n_post), dtype=torch.int32, device=boxes.device)
     for k in range(n_post):
         i = torch.argmax(s_alive, dim=1)
         sc = s_alive[rows, i]
@@ -102,7 +109,8 @@ def greedy_nms_rows_reference(boxes: torch.Tensor, scores: torch.Tensor, *,
         out_boxes[:, k] = sel * vf[:, None]
         out_scores[:, k] = sc * vf
         out_valid[:, k] = valid
-    return out_boxes, out_scores, out_valid
+        out_index[:, k] = torch.where(valid, i, 0)
+    return out_boxes, out_scores, out_valid, out_index
 
 
 def greedy_nms_chunked_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -116,7 +124,8 @@ def greedy_nms_chunked_reference(boxes: torch.Tensor, scores: torch.Tensor,
     kept box as the selected one, as a step takes it), then walked with
     :func:`greedy_nms_rows_reference`'s steps into the slots still free.
     A row is kept exactly when no earlier kept row overlaps it by more than
-    the threshold, so the result is the same bit for bit.  Shapes as there.
+    the threshold, so the result is the same bit for bit.  Shapes as there,
+    each kept row's index counted from the table's first row.
     """
     b, k, _ = boxes.shape
     dev = boxes.device
@@ -125,6 +134,7 @@ def greedy_nms_chunked_reference(boxes: torch.Tensor, scores: torch.Tensor,
     out_boxes = torch.zeros((b, n_post, 4), dtype=boxes.dtype, device=dev)
     out_scores = torch.zeros((b, n_post), dtype=scores.dtype, device=dev)
     out_valid = torch.zeros((b, n_post), dtype=torch.bool, device=dev)
+    out_index = torch.zeros((b, n_post), dtype=torch.int32, device=dev)
     n_kept = torch.zeros(b, dtype=torch.int64, device=dev)
 
     def iou_above(sel, x1, y1, x2, y2, area):
@@ -161,8 +171,10 @@ def greedy_nms_chunked_reference(boxes: torch.Tensor, scores: torch.Tensor,
             out_scores[rows, slot] = torch.where(take, sc,
                                                  out_scores[rows, slot])
             out_valid[rows, slot] |= take
+            out_index[rows, slot] = torch.where(
+                take, (c0 + i).to(torch.int32), out_index[rows, slot])
             n_kept += take.to(torch.int64)
-    return out_boxes, out_scores, out_valid
+    return out_boxes, out_scores, out_valid, out_index
 
 
 def nms_chunks(k: int) -> list[tuple[int, int]]:
@@ -207,7 +219,7 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
     once for up to ``MAX_KERNEL_ROWS`` rows, once a chunk of
     :func:`nms_chunks` above that.  On the CPU, or with
     ``use_kernel=False``, it runs :func:`greedy_nms_rows_reference`.  Same
-    outputs either way, bit for bit.
+    outputs either way, bit for bit: ``(boxes, scores, valid, index)``.
     """
     if not (use_kernel and boxes.is_cuda):
         return greedy_nms_rows_reference(boxes, scores, n_post=n_post,
@@ -222,7 +234,8 @@ greedy_nms.launches = 0
                          device_types="cuda")
 def greedy_nms_op(boxes: torch.Tensor, scores: torch.Tensor, n_post: int,
                   iou_threshold: float
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
     """Kernel 1 as a custom op, so that ``torch.export`` keeps the launch
     in its graph; counted in ``greedy_nms.launches``.  Arguments and
     outputs as :func:`greedy_nms_rows_reference`."""
@@ -237,7 +250,8 @@ def greedy_nms_op(boxes: torch.Tensor, scores: torch.Tensor, n_post: int,
 
 @greedy_nms_op.register_fake
 def _(boxes, scores, n_post, iou_threshold):
-    return _nms_outputs(boxes, n_post)
+    return (*_nms_outputs(boxes, n_post),
+            boxes.new_empty((boxes.shape[0], n_post), dtype=torch.int32))
 
 
 def _nms_outputs(like: torch.Tensor, n_post: int):
@@ -252,13 +266,15 @@ def _nms_walk(boxes, scores, n_post, iou_threshold):
     """Launch kernel 1 (``csrc/nms.cu``) on checked ``[B, K]`` rows, once a
     chunk of :func:`nms_chunks`, counted by no wrapper: :func:`greedy_nms`
     and kernel 3 count their own calls.  Between chunks the count each image
-    kept stays on the device."""
+    kept stays on the device.  Returns boxes, scores, valid and the index
+    of each kept row."""
     b, k, _ = boxes.shape
     dev = boxes.device
     chunks = nms_chunks(k)
     out_boxes = torch.empty((b, n_post, 4), dtype=torch.float32, device=dev)
     out_scores = torch.empty((b, n_post), dtype=torch.float32, device=dev)
     out_valid = torch.empty((b, n_post), dtype=torch.bool, device=dev)
+    out_index = torch.empty((b, n_post), dtype=torch.int32, device=dev)
     kept = (torch.zeros((b,), dtype=torch.int32, device=dev)
             if len(chunks) > 1 else None)
     fn = _nms_fn()
@@ -268,10 +284,11 @@ def _nms_walk(boxes, scores, n_post, iou_threshold):
                         b, rows, k, n_post, iou_threshold,
                         _nms_cluster(dev.index, b, rows), out_boxes.data_ptr(),
                         out_scores.data_ptr(), out_valid.data_ptr(),
+                        out_index.data_ptr(), c0,
                         None if kept is None else kept.data_ptr(),
                         _cuda.stream_handle(boxes))
             _cuda.check(status, "nms_launch")
-    return out_boxes, out_scores, out_valid
+    return out_boxes, out_scores, out_valid, out_index
 
 
 @functools.lru_cache(maxsize=None)
@@ -289,7 +306,8 @@ def _nms_cluster(device_index: int, b: int, k: int) -> int:
 def _nms_fn():
     fn = _cuda.library("nms").nms_launch
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 5
+        ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
@@ -321,7 +339,7 @@ def fused_proposals_rows_reference(rpn_locs: torch.Tensor,
     roi, masked = _decode_masked(rpn_locs, rpn_fg_scores, anchors, img_size,
                                  min_size)
     return greedy_nms_rows_reference(roi, masked, n_post=n_post_nms,
-                                     iou_threshold=nms_iou)
+                                     iou_threshold=nms_iou)[:3]
 
 
 def order_keys(scores: torch.Tensor) -> torch.Tensor:
@@ -360,7 +378,7 @@ def fused_proposals_sorted_reference(rpn_locs: torch.Tensor,
                                  min_size)
     boxes, scores = sorted_rows_reference(roi, masked)
     return greedy_nms_rows_reference(boxes, scores, n_post=n_post_nms,
-                                     iou_threshold=nms_iou)
+                                     iou_threshold=nms_iou)[:3]
 
 
 def fused_proposals_batched(rpn_locs: torch.Tensor,
@@ -461,7 +479,7 @@ def _fused_launch(rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou,
                     sorted_boxes.data_ptr(), sorted_scores.data_ptr(),
                     _cuda.stream_handle(locs))
     _cuda.check(status, "proposals_sort_launch")
-    return _nms_walk(sorted_boxes, sorted_scores, n_post, nms_iou)
+    return _nms_walk(sorted_boxes, sorted_scores, n_post, nms_iou)[:3]
 
 
 def _sort_fn():
@@ -498,4 +516,4 @@ def proposals_batched(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,
     top_boxes = torch.gather(roi, 1, top_idx[..., None].expand(-1, -1, 4))
     return greedy_nms(top_boxes.contiguous(), top_scores.contiguous(),
                       n_post=n_post_nms, iou_threshold=nms_iou,
-                      use_kernel=use_kernel)
+                      use_kernel=use_kernel)[:3]
