@@ -11,7 +11,8 @@ K=3000 -> 300 and K=12,000 -> 600, and the detector post-process's K=400 ->
 100 at its IoU threshold, each of the four outputs, the kept rows' index
 too, bit for bit, also on images with every row masked, with fewer
 survivors than ``n_post`` and with one box repeated; kernel 2 R=300 and
-R=128), kernel 3 (two launches: decode and
+R=128 at P=7, and at Mask R-CNN's mask head, 100 detections an image
+pooled at P=14 from P2..P5 of 800x1088), kernel 3 (two launches: decode and
 sort in ``csrc/proposals.cu``, kernel 1's walk in ``csrc/nms.cu``) bit for
 bit at the single scale's 12,996 anchors (n_post 300 and 600), at the
 16,368 of a 256x256 FPN input and at the 65,472 of a 512x512 one (n_post
@@ -22,20 +23,24 @@ gradient slice in shared memory at B=16, 38x38x512; global atomics on a
 for bit above the 112,128 rows one walk launch holds (112,129 and 250,000
 rows at B=2, walked in chunks).  Then it
 serves requests through the port's ``Predictor`` on
-two paths, each at full width (600x600, 81 classes, 100 detections,
-bfloat16, seeded random weights), with every launch counter set to 0 just
-before and read just after:
+three paths, each at full width (bfloat16, seeded random weights), with
+every launch counter set to 0 just before and read just after:
 
-* the FPN flagship (ResNet-50 FPN, 3000 -> 300 proposals): kernels 1 and 2;
-* the default ``Config()`` (HarDNet-39, single scale, 12,996 anchors,
-  whole-table 300 proposals): kernels 3 and 5.
+* the FPN flagship (ResNet-50 FPN, 600x600, 81 classes, 3000 -> 300
+  proposals): kernels 1 and 2;
+* the default ``Config()`` (HarDNet-39, single scale, 600x600, 12,996
+  anchors, whole-table 300 proposals): kernels 3 and 5;
+* Mask R-CNN R50-FPN (``port_bench/configs/mask_r50.json``: 800x1088, 81
+  classes, 5000 -> 1000 proposals, 100 detections): kernels 1 and 2, the
+  mask head's kernel 2 at P=14 counted apart (``windowed_align_p14``);
+  every answer's ``masks`` float16 probabilities, zero in invalid slots.
 
 Kernel 4, kernel 3's one-image launch, is off both paths (as the JAX
 package's ``_fused_kernel`` is off its predict path): it is checked and
 timed here, and its launch count on the paths is 0.
 
-It checks f32 predict with the kernels against ``pallas="off"`` on both
-paths.
+It checks f32 predict with the kernels against ``pallas="off"`` on each
+path, and Mask R-CNN's masks of the same detections within 1e-4.
 
 Then it trains, on three paths at full width: the flagship (kernels 1
 and 2 under the hybrid RoIAlign), the single scale with ``roi_bwd="pallas"``
@@ -262,7 +267,9 @@ that raises fails the phase.
 
 Output: progress lines; the card's ``nvidia-smi`` name and power limit; one
 JSON line ``{"kernels": [...]}`` with each kernel's launches, error, times
-and bound; and last, ``{"ok": true, "device": {...}}``.  With ``--json``,
+and bound (kernel 2 twice: ``windowed_align`` at the box head's R=300, its
+launches all of kernel 2's; ``windowed_align_p14`` at the mask head's
+shape, its launches those at P=14); and last, ``{"ok": true, "device": {...}}``.  With ``--json``,
 the measured numbers also go to that file.  Without a CUDA device,
 or outside the repository, it exits nonzero and prints no result.
 
@@ -272,6 +279,8 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import logging
 import os
@@ -383,6 +392,11 @@ NMS_SHAPES = ((3000, 300), (12000, 600))
 # threshold: 4 * max_detections candidates -> max_detections
 POST_NMS_SHAPE = (400, 100)
 ALIGN_ROIS = (300, 128)
+# kernel 2 at Mask R-CNN's mask head (port_bench/configs/mask_r50.json):
+# 100 detections an image pooled at P=14 from P2..P5 of 800x1088
+MASK_ROIS, MASK_P = 100, 14
+MASK_IMG = (800, 1088)
+MASK_LEVELS_HW = ((200, 272), (100, 136), (50, 68), (25, 34))
 
 
 def check_nms(rng, dev):
@@ -477,19 +491,43 @@ def align_inputs(rng, dev, dtype, b=16, r=300, c=256):
     return pyr, rois, levels.to(torch.int32).contiguous(), scales
 
 
+def mask_align_inputs(rng, dev, dtype, b=16, r=MASK_ROIS, c=256):
+    """P2..P5 of an 800x1088 image and COCO-like detections inside it
+    (square-root areas log-uniform in 16-600 px, aspect 0.5-2), on the
+    levels the mask head assigns them (eq. 1, then the span-aware bump)."""
+    from two_stage_object_detection_tpu_torch.nets.fpn import (
+        fpn_level_assign, span_aware_levels)
+    h, w = MASK_IMG
+    g = torch.Generator(device="cpu").manual_seed(int(rng.randint(1 << 30)))
+    pyr = [torch.randn((b, fh, fw, c), generator=g).to(dev, dtype)
+           for fh, fw in MASK_LEVELS_HW]
+    side = np.exp(rng.uniform(np.log(16.0), np.log(600.0), size=(b, r)))
+    ar = np.exp(rng.uniform(-0.693, 0.693, size=(b, r)))
+    bw = np.minimum(side / np.sqrt(ar), w - 1.0)
+    bh = np.minimum(side * np.sqrt(ar), h - 1.0)
+    x1, y1 = rng.rand(b, r) * (w - bw), rng.rand(b, r) * (h - bh)
+    rois = torch.from_numpy(np.stack([x1, y1, x1 + bw, y1 + bh], -1)
+                            .astype(np.float32)).to(dev)
+    scales = tuple((fh / h, fw / w) for fh, fw in MASK_LEVELS_HW)
+    levels = span_aware_levels(rois, fpn_level_assign(rois, 2, 5) - 2, scales,
+                               30.0)
+    return pyr, rois, levels.to(torch.int32).contiguous(), scales
+
+
 def touched_bytes(pyr, rois, levels, scales, win=32, p=7, s=2):
     """Bytes of the distinct pyramid pixels the rois' bilinear taps read:
     over the whole batch (each pixel once: the HBM bound), and summed over
     the rois (each pixel once per roi that reads it: the least one block a
     roi brings into its SM)."""
     from two_stage_object_detection_tpu_torch.ops import roi_pool
+    hw = [tuple(f.shape[1:3]) for f in pyr]
     dev = rois.device
-    sizes = torch.tensor(LEVELS_HW, dtype=torch.float32, device=dev)
-    sc = roi_pool._norm_scales(scales, len(LEVELS_HW)).to(dev)
+    sizes = torch.tensor(hw, dtype=torch.float32, device=dev)
+    sc = roi_pool._norm_scales(scales, len(hw)).to(dev)
     lv = levels.long()
     cy, cx = roi_pool._roi_samples(rois, lv, sizes, sc, p, s, False)
-    w_pad = max(max(w for _, w in LEVELS_HW), win)
-    block_h = torch.tensor([max(h, win) for h, _ in LEVELS_HW], device=dev)
+    w_pad = max(max(w for _, w in hw), win)
+    block_h = torch.tensor([max(h, win) for h, _ in hw], device=dev)
     oy = torch.minimum(torch.clamp(torch.floor(cy[..., 0]).long(), min=0),
                        block_h[lv] - win)
     ox = torch.clamp(torch.floor(cx[..., 0]).long(), 0, w_pad - win)
@@ -512,7 +550,7 @@ def touched_bytes(pyr, rois, levels, scales, win=32, p=7, s=2):
                    * distinct(tx, sizes[lv, 1].long())).sum())
     total = 0
     bidx = torch.arange(rois.shape[0], device=dev)[:, None, None, None]
-    for li, (h, w) in enumerate(LEVELS_HW):
+    for li, (h, w) in enumerate(hw):
         m = lv == li
         occ = torch.zeros((rois.shape[0], h, w), dtype=torch.bool, device=dev)
         yy = ty[..., :, None].expand(-1, -1, -1, tx.shape[-1])
@@ -527,69 +565,82 @@ def touched_bytes(pyr, rois, levels, scales, win=32, p=7, s=2):
 
 def check_align(rng, dev):
     """Kernel 2 at the predict (R=300) and train (R=128) shapes, B=16,
-    C=256: f32 within 1e-5 of the plain version, bf16 within one bf16
-    rounding of the plain version run in f32; each shape timed in bf16
-    against its bound.  Returns the predict shape's row of the kernels line
-    and each shape's numbers."""
+    C=256, P=7, and at the mask head's (:data:`MASK_ROIS` detections an
+    image, P=14, over 800x1088): f32 within 1e-5 of the plain version, bf16
+    within one bf16 rounding of the plain version run in f32; each shape
+    timed in bf16 against its bound.  Returns the kernels line's rows of
+    the box predict shape and of the mask head's, and each shape's
+    numbers."""
+    shapes = {f"R{r}": align_shape(lambda dt: align_inputs(rng, dev, dt, r=r),
+                                   f"R={r}", 7)
+              for r in ALIGN_ROIS}
+    shapes[f"P{MASK_P}"] = align_shape(
+        lambda dt: mask_align_inputs(rng, dev, dt), f"R={MASK_ROIS} "
+        f"P={MASK_P} (mask head, {MASK_IMG[0]}x{MASK_IMG[1]})", MASK_P)
+    rows = []
+    for name, key in (("windowed_align", f"R{ALIGN_ROIS[0]}"),
+                      (f"windowed_align_p{MASK_P}", f"P{MASK_P}")):
+        rows.append(dict(
+            name=name, route="cuda",
+            source="two_stage_object_detection_tpu_torch/csrc/windowed_align.cu",
+            replaces="two_stage_object_detection_tpu/ops/pallas_windowed_align.py:52",
+            library_ms=None, **{k: shapes[key][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
+    return rows, shapes
+
+
+def align_shape(make, label: str, p: int):
+    """One shape of :func:`check_align`: ``make(dtype)`` gives its pyramid,
+    rois, levels and scales."""
     from two_stage_object_detection_tpu_torch.ops.windowed_align import (
         windowed_roi_align_batched)
-    shapes = {}
-    for r in ALIGN_ROIS:
-        # float32: the kernel equals the plain version to summation order
-        pyr, rois, levels, scales = align_inputs(rng, dev, torch.float32, r=r)
-        got = windowed_roi_align_batched(pyr, rois, levels, scales)
-        want = windowed_roi_align_batched(pyr, rois, levels, scales,
-                                          use_kernel=False)
-        err32 = float((got - want).abs().max())
-        log(f"kernel windowed_align f32 B=16 R={r} C=256: max |diff| "
-            f"{err32:.3e} (tolerance 1e-5)")
-        require(err32 <= 1e-5, f"windowed_align f32 R={r} differs by {err32}")
-        del pyr, got, want
-        # bfloat16: the kernel accumulates in f32 and rounds once, so it is
-        # within one bf16 rounding (2^-8 relative) of the plain version run
-        # in f32 on the same bf16 features
-        pyr, rois, levels, scales = align_inputs(rng, dev, torch.bfloat16, r=r)
-        got = windowed_roi_align_batched(pyr, rois, levels, scales)
-        want = windowed_roi_align_batched([p.float() for p in pyr], rois,
-                                          levels, scales, use_kernel=False)
-        diff = (got.float() - want).abs()
-        tol = 2.0 ** -8 * want.abs() + 1e-5
-        err = float(diff.max())
-        log(f"kernel windowed_align bf16 R={r}: max |diff| {err:.3e}, worst "
-            f"diff/tol {float((diff / tol).max()):.3f} (tolerance "
-            "2^-8*|ref| + 1e-5)")
-        require(bool((diff <= tol).all()), f"windowed_align bf16 R={r} "
-                "outside tolerance")
-        del want, diff, tol
+    # float32: the kernel equals the plain version to summation order
+    pyr, rois, levels, scales = make(torch.float32)
+    got = windowed_roi_align_batched(pyr, rois, levels, scales, p)
+    want = windowed_roi_align_batched(pyr, rois, levels, scales, p,
+                                      use_kernel=False)
+    err32 = float((got - want).abs().max())
+    log(f"kernel windowed_align f32 B=16 {label} C=256: max |diff| "
+        f"{err32:.3e} (tolerance 1e-5)")
+    require(err32 <= 1e-5, f"windowed_align f32 {label} differs by {err32}")
+    del pyr, got, want
+    # bfloat16: the kernel accumulates in f32 and rounds once, so it is
+    # within one bf16 rounding (2^-8 relative) of the plain version run
+    # in f32 on the same bf16 features
+    pyr, rois, levels, scales = make(torch.bfloat16)
+    got = windowed_roi_align_batched(pyr, rois, levels, scales, p)
+    want = windowed_roi_align_batched([f.float() for f in pyr], rois,
+                                      levels, scales, p, use_kernel=False)
+    diff = (got.float() - want).abs()
+    tol = 2.0 ** -8 * want.abs() + 1e-5
+    err = float(diff.max())
+    log(f"kernel windowed_align bf16 {label}: max |diff| {err:.3e}, worst "
+        f"diff/tol {float((diff / tol).max()):.3f} (tolerance "
+        "2^-8*|ref| + 1e-5)")
+    require(bool((diff <= tol).all()), f"windowed_align bf16 {label} "
+            "outside tolerance")
+    del want, diff, tol
 
-        ms = cuda_time_ms(lambda: windowed_roi_align_batched(
-            pyr, rois, levels, scales), 20)
-        plain_ms = cuda_time_ms(lambda: windowed_roi_align_batched(
-            pyr, rois, levels, scales, use_kernel=False), 3, warmup=1)
-        n_roi, c = rois.shape[0] * rois.shape[1], pyr[0].shape[-1]
-        touched, per_roi = touched_bytes(pyr, rois, levels, scales)
-        nbytes = (touched + n_roi * (16 + 4)
-                  + n_roi * 49 * c * pyr[0].element_size())
-        ops = n_roi * c * (49 * 16 * 3 + 49)   # 16 taps x (w*w, *v, +) per bin
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"kernel windowed_align bf16 B=16 R={r} C=256: {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-            f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); the rois' "
-            f"footprints, each pixel once per roi: {per_roi / 1e6:.1f} MB")
-        shapes[f"R{r}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, max_abs_err=err,
-                               max_abs_err_f32=err32, bytes=nbytes,
-                               footprint_bytes=per_roi)
-        del pyr, got
-    pred = shapes[f"R{ALIGN_ROIS[0]}"]
-    row = dict(name="windowed_align", route="cuda",
-               source="two_stage_object_detection_tpu_torch/csrc/windowed_align.cu",
-               replaces="two_stage_object_detection_tpu/ops/pallas_windowed_align.py:52",
-               library_ms=None, **{key: pred[key] for key in (
-                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
-    return row, shapes
+    ms = cuda_time_ms(lambda: windowed_roi_align_batched(
+        pyr, rois, levels, scales, p), 20)
+    plain_ms = cuda_time_ms(lambda: windowed_roi_align_batched(
+        pyr, rois, levels, scales, p, use_kernel=False), 3, warmup=1)
+    n_roi, c = rois.shape[0] * rois.shape[1], pyr[0].shape[-1]
+    touched, per_roi = touched_bytes(pyr, rois, levels, scales, p=p)
+    bins = p * p
+    nbytes = (touched + n_roi * (16 + 4)
+              + n_roi * bins * c * pyr[0].element_size())
+    ops = n_roi * c * (bins * 16 * 3 + bins)   # 16 taps x (w*w, *v, +) per bin
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"kernel windowed_align bf16 B=16 {label} C=256: {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); the rois' "
+        f"footprints, each pixel once per roi: {per_roi / 1e6:.1f} MB")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err, max_abs_err_f32=err32,
+                bytes=nbytes, footprint_bytes=per_roi)
 
 
 # ------------------------------------------------------------ kernels 3/4
@@ -1161,6 +1212,45 @@ def counters():
             "roi_pool_bwd_scatter": roi_pool_bwd_scatter}
 
 
+@contextlib.contextmanager
+def align_sizes():
+    """Kernel 2's launches by pooled size (``Counter``) while inside."""
+    from two_stage_object_detection_tpu_torch.ops import windowed_align as wa
+    op, tally = wa.windowed_align_op, collections.Counter()
+
+    def counted(*args):
+        tally[args[4]] += 1
+        return op(*args)
+
+    wa.windowed_align_op = counted
+    try:
+        yield tally
+    finally:
+        wa.windowed_align_op = op
+
+
+def mask_config():
+    """``port_bench/configs/mask_r50.json``'s Mask R-CNN R50-FPN as a
+    ``Config``."""
+    from two_stage_object_detection_tpu_torch.config import Config
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "port_bench", "configs", "mask_r50.json")) as f:
+        keys = json.load(f)["config"]
+    return Config(**{k: tuple(v) if isinstance(v, list) else v
+                     for k, v in keys.items()})
+
+
+def check_masks(out, n: int, cfg):
+    """A Mask R-CNN answer's ``masks``: ``[n, D, M, M]`` float16
+    probabilities, zero in the slots not valid."""
+    m, v = out["masks"], out["valid"]
+    require(m.shape == (n, cfg.max_detections, cfg.mask_size, cfg.mask_size)
+            and m.dtype == np.float16, f"masks {m.shape} {m.dtype}")
+    require(bool(np.isfinite(m).all() and (m >= 0).all() and (m <= 1).all()),
+            "masks not probabilities")
+    require(bool((m[~v] == 0).all()), "masks of invalid slots are not zeroed")
+
+
 # images per request, by wire: a padded bucket (3 -> 8), the full bucket
 # and the one-image bucket
 SERVE_REQUESTS = {"f32": (1, 3, 16), "u8": (16,)}
@@ -1171,7 +1261,9 @@ def serve(cfg, rng, label: str, expect):
     requests on the f32 wire and a 16-image one on the u8 wire, with every
     launch counter set to 0
     just before and read just after; each kernel in ``expect`` must have
-    launched."""
+    launched.  ``windowed_align_p14`` counts kernel 2's P=14 launches (the
+    mask head's) among ``windowed_align``'s; with ``cfg.mask_head`` each
+    answer's masks are checked and must have made them."""
     from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
     from two_stage_object_detection_tpu_torch.serving import Predictor
 
@@ -1192,13 +1284,20 @@ def serve(cfg, rng, label: str, expect):
     for fn in wrappers.values():
         fn.launches = 0
     detections = {}
-    for wire, server in servers.items():
-        for n in SERVE_REQUESTS[wire]:
-            req = images[:n] if wire == "f32" else np.round(
-                images[:n] * 255).astype(np.uint8)
-            out = server(req)
-            detections[f"{wire}_{n}"] = check_outputs(out, n, cfg)
+    with align_sizes() as sizes:
+        for wire, server in servers.items():
+            for n in SERVE_REQUESTS[wire]:
+                req = images[:n] if wire == "f32" else np.round(
+                    images[:n] * 255).astype(np.uint8)
+                out = server(req)
+                detections[f"{wire}_{n}"] = check_outputs(out, n, cfg)
+                if cfg.mask_head:
+                    check_masks(out, n, cfg)
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches[f"windowed_align_p{MASK_P}"] = sizes[MASK_P]
+    if cfg.mask_head:
+        require(sizes[MASK_P] > 0, f"the {label} path never pooled at "
+                f"P={MASK_P}")
     log(f"{label} Predictor answered {SERVE_REQUESTS} requests; valid "
         f"detections {detections}; kernel launches {launches}")
     for name in expect:
@@ -1249,6 +1348,10 @@ def stage_times(model, x):
          "roi_head": cuda_time_ms(lambda: model.roi_head(feats, rois, img), 10)}
     detect = cuda_time_ms(lambda: model.detect(feats, img), 10)
     t["post_process"] = detect - t["rpn_head"] - t["proposals"] - t["roi_head"]
+    if model.mask_head is not None:
+        det = model.detect(feats, img)
+        t["mask_head"] = cuda_time_ms(lambda: model.mask_predict(
+            feats, det[0], det[2], det[3], img), 10)
     return t
 
 
@@ -1276,7 +1379,10 @@ def agree(a, b):
 
 def f32_parity(cfg, rng, label: str):
     """The same predict in float32 with TF32 off, through the kernels and
-    with pallas="off", at b=2: equal proposals, close detections."""
+    with pallas="off", at b=2: equal proposals, close detections; with
+    ``cfg.mask_head``, both mask branches on the kernel route's detections
+    within 1e-4 (kernel 2 is within 1e-5 of its plain version in f32, and
+    a probability moves at most a quarter as far as its logit)."""
     from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
     torch.backends.cudnn.deterministic = True
     c32 = cfg.replace(compute_dtype="float32", score_thresh=0.0)
@@ -1305,8 +1411,18 @@ def f32_parity(cfg, rng, label: str):
     require(head_err <= 1e-4, "f32 head outputs differ beyond 1e-4")
     require(int(vv.sum()) > 0, "no f32 detections to compare")
     require(frac >= 0.95, "f32 detections differ")
+    out = {"head_rel_err": head_err, "det_agree": frac}
+    if cfg.mask_head:
+        with torch.inference_mode():
+            m_on, m_off = (m.mask_predict(feats, d_on[0], d_on[2], d_on[3],
+                                          (h, w)) for m in (on, off))
+        out["mask_max_abs_err"] = float((m_on - m_off).abs().max())
+        log(f"{label} f32 masks of {int(vv.sum())} detections, kernels "
+            f"against pallas=\"off\": max |diff| {out['mask_max_abs_err']:.3e}"
+            " (tolerance 1e-4)")
+        require(out["mask_max_abs_err"] <= 1e-4, "f32 masks differ")
     torch.backends.cudnn.deterministic = False
-    return {"head_rel_err": head_err, "det_agree": frac}
+    return out
 
 
 # ------------------------------------------------------------ train paths
@@ -3919,9 +4035,9 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     nms_row, nms_shapes = check_nms(rng, dev)
-    align_row, align_shapes = check_align(rng, dev)
+    align_rows, align_shapes = check_align(rng, dev)
     fused_rows, fused_shapes = check_fused(rng, dev)
-    kernels = [nms_row, align_row, *fused_rows]
+    kernels = [nms_row, *align_rows, *fused_rows]
     pool_row, pool_shapes = check_roi_pool(rng, dev)
     bwd_rows, bwd_shapes = check_roi_pool_bwd(rng, dev)
     kernels += [pool_row, *bwd_rows]
@@ -3932,7 +4048,8 @@ def main() -> int:
                                  loc_normalize=True),
                           ("greedy_nms", "windowed_align")),
              "single-scale": (Config(), ("fused_proposals_batched",
-                                         "roi_pool_max"))}
+                                         "roi_pool_max")),
+             "mask_r50": (mask_config(), ("greedy_nms", "windowed_align"))}
     launches, detections, perf, parity = {}, {}, {}, {}
     for label, (cfg, expect) in paths.items():
         counts, detections[label], perf[label] = serve(cfg, rng, label, expect)

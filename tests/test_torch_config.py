@@ -9,13 +9,19 @@ import torch
 
 from two_stage_object_detection_tpu.config import Config as JConfig
 from two_stage_object_detection_tpu_torch.config import (
-    Config, compute_dtype, load_config, resolve_device, use_kernels)
+    MASK_FIELDS, Config, compute_dtype, load_config, resolve_device,
+    use_kernels)
 
 
 def test_fields_and_defaults_match_jax():
+    """Every JAX field, in its order and with its default; then the port's
+    own mask fields, last, the branch off."""
     jf = {f.name: f.default for f in dataclasses.fields(JConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(Config)}
-    assert list(tf) == list(jf)
+    assert list(tf) == list(jf) + list(MASK_FIELDS)
+    assert tf["mask_head"] is False
+    for name in MASK_FIELDS:
+        del tf[name]
     assert {k: v for k, v in tf.items() if k != "device"} == {
         k: v for k, v in jf.items() if k != "device"}
     assert Config().device == "cuda"
@@ -27,6 +33,7 @@ def test_properties_match_jax(kw):
     j, t = JConfig(**kw), Config(**kw)
     for name in ("n_anchors_per_cell", "feat_size", "num_anchors"):
         assert getattr(t, name) == getattr(j, name)
+    assert t.mask_size == 2 * t.mask_roi_size
     assert t.replace(lr=0.5).lr == 0.5
 
 

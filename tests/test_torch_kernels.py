@@ -292,11 +292,13 @@ def test_post_process_makes_no_synchronising_call(dev):
     (torch.float32, 32, 20, 7, 2), (torch.float32, 300, 20, 7, 2),
     (torch.bfloat16, 256, 20, 7, 2), (torch.bfloat16, 256, 128, 7, 2),
     (torch.bfloat16, 260, 20, 7, 2), (torch.float32, 30, 20, 7, 2),
-    (torch.float32, 32, 20, 5, 3)])
+    (torch.float32, 32, 20, 5, 3), (torch.float32, 32, 20, 14, 2),
+    (torch.bfloat16, 256, 100, 14, 2)])
 def test_windowed_align_kernel_matches_plain(rng, dev, dtype, c, r, p, s):
     """f32: <= 1e-5 (summation order); bf16: within one bf16 rounding of
     the plain version run in f32 on the same bf16 features.  C=260 bf16 and
-    C=30 f32 take 8-byte vectors; P=5, S=3 the kernel's generic loops."""
+    C=30 f32 take 8-byte vectors; P=5, S=3 the kernel's generic loops;
+    P=14, S=2 the mask head's instance."""
     hw = [(40, 40), (20, 20), (10, 10), (5, 5)]
     scales = tuple((h / 160.0, w / 160.0) for h, w in hw)
     pyr = [torch.randn(2, h, w, c, device=dev).to(dtype) for h, w in hw]
@@ -314,6 +316,64 @@ def test_windowed_align_kernel_matches_plain(rng, dev, dtype, c, r, p, s):
     diff = (got.float() - want).abs()
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 * want.abs() + 1e-5
     assert bool((diff <= tol).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 32),
+                                     (torch.bfloat16, 256)])
+def test_windowed_align_p14_instance_bitwise_equals_generic(rng, dev, tmp_path,
+                                                            dtype, c):
+    """The mask head's P=14, S=2 instance (unrolled tap loops) gives the
+    bits of the generic instance of the same source (runtime loop bounds,
+    built here with the P=14 branch taken out): the same taps and sums in
+    the same order.  Against the plain version, whose sums are matrix
+    products, it agrees within ``test_windowed_align_kernel_matches_plain``'s
+    tolerance, not bit for bit."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "torch_mask_rcnn.py")
+    spec = importlib.util.spec_from_file_location("torch_mask_rcnn", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    generic, _ = script.build_generic(str(tmp_path))
+    hw = [(40, 52), (20, 26), (10, 13), (5, 7)]
+    scales = tuple((h / 160.0, w / 208.0) for h, w in hw)
+    pyr = [torch.randn(2, h, w, c, device=dev).to(dtype) for h, w in hw]
+    x1 = torch.from_numpy(rng.rand(2, 30, 2).astype(np.float32) * 180 - 10)
+    wh = torch.from_numpy(rng.rand(2, 30, 2).astype(np.float32) * 150 + 2)
+    rois = torch.cat([x1, x1 + wh], -1).to(dev)
+    levels = torch.from_numpy(rng.randint(0, 4, (2, 30)).astype(np.int32)).to(dev)
+    got = windowed_roi_align_batched(pyr, rois, levels, scales, 14, 2)
+    want = script.launch(generic, pyr, rois, levels, scales, 14)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_mask_head_kernel_route_matches_plain(rng, dev):
+    """``FPNMaskHead`` through kernel 2 at P=14 against its plain route (f32
+    maps and products, TF32 off): the pooling within 1e-5, so the logits
+    within 1e-4 of their largest magnitude; one launch a call."""
+    from two_stage_object_detection_tpu_torch.nets.fpn import FPNMaskHead
+    from two_stage_object_detection_tpu_torch.models.layers import (
+        init_weights)
+    head = FPNMaskHead(3, channels=32, dim=16)
+    init_weights(head, torch.Generator().manual_seed(1))
+    head.to(dev)
+    pyr = [torch.randn(2, 32, h, w, device=dev)
+           for h, w in ((24, 32), (12, 16), (6, 8), (3, 4), (2, 2))]
+    x1 = torch.from_numpy(rng.rand(2, 5, 2).astype(np.float32) * 90)
+    wh = torch.from_numpy(rng.rand(2, 5, 2).astype(np.float32) * 40 + 4)
+    rois = torch.cat([x1, x1 + wh], -1).to(dev)
+    labels = torch.from_numpy(rng.randint(0, 4, (2, 5))).to(dev)
+    before = windowed_roi_align_batched.launches
+    with torch.no_grad():
+        got = head(pyr, rois, labels, (96, 128))
+        head.use_kernel = False
+        want = head(pyr, rois, labels, (96, 128))
+    torch.cuda.synchronize()
+    assert windowed_roi_align_batched.launches == before + 1
+    assert got.shape == (2, 5, 28, 28)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 def test_windowed_align_kernel_rejects_misaligned_input(dev):

@@ -32,7 +32,7 @@ from two_stage_object_detection_tpu.config import Config as JConfig
 from two_stage_object_detection_tpu.eval import evaluator as j_evaluator
 from two_stage_object_detection_tpu.nets.trainer import (
     create_train_state as j_create_train_state, predict_step as j_predict)
-from two_stage_object_detection_tpu_torch.config import Config
+from two_stage_object_detection_tpu_torch.config import MASK_FIELDS, Config
 from two_stage_object_detection_tpu_torch.nets.trainer import predict_step
 from two_stage_object_detection_tpu_torch.utils.jax_weights import (
     to_jax_variables)
@@ -62,6 +62,9 @@ def test_recipe_builds_the_same_config_in_both_packages(name):
     got = dataclasses.asdict(Config(**recipe))
     want = dataclasses.asdict(JConfig(**recipe))
     assert (got.pop("device"), want.pop("device")) == ("cuda", "tpu")
+    assert not got["mask_head"]
+    for name in MASK_FIELDS:
+        del got[name]
     assert got == want
     assert tq.make_config(recipe, "cpu").device == "cpu"
 

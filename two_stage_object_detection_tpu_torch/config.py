@@ -1,7 +1,7 @@
 """Single-source configuration of the PyTorch port.
 
 Field for field the JAX package's ``Config``: the same names and defaults,
-so one recipe drives both packages.  Two things differ:
+so one recipe drives both packages.  Three things differ:
 
 * ``device`` defaults to ``"cuda"``: entry points run on the GPU unless the
   caller passes ``device="cpu"``, and with no GPU present they raise rather
@@ -10,6 +10,12 @@ so one recipe drives both packages.  Two things differ:
   ``"auto"`` and ``"on"`` launch the CUDA kernels for CUDA tensors, ``"off"``
   selects the plain PyTorch versions on any device.  On the CPU only the
   plain versions exist.
+* the port alone has Mask R-CNN's mask branch (:data:`MASK_FIELDS`, last,
+  off by default): ``mask_head`` adds, after the box NMS, RoIAlign at
+  ``mask_roi_size`` on the kept detections, ``mask_convs`` 3x3
+  convolutions ``mask_dim`` wide, a 2x2 stride-2 transposed convolution and
+  a 1x1 predictor to one ``2 * mask_roi_size`` square mask a class; ground
+  truth polygons travel padded or resampled to ``max_mask_vertices``.
 """
 
 from __future__ import annotations
@@ -122,6 +128,13 @@ class Config:
     remat_backbone: bool = False
     compilation_cache: str = ""
 
+    # ---- Mask R-CNN's mask branch (the port's own; needs fpn) ----
+    mask_head: bool = False
+    mask_roi_size: int = 14
+    mask_dim: int = 256
+    mask_convs: int = 4
+    max_mask_vertices: int = 128
+
     @property
     def n_anchors_per_cell(self) -> int:
         return len(self.anchor_ratios) * len(self.anchor_scales)
@@ -140,8 +153,19 @@ class Config:
         fh, fw = self.feat_size
         return fh * fw * self.n_anchors_per_cell
 
+    @property
+    def mask_size(self) -> int:
+        """Side of a predicted mask: the transposed convolution doubles the
+        pooled ``mask_roi_size``."""
+        return 2 * self.mask_roi_size
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+# the fields the JAX package's Config lacks
+MASK_FIELDS = ("mask_head", "mask_roi_size", "mask_dim", "mask_convs",
+               "max_mask_vertices")
 
 
 def resolve_device(device) -> torch.device:

@@ -8,10 +8,11 @@ on the device inside the train step, batched over images:
 * photometric distortion: brightness, contrast, saturation and a hue mix,
   each behind its own coin, with the host chain's ranges
   (``data/transforms.py``);
-* a horizontal flip with the boxes flipped too;
+* a horizontal flip with the boxes flipped too, and Mask R-CNN's polygon
+  vertices (``x -> w - x``, as the box corners move);
 * scale jitter: the reference's ``ScaleJitter -> Resize`` round trip leaves
   the boxes where they were, so only the pixels change, resampled through a
-  random intermediate scale of ``SCALES``.  The round trip along one axis is
+  random intermediate scale of ``SCALES`` (polygons stay too).  The round trip along one axis is
   a fixed linear map, ``M_s = R(m -> n) @ R(n -> m)``, so it is two matrix
   products an image (:func:`_jitter_matrices`).
 
@@ -111,6 +112,13 @@ def _hflip(img: torch.Tensor, boxes: torch.Tensor, flip: torch.Tensor):
     return img, torch.where(flip[:, None, None], flipped, boxes)
 
 
+def _hflip_polys(polys: torch.Tensor, flip: torch.Tensor, w: int):
+    """The vertices ``[B, G, V, 2]`` of the flipped images at ``w - x, y``
+    (the ring's orientation reverses, which the even-odd rule ignores)."""
+    flipped = torch.stack([w - polys[..., 0], polys[..., 1]], dim=-1)
+    return torch.where(flip[:, None, None, None], flipped, polys)
+
+
 def _resize_matrix(n: int, m: int) -> torch.Tensor:
     """``R(n -> m)``, ``[m, n]`` f32: the antialiased linear resize of one
     axis, read off by resizing the identity.  PyTorch's antialiased bilinear
@@ -160,26 +168,31 @@ def _scale_jitter(img: torch.Tensor, jitter: torch.Tensor) -> torch.Tensor:
 
 
 def apply_augment(images: torch.Tensor, boxes: torch.Tensor,
-                  draws: Dict[str, torch.Tensor], scale_jitter: bool = True
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  draws: Dict[str, torch.Tensor], scale_jitter: bool = True,
+                  polys: Optional[torch.Tensor] = None) -> Tuple:
     """Apply a record of :func:`draw_augment` to ``images [B, H, W, 3]``
     (float in [0, 1]) and ``boxes [B, G, 4]``: photometric distortion
     (clipped to [0, 1]), the flip, then, with ``scale_jitter``, the
-    resample.  Returns ``(images f32, boxes)``."""
+    resample.  Returns ``(images f32, boxes)``, and the flipped ``polys
+    [B, G, V, 2]`` third where they are given."""
     img = _photometric(images.to(torch.float32), draws["coins"],
                        draws["uniforms"])
+    w = img.shape[2]
     img, boxes = _hflip(img, boxes, draws["flip"])
     if scale_jitter:
         img = _scale_jitter(img, draws["jitter"])
-    return img, boxes
+    if polys is None:
+        return img, boxes
+    return img, boxes, _hflip_polys(polys, draws["flip"], w)
 
 
 def augment_batch(images: torch.Tensor, boxes: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
-                  scale_jitter: bool = True
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  scale_jitter: bool = True,
+                  polys: Optional[torch.Tensor] = None) -> Tuple:
     """The training augmentation of a batch on its own device, the draws
-    from ``generator`` (None: the device's default generator)."""
+    from ``generator`` (None: the device's default generator); ``polys``
+    as :func:`apply_augment`."""
     draws = draw_augment(images.shape[0], generator, scale_jitter,
                          images.device)
-    return apply_augment(images, boxes, draws, scale_jitter)
+    return apply_augment(images, boxes, draws, scale_jitter, polys)

@@ -35,7 +35,8 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 
-from two_stage_object_detection_tpu_torch.data.coco import CocoIndex
+from two_stage_object_detection_tpu_torch.data.coco import (
+    CocoIndex, pack_polygon)
 from two_stage_object_detection_tpu_torch.data.transforms import (
     eval_transform, train_transform)
 
@@ -59,14 +60,21 @@ class DetectionDataset:
     (no eviction: steady-state behavior stays predictable).  The reference
     re-decodes every epoch in its DataLoader workers
     (dataset/dataloader.py:33-48).
+
+    ``max_vertices > 0`` (Mask R-CNN; the index loaded with
+    ``load_coco(polygons=True)``): each sample also holds ``polys [G, V,
+    2]`` f32 and ``poly_edges [G, V]`` bool (``V = max_vertices``,
+    :func:`~.coco.pack_polygon`), each object's rings moved with its box
+    through the transforms (their ``polys``), in the boxes' slots.
     """
 
     def __init__(self, index: CocoIndex, input_size=(600, 600),
                  max_gt: int = 100, train: bool = True, seed: int = 0,
                  decode_only: bool = False, cache: bool = False,
                  cache_max_bytes: int = 4 << 30,
-                 uint8_images: bool = False):
+                 uint8_images: bool = False, max_vertices: int = 0):
         self.index = index
+        self.max_vertices = max_vertices
         self.input_size = tuple(input_size)
         self.max_gt = max_gt
         self.train = train
@@ -123,16 +131,18 @@ class DetectionDataset:
         return u8.astype(np.float32) / 255.0
 
     def _decode_resized(self, rec, i: Optional[int] = None):
-        """Fused decode+resize -> (img f32 [H,W,3], boxes scaled, labels)."""
+        """Fused decode+resize -> (img f32 [H,W,3], boxes scaled, labels,
+        the kept boxes' rings scaled as they are, none without
+        ``max_vertices``)."""
         from two_stage_object_detection_tpu_torch.data import native
         from two_stage_object_detection_tpu_torch.data.transforms import (
             sanitize_boxes)
 
         if self._cache is not None and i is not None and i in self._cache:
-            u8, boxes, labels = self._cache[i]
+            u8, boxes, labels, polys = self._cache[i]
             if self.uint8_images:      # u8 wire format: no f32 roundtrip
-                return u8, boxes, labels
-            return u8.astype(np.float32) / 255.0, boxes, labels
+                return u8, boxes, labels, polys
+            return u8.astype(np.float32) / 255.0, boxes, labels, polys
         out = native.decode_resize(rec["image_path"], self.input_size)
         if out is not None:
             img, oh, ow = out
@@ -146,14 +156,19 @@ class DetectionDataset:
         h1, w1 = self.input_size
         boxes = rec["boxes"] * np.array([w1 / ow, h1 / oh, w1 / ow, h1 / oh],
                                         np.float32)
-        boxes, labels = sanitize_boxes(boxes, rec["labels"], self.input_size)
+        rings = ([[r * np.array([w1 / ow, h1 / oh], np.float32) for r in rr]
+                  for rr in rec["polys"]] if self.max_vertices
+                 else [[] for _ in boxes])
+        boxes, labels, polys = sanitize_boxes(boxes, rec["labels"],
+                                              self.input_size, polys=rings)
         # quantize only when a cache exists to receive it: without the
         # _cache guard every no-cache access paid a full-image
         # rint+clip+astype (~1.1M px) just to throw the result away
         if self._cache is not None and i is not None:
             u8 = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
-            self._cache_put(i, (u8, boxes, labels), u8.nbytes + boxes.nbytes)
-        return img, boxes, labels
+            self._cache_put(i, (u8, boxes, labels, polys),
+                            u8.nbytes + boxes.nbytes)
+        return img, boxes, labels, polys
 
     def __getitem__(self, i: int):
         return self.get(i, 0)
@@ -169,7 +184,7 @@ class DetectionDataset:
         """
         rec = self.index.records[i]
         if self.decode_only:
-            img, boxes, labels = self._decode_resized(rec, i)
+            img, boxes, labels, polys = self._decode_resized(rec, i)
         else:
             img = self.load_image(rec, i)
             boxes = rec["boxes"]
@@ -177,8 +192,13 @@ class DetectionDataset:
             rng = np.random.RandomState(
                 (self.seed * 100003 + epoch * 7919 + i) % (2 ** 31))
             tf = train_transform if self.train else eval_transform
-            img, boxes, labels = tf(img, boxes, labels, rng,
-                                    size=self.input_size)
+            if self.max_vertices:
+                img, boxes, labels, polys = tf(img, boxes, labels, rng,
+                                               size=self.input_size,
+                                               polys=rec["polys"])
+            else:
+                img, boxes, labels = tf(img, boxes, labels, rng,
+                                        size=self.input_size)
 
         g = self.max_gt
         out_boxes = np.zeros((g, 4), np.float32)
@@ -193,8 +213,21 @@ class DetectionDataset:
                 img = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
         else:
             img = img.astype(np.float32)
-        return {"image": img, "boxes": out_boxes,
-                "labels": out_labels, "valid": out_valid}
+        out = {"image": img, "boxes": out_boxes,
+               "labels": out_labels, "valid": out_valid}
+        if self.max_vertices:
+            out["polys"], out["poly_edges"] = self._polygons(polys[:n])
+        return out
+
+    def _polygons(self, polys):
+        """``(polys [G, V, 2], poly_edges [G, V])``: each kept box's rings
+        packed into its slot."""
+        g, v = self.max_gt, self.max_vertices
+        out = np.zeros((g, v, 2), np.float32)
+        edges = np.zeros((g, v), bool)
+        for slot, rings in enumerate(polys):
+            out[slot], edges[slot] = pack_polygon(rings, v)
+        return out, edges
 
 
 def epoch_order(n: int, epoch: int, seed: int, shuffle: bool,

@@ -122,7 +122,8 @@ def _batch_outputs(state: TrainState, batch, use_predict: bool):
         r = rank(group)
         batch = {k: v[r * b // n:(r + 1) * b // n] for k, v in batch.items()}
     if use_predict:
-        loss, outs = None, predict_step(state, batch["image"])
+        # the box fields (a Mask R-CNN's masks are not scored here)
+        loss, outs = None, predict_step(state, batch["image"])[:4]
     else:
         out = eval_step(state, batch)
         loss = out["losses"]["total"]

@@ -46,14 +46,17 @@ def build_eval_loader(cfg: Config, data_root: str = "data", device=None):
     streaming loader."""
     eval_idx = load_coco(
         os.path.join(data_root, "annotations", "instances_val2017.json"),
-        os.path.join(data_root, "val2017"), ratio=cfg.eval_ratio)
+        os.path.join(data_root, "val2017"), ratio=cfg.eval_ratio,
+        polygons=cfg.mask_head)
     # eval applies no augmentation: decode_only (which the device cache
     # requires) only moves the resize into the decoder
     ds = DetectionDataset(eval_idx, cfg.input_size, cfg.max_gt_boxes,
                           train=False, decode_only=cfg.cache_device,
                           cache=cfg.cache_decoded,
                           cache_max_bytes=cfg.cache_max_bytes,
-                          uint8_images=cfg.transfer_uint8)
+                          uint8_images=cfg.transfer_uint8,
+                          max_vertices=(cfg.max_mask_vertices if cfg.mask_head
+                                        else 0))
     device = cfg.device if device is None else device
     if cfg.cache_device:
         try:

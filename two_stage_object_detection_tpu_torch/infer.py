@@ -55,7 +55,8 @@ def multi_inference(num_inference: int = 5, cfg: Optional[Config] = None,
     for k, i in enumerate(picks):
         sample = ds[i]
         boxes, scores, labels, valid = (
-            t.cpu().numpy() for t in predict_step(state, sample["image"][None]))
+            t.cpu().numpy()
+            for t in predict_step(state, sample["image"][None])[:4])
         v = valid[0]
         path = os.path.join(output_dir, f"inference_result_{k:03d}.png")
         draw_detections(

@@ -65,6 +65,31 @@ class Conv(nn.Module):
                         self.groups)
 
 
+class ConvTranspose(nn.Module):
+    """2-D transposed convolution on NCHW tensors with kernel = stride (no
+    overlap: each output pixel takes one input pixel's ``in_ch`` values),
+    ``weight [in_ch, out_ch, k, k]`` float32 as ``F.conv_transpose2d``
+    takes it; initialised as a :class:`Conv` of fan-in ``in_ch``, the
+    inputs one output sums."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 2,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.stride = kernel
+        self.compute_dtype = compute_dtype
+
+    def reset_parameters(self, generator: torch.Generator):
+        _lecun_normal_(self.weight, self.weight.shape[0], generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt), self.stride)
+
+
 class Dense(nn.Module):
     """Affine layer on the last axis (``weight [out, in]``, float32).
 
@@ -259,8 +284,9 @@ def frozen_running_stats(module: nn.Module):
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Initialise every :class:`Conv` / :class:`Dense` below ``module`` from
-    ``generator``, in module order (deterministic for a seed)."""
+    """Initialise every :class:`Conv` / :class:`ConvTranspose` /
+    :class:`Dense` below ``module`` from ``generator``, in module order
+    (deterministic for a seed)."""
     for m in module.modules():
-        if isinstance(m, (Conv, Dense)):
+        if isinstance(m, (Conv, ConvTranspose, Dense)):
             m.reset_parameters(generator)

@@ -16,6 +16,13 @@ class-offset NMS (:meth:`FasterRCNN.post_process`, kernel 1 on the card).
 ``(boxes [B, D, 4], scores [B, D], labels [B, D] (1-based), valid [B, D])``
 with ``D = cfg.max_detections``, invalid slots zeroed.
 
+With ``Config(mask_head=True)`` (FPN only) the model is Mask R-CNN:
+:meth:`FasterRCNN.mask_predict` runs the mask head (``nets/fpn.py:
+FPNMaskHead``) on the kept detections after ``detect``, and ``predict``
+returns a fifth output, ``masks [B, D, M, M]``, the sigmoid of each
+detection's class channel (``M = 2 * mask_roi_size``), zero where ``valid``
+is False.  Training adds ``mask_loss`` on the positive sampled rois.
+
 ``train_forward`` takes a padded batch (images, ``gt_boxes [B, G, 4]``,
 ``gt_labels [B, G]`` 0-based, ``gt_valid [B, G]``) and returns the four
 losses, their total and the trainer-parity predictions.  Proposals are cut
@@ -40,13 +47,13 @@ from two_stage_object_detection_tpu_torch.config import (
 from two_stage_object_detection_tpu_torch.models.layers import init_weights
 from two_stage_object_detection_tpu_torch.models.registry import build_backbone
 from two_stage_object_detection_tpu_torch.nets.fpn import (
-    FPNNeck, FPNRoIHead, FPNRPNHead)
+    FPNMaskHead, FPNNeck, FPNRoIHead, FPNRPNHead)
 from two_stage_object_detection_tpu_torch.nets.losses import (
-    fast_rcnn_loc_loss, softmax_cross_entropy_with_ignore)
+    fast_rcnn_loc_loss, mask_loss, softmax_cross_entropy_with_ignore)
 from two_stage_object_detection_tpu_torch.nets.roi_head import RoIHead
 from two_stage_object_detection_tpu_torch.nets.rpn import RPNHead
 from two_stage_object_detection_tpu_torch.nets.targets import (
-    anchor_target, proposal_target)
+    anchor_target, mask_targets, proposal_target)
 from two_stage_object_detection_tpu_torch.ops.anchors import (
     make_anchors, make_fpn_anchors)
 from two_stage_object_detection_tpu_torch.ops.geometry import (
@@ -102,6 +109,9 @@ class FasterRCNN(nn.Module):
         self.cfg = cfg
         dev = resolve_device(cfg.device if device is None else device)
         dtype = compute_dtype(cfg)
+        if cfg.mask_head and not cfg.fpn:
+            raise ValueError("mask_head=True needs fpn=True: the mask head "
+                             "pools from the FPN pyramid")
         self.extractor, feat_channels = build_backbone(
             cfg.backbone, dtype, remat=cfg.remat_backbone, pyramid=cfg.fpn)
         n_class = cfg.num_classes + 1
@@ -118,7 +128,19 @@ class FasterRCNN(nn.Module):
                 window=cfg.fpn_roi_window, use_kernel=use_kernels(cfg),
                 span_aware=cfg.fpn_span_aware, dtype=dtype)
             anchors = make_fpn_anchors(cfg)
+            self.mask_head = None
+            if cfg.mask_head:
+                self.mask_head = FPNMaskHead(
+                    n_fg_class=cfg.num_classes, channels=cfg.fpn_channels,
+                    roi_size=cfg.mask_roi_size, dim=cfg.mask_dim,
+                    n_convs=cfg.mask_convs, min_level=cfg.fpn_min_level,
+                    n_pool_levels=cfg.fpn_max_level - cfg.fpn_min_level,
+                    canonical_level=cfg.fpn_canonical_level,
+                    canonical_size=cfg.fpn_canonical_size,
+                    window=cfg.fpn_roi_window, use_kernel=use_kernels(cfg),
+                    span_aware=cfg.fpn_span_aware, dtype=dtype)
         else:
+            self.mask_head = None
             self.rpn_head = RPNHead(cfg.n_anchors_per_cell, feat_channels,
                                     dtype)
             self.roi_head = RoIHead(n_class, feat_channels, cfg.roi_size,
@@ -229,7 +251,9 @@ class FasterRCNN(nn.Module):
     def train_forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,
                       gt_labels: torch.Tensor, gt_valid: torch.Tensor,
                       scale: float = 1.0, train: bool = True,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      gt_polys: Optional[torch.Tensor] = None,
+                      gt_poly_edges: Optional[torch.Tensor] = None
                       ) -> Dict[str, Any]:
         """Losses + predictions for one (padded) batch.
 
@@ -242,9 +266,16 @@ class FasterRCNN(nn.Module):
             (running-average BN, 3000/300 proposals, no statistics moved).
           generator: draws the target samplers' random priorities; None
             samples the first k in index order.
+          gt_polys: ``[B, G, V, 2]`` f32 polygon vertices in image
+            coordinates, and ``gt_poly_edges [B, G, V]`` bool, the edge from
+            vertex ``v`` to ``v + 1`` lying inside one ring
+            (:func:`~.targets.mask_targets`): the masks, needed with
+            ``cfg.mask_head`` and read only then.  A gt with no valid edge
+            (a crowd or RLE object) trains no mask.
 
         Returns a dict: ``losses`` (``rpn_loc``, ``rpn_cls``, ``roi_loc``,
-        ``roi_cls``, ``total``), the per-sample ``boxes_pred``,
+        ``roi_cls``, with ``cfg.mask_head`` ``mask``, and ``total``), the
+        per-sample ``boxes_pred``,
         ``classes_pred``, ``classes_score_pred``, ``pred_valid``, and the GT
         (labels shifted so that background is 0).
         """
@@ -276,8 +307,8 @@ class FasterRCNN(nn.Module):
                 rpn_scores, gt_rpn_label).mean()
 
             with annotate("tsod.proposal_target"):
-                sample_roi, gt_roi_loc, gt_roi_label, sample_valid = \
-                    proposal_target(
+                (sample_roi, gt_roi_loc, gt_roi_label, sample_valid,
+                 gt_index) = proposal_target(
                         rois, roi_valid, gt_boxes, gt_valid, gt_labels,
                         n_sample=cfg.roi_n_sample, pos_ratio=cfg.roi_pos_ratio,
                         pos_iou_thresh=cfg.roi_pos_iou_thresh,
@@ -311,6 +342,13 @@ class FasterRCNN(nn.Module):
             roi_cls_loss = softmax_cross_entropy_with_ignore(
                 roi_scores, ce_labels).mean()
             total = rpn_loc_loss + rpn_cls_loss + roi_loc_loss + roi_cls_loss
+            losses = {"rpn_loc": rpn_loc_loss, "rpn_cls": rpn_cls_loss,
+                      "roi_loc": roi_loc_loss, "roi_cls": roi_cls_loss}
+            if self.mask_head is not None:
+                losses["mask"] = self._mask_loss(
+                    feats, img_size, sample_roi, gt_roi_label, sample_valid,
+                    gt_index, gt_polys, gt_poly_edges)
+                total = total + losses["mask"]
 
             # trainer-parity predictions (un-normalised before the decode
             # when the head trains against normalised targets)
@@ -321,9 +359,7 @@ class FasterRCNN(nn.Module):
             probs = torch.softmax(roi_scores.detach(), dim=-1)
             classes_score_pred, classes_pred = probs.max(dim=-1)
             return {
-                "losses": {"rpn_loc": rpn_loc_loss, "rpn_cls": rpn_cls_loss,
-                           "roi_loc": roi_loc_loss, "roi_cls": roi_cls_loss,
-                           "total": total},
+                "losses": {**losses, "total": total},
                 "boxes_pred": loc2bbox(sample_roi, dec_loc),    # [B, S, 4]
                 "classes_pred": classes_pred,
                 "classes_score_pred": classes_score_pred,
@@ -333,18 +369,59 @@ class FasterRCNN(nn.Module):
                 "gt_valid": gt_valid,
             }
 
+    def _mask_loss(self, feats, img_size, sample_roi, gt_roi_label,
+                   sample_valid, gt_index, gt_polys, gt_poly_edges):
+        """The mask head on the positive slots (the first ``roi_n_sample *
+        roi_pos_ratio`` of each image, where :func:`proposal_target` puts
+        the positives), through the hybrid route, against the matched
+        polygons rasterised on each roi's grid."""
+        cfg = self.cfg
+        if gt_polys is None or gt_poly_edges is None:
+            raise ValueError("mask_head=True trains on gt_polys and "
+                             "gt_poly_edges; the batch has none")
+        n_pos = int(cfg.roi_n_sample * cfg.roi_pos_ratio)
+        rois, labels = sample_roi[:, :n_pos], gt_roi_label[:, :n_pos]
+        index = gt_index[:, :n_pos]
+        edges = gt_poly_edges.to(torch.bool)
+        has_mask = torch.gather(edges.any(-1), 1, index)
+        valid = sample_valid[:, :n_pos] & (labels > 0) & has_mask
+        with annotate("tsod.mask_target"):
+            target = mask_targets(gt_polys.to(torch.float32), edges, index,
+                                  rois, cfg.mask_size)
+        with annotate("tsod.mask_head"):
+            logits = self.mask_head(feats, rois, labels, img_size,
+                                    use_window=False)
+        return mask_loss(logits, target, valid)
+
     # --------------------------------------------------------------- predict
     @torch.inference_mode()
     def predict(self, images: torch.Tensor, scale: float = 1.0):
-        """True inference: ``[B, H, W, 3] -> (boxes, scores, labels, valid)``;
-        None on a row shard that is not its thread group's lead (see
-        :meth:`features`)."""
+        """True inference: ``[B, H, W, 3] -> (boxes, scores, labels,
+        valid)``, and ``masks`` with ``cfg.mask_head``; None on a row shard
+        that is not its thread group's lead (see :meth:`features`)."""
         if self.training:
             self.set_mode(False)
         feats = self.features(images)
         if feats is None:
             return None
-        return self.detect(feats, self.image_size(images), scale)
+        img_size = self.image_size(images)
+        det = self.detect(feats, img_size, scale)
+        if self.mask_head is None:
+            return det
+        return (*det, self.mask_predict(feats, det[0], det[2], det[3],
+                                        img_size))
+
+    @torch.inference_mode()
+    def mask_predict(self, feats, boxes, labels, valid, img_size):
+        """The mask head on given detections: ``boxes [B, D, 4]``, ``labels
+        [B, D]`` 1-based and ``valid [B, D]`` -> ``[B, D, M, M]`` f32, the
+        sigmoid of each detection's class channel, zero where ``valid`` is
+        False.  Every slot runs, valid or not: no shape depends on the
+        data."""
+        with annotate("tsod.mask_head"):
+            logits = self.mask_head(feats, boxes, labels, img_size)
+            return torch.sigmoid(logits) * valid[..., None, None].to(
+                logits.dtype)
 
     @torch.inference_mode()
     def detect(self, feats, img_size, scale: float = 1.0):

@@ -16,6 +16,11 @@ as the JAX package does: every roi pooled from each of P2..P5 with the
 matrix-product RoIAlign (``ops/roi_pool.py:roi_align_mm``) at that level's
 scale, blended by the one-hot level (eq.-1 assignment, no span-aware bump),
 for predict and train alike, differentiated by autograd.
+
+Both heads pool through :class:`PyramidPool`: the box head at ``roi_size``
+(7) on the proposals, Mask R-CNN's :class:`FPNMaskHead` at its own size
+(14) on the kept detections (serving) or the positive sampled rois
+(training), kernel 2 compiled for each.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from two_stage_object_detection_tpu_torch.models.layers import Conv, Dense
+from two_stage_object_detection_tpu_torch.models.layers import (
+    Conv, ConvTranspose, Dense)
 from two_stage_object_detection_tpu_torch.ops.geometry import (
     device_constant, div_exact)
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
@@ -139,29 +145,23 @@ def span_aware_levels(rois: torch.Tensor, levels: torch.Tensor, scales,
                        n_levels - 1).to(torch.int32)
 
 
-class FPNRoIHead(nn.Module):
-    """Windowed multi-level RoIAlign (kernel 2) + fc1 -> fc2 -> cls_loc/score.
-    ``use_window=False`` takes the hybrid train route; ``window=0`` the dense
-    route, whatever ``use_window``.
+class PyramidPool(nn.Module):
+    """What the box and mask heads share: each roi's pooling level (eq. 1 of
+    the FPN paper, :func:`fpn_level_assign`, then the span-aware bump) and
+    the windowed RoIAlign at ``roi_size`` (kernel 2 on CUDA tensors), or the
+    dense route with ``window=0``.  Both heads reach kernel 2 through the
+    names ``windowed_roi_align_batched`` and
+    ``multilevel_roi_align_hybrid_batched`` of this module, looked up at
+    call time."""
 
-    ``(pyramid (P_min..), rois [B, R, 4] image coords, img_size) ->
-    (roi_cls_locs [B, R, n_class*4], roi_scores [B, R, n_class])``, f32.
-    """
-
-    def __init__(self, n_class: int, channels: int = 256, roi_size: int = 7,
-                 min_level: int = 2, n_pool_levels: int = 4,
-                 canonical_level: int = 4, canonical_size: float = 224.0,
-                 fc_dim: int = 1024, window: int = 32, use_kernel: bool = True,
-                 span_aware: bool = True, dtype=torch.float32):
+    def __init__(self, roi_size: int, min_level: int, n_pool_levels: int,
+                 canonical_level: int, canonical_size: float, window: int,
+                 use_kernel: bool, span_aware: bool):
         super().__init__()
         self.roi_size, self.min_level = roi_size, min_level
         self.n_pool_levels = n_pool_levels
         self.canonical_level, self.canonical_size = canonical_level, canonical_size
         self.window, self.use_kernel, self.span_aware = window, use_kernel, span_aware
-        self.fc1 = Dense(roi_size * roi_size * channels, fc_dim, dtype)
-        self.fc2 = Dense(fc_dim, fc_dim, dtype)
-        self.cls_loc = Dense(fc_dim, n_class * 4, dtype)
-        self.score = Dense(fc_dim, n_class, dtype)
 
     def pool(self, pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
              img_size, use_window: bool = True) -> torch.Tensor:
@@ -206,6 +206,28 @@ class FPNRoIHead(nn.Module):
             pooled = p * w if pooled is None else pooled + p * w
         return pooled
 
+
+class FPNRoIHead(PyramidPool):
+    """Windowed multi-level RoIAlign (kernel 2) + fc1 -> fc2 -> cls_loc/score.
+    ``use_window=False`` takes the hybrid train route; ``window=0`` the dense
+    route, whatever ``use_window``.
+
+    ``(pyramid (P_min..), rois [B, R, 4] image coords, img_size) ->
+    (roi_cls_locs [B, R, n_class*4], roi_scores [B, R, n_class])``, f32.
+    """
+
+    def __init__(self, n_class: int, channels: int = 256, roi_size: int = 7,
+                 min_level: int = 2, n_pool_levels: int = 4,
+                 canonical_level: int = 4, canonical_size: float = 224.0,
+                 fc_dim: int = 1024, window: int = 32, use_kernel: bool = True,
+                 span_aware: bool = True, dtype=torch.float32):
+        super().__init__(roi_size, min_level, n_pool_levels, canonical_level,
+                         canonical_size, window, use_kernel, span_aware)
+        self.fc1 = Dense(roi_size * roi_size * channels, fc_dim, dtype)
+        self.fc2 = Dense(fc_dim, fc_dim, dtype)
+        self.cls_loc = Dense(fc_dim, n_class * 4, dtype)
+        self.score = Dense(fc_dim, n_class, dtype)
+
     def forward(self, pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
                 img_size, use_window: bool = True):
         pooled = self.pool(pyramid, rois, img_size, use_window)
@@ -213,3 +235,50 @@ class FPNRoIHead(nn.Module):
         x = F.relu(self.fc1(flat))
         x = F.relu(self.fc2(x))
         return self.cls_loc(x).float(), self.score(x).float()
+
+
+class FPNMaskHead(PyramidPool):
+    """Mask R-CNN's mask branch (He et al., arXiv:1703.06870, Fig. 4 right):
+    each roi pooled by :class:`PyramidPool` at ``roi_size`` (14), then
+    ``n_convs`` 3x3 convolutions ``dim`` wide with ReLU, a 2x2 stride-2
+    transposed convolution ``dim`` wide with ReLU, and a 1x1 convolution to
+    one ``2 * roi_size`` square mask logit a foreground class
+    (``n_fg_class``, no background channel, as detectron2 has it).
+
+    ``(pyramid, rois [B, D, 4] image coords, labels [B, D] 1-based classes,
+    img_size) -> [B, D, M, M]`` f32: the logits of each roi's own class
+    (class 1 where a label is 0, a slot the caller masks).  The B*D rois run
+    as one batch of NCHW maps, channels-last in memory on the card, so the
+    pooled ``[B, D, P, P, C]`` is one view away from the first convolution.
+    """
+
+    def __init__(self, n_fg_class: int, channels: int = 256, roi_size: int = 14,
+                 dim: int = 256, n_convs: int = 4, min_level: int = 2,
+                 n_pool_levels: int = 4, canonical_level: int = 4,
+                 canonical_size: float = 224.0, window: int = 32,
+                 use_kernel: bool = True, span_aware: bool = True,
+                 dtype=torch.float32):
+        super().__init__(roi_size, min_level, n_pool_levels, canonical_level,
+                         canonical_size, window, use_kernel, span_aware)
+        self.n_convs = n_convs
+        for i in range(n_convs):
+            self.add_module(f"conv{i}", Conv(channels if i == 0 else dim, dim,
+                                             3, 1, 1, compute_dtype=dtype))
+        self.deconv = ConvTranspose(dim if n_convs else channels, dim, 2,
+                                    compute_dtype=dtype)
+        self.predictor = Conv(dim, n_fg_class, 1, compute_dtype=dtype)
+
+    def forward(self, pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
+                labels: torch.Tensor, img_size, use_window: bool = True):
+        b, d = rois.shape[:2]
+        pooled = self.pool(pyramid, rois, img_size, use_window)
+        p, c = pooled.shape[2], pooled.shape[4]
+        # NHWC rows -> NCHW logical, channels-last in memory
+        x = pooled.reshape(b * d, p, p, c).permute(0, 3, 1, 2)
+        for i in range(self.n_convs):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        logits = self.predictor(F.relu(self.deconv(x)))       # [B*D, K, M, M]
+        cls = (labels.reshape(-1).to(torch.int64) - 1).clamp(min=0)
+        rows = torch.arange(b * d, device=cls.device)
+        m = logits.shape[-1]
+        return logits[rows, cls].float().reshape(b, d, m, m)

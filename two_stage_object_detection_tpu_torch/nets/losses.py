@@ -50,3 +50,15 @@ def softmax_cross_entropy_with_ignore(logits: torch.Tensor,
     nll = -torch.gather(log_probs, -1, safe[..., None])[..., 0]
     nll = nll * valid.to(nll.dtype)
     return nll.sum(dim=-1) / valid.sum(dim=-1).clamp(min=1)
+
+
+def mask_loss(logits: torch.Tensor, targets: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """Mask R-CNN's mask loss: per-pixel binary cross-entropy of
+    ``logits [B, S, M, M]`` (each roi's own class) against ``targets`` in
+    {0, 1}, averaged over the valid rois of the whole batch times ``M * M``
+    pixels; 0 with no valid roi."""
+    bce = torch.nn.functional.binary_cross_entropy_with_logits(
+        logits.to(torch.float32), targets, reduction="none").sum((-2, -1))
+    n = valid.sum().clamp(min=1) * (logits.shape[-2] * logits.shape[-1])
+    return (bce * valid.to(bce.dtype)).sum() / n

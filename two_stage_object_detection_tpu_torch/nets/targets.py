@@ -132,9 +132,12 @@ def proposal_target(rois: torch.Tensor, roi_valid: torch.Tensor,
         targets (``Config.loc_normalize``).
 
     Returns ``(sample_roi [B, S, 4], gt_roi_loc [B, S, 4], gt_roi_label
-    [B, S] int64, sample_valid [B, S])`` with ``S = n_sample``; labels are
-    shifted by one so that background is 0, positives come first, and
-    invalid slots are zero with ``sample_valid`` False.
+    [B, S] int64, sample_valid [B, S], gt_index [B, S] int64)`` with ``S =
+    n_sample``; labels are shifted by one so that background is 0,
+    positives come first, and invalid slots are zero with ``sample_valid``
+    False.  ``gt_index`` is the row of ``gt_boxes`` each sample is matched
+    to (its best IoU; 0 in invalid slots), whose mask the mask head learns
+    (:func:`mask_targets`).
     """
     b = rois.shape[0]
     dev = rois.device
@@ -171,8 +174,9 @@ def proposal_target(rois: torch.Tensor, roi_valid: torch.Tensor,
     sel4 = sel[..., None].expand(b, n_sample, 4)
     sample_roi = torch.gather(pool, 1, sel4)
     sample_valid = take(pos_keep | neg_keep)
+    gt_index = take(gt_assignment)
     assigned = torch.gather(gt_boxes, 1,
-                            take(gt_assignment)[..., None].expand(b, n_sample, 4))
+                            gt_index[..., None].expand(b, n_sample, 4))
     gt_roi_loc = bbox2loc(sample_roi, assigned)
     if loc_std is not None:
         gt_roi_loc = gt_roi_loc / device_constant(loc_std, gt_roi_loc.dtype,
@@ -181,4 +185,53 @@ def proposal_target(rois: torch.Tensor, roi_valid: torch.Tensor,
     gt_roi_label = torch.where(take(pos_keep), take(roi_label), 0)
     gt_roi_label = torch.where(sample_valid, gt_roi_label, 0)
     vf = sample_valid[..., None].to(sample_roi.dtype)
-    return sample_roi * vf, gt_roi_loc * vf, gt_roi_label, sample_valid
+    return (sample_roi * vf, gt_roi_loc * vf, gt_roi_label, sample_valid,
+            torch.where(sample_valid, gt_index, 0))
+
+
+def mask_targets(polys: torch.Tensor, edges: torch.Tensor,
+                 gt_index: torch.Tensor, rois: torch.Tensor,
+                 size: int) -> torch.Tensor:
+    """Each roi's matched ground-truth polygon rasterised on the roi's own
+    ``size x size`` grid, as Detectron's ``polys_to_mask_wrt_box`` does, by
+    the even-odd rule at the bin centres.
+
+    Args:
+      polys: ``[B, G, V, 2]`` f32 vertices in image coordinates.
+      edges: ``[B, G, V]`` bool: the edge from vertex ``v`` to ``v + 1``
+        (mod ``V``) lies inside one ring.
+      gt_index: ``[B, S]`` the row of each roi's polygon.
+      rois: ``[B, S, 4]`` xyxy.
+
+    Returns ``[B, S, size, size]`` f32 in {0, 1}: a bin is 1 where a ray
+    from its centre ``(x1 + (j + 0.5) * w / size, y1 + (i + 0.5) * h /
+    size)``, ``w, h`` the roi's sides (at least 1), crosses the polygon's
+    valid edges an odd number of times (an edge counts where ``(y_a > y) !=
+    (y_b > y)``, so a ray through a vertex crosses once).  One comparison of every bin with every edge:
+    ``B * S * size^2 * V`` booleans (205 M at b=16, 128 positives, 28x28
+    and 128 vertices).
+    """
+    b, s = gt_index.shape
+    v = polys.shape[2]
+    p = torch.gather(polys, 1, gt_index[..., None, None].expand(b, s, v, 2))
+    e = torch.gather(edges, 1, gt_index[..., None].expand(b, s, v))
+    xa, ya = p[..., 0], p[..., 1]                               # [B, S, V]
+    xb, yb = torch.roll(xa, -1, dims=-1), torch.roll(ya, -1, dims=-1)
+    x1, y1, x2, y2 = rois.to(torch.float32).unbind(-1)          # [B, S]
+    w = torch.clamp(x2 - x1, min=1.0)
+    h = torch.clamp(y2 - y1, min=1.0)
+    g = (torch.arange(size, dtype=torch.float32, device=rois.device)
+         + 0.5) / size
+    ys = y1[..., None] + g * h[..., None]                       # [B, S, M]
+    xs = x1[..., None] + g * w[..., None]
+    # each row's crossing abscissa of each edge ([B, S, M, V])
+    yq = ys[..., :, None]
+    crosses = e[..., None, :] & ((ya[..., None, :] > yq)
+                                 != (yb[..., None, :] > yq))
+    dy = torch.where(crosses, (yb - ya)[..., None, :], 1.0)
+    xint = xa[..., None, :] + (yq - ya[..., None, :]) * (
+        (xb - xa)[..., None, :] / dy)
+    xint = torch.where(crosses, xint, -torch.inf)
+    # bins left of each crossing: [B, S, M (rows), M (columns), V]
+    n = (xs[..., None, :, None] < xint[..., :, None, :]).sum(-1)
+    return (n % 2).to(torch.float32)

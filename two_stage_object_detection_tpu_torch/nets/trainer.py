@@ -15,7 +15,8 @@ A :class:`TrainState` holds the model, the optimiser and the counters; the
 accumulator is the parameters' ``.grad``.  :func:`train_step` takes one
 micro-step, in place, on a batch dict ``image [B, H, W, 3]`` (float in
 [0, 1], or uint8, converted on the device), ``boxes [B, G, 4]``,
-``labels [B, G]``, ``valid [B, G]`` of numpy arrays or tensors; with
+``labels [B, G]``, ``valid [B, G]`` of numpy arrays or tensors (and, for
+Mask R-CNN, ``polys [B, G, V, 2]`` and ``poly_edges [B, G, V]``); with
 ``device_augment`` it first runs the augmentation chain of
 :mod:`~..data.device_transforms` on the device.
 
@@ -150,6 +151,7 @@ def train_step(state: TrainState, batch: Dict,
     with annotate("tsod.micro_step"):
         model, k = state.model, max(state.cfg.grad_accum_steps, 1)
         b = _to_device(batch, model.device)
+        polys = b.get("polys")
         if device_augment:
             with annotate("tsod.augment"):
                 images = _images_f32(b["image"])
@@ -157,11 +159,15 @@ def train_step(state: TrainState, batch: Dict,
                     raise ValueError(
                         "device_augment augments whole images: pass the "
                         "data index's batch, not a rank's rows")
-                images, boxes = augment_batch(images, b["boxes"], generator)
+                images, boxes, *flipped = augment_batch(
+                    images, b["boxes"], generator, polys=polys)
+                polys = (flipped or [None])[0]
         else:
             images, boxes = _images_f32(b["image"]), b["boxes"]
         out = model.train_forward(images, boxes, b["labels"], b["valid"],
-                                  train=True, generator=generator)
+                                  train=True, generator=generator,
+                                  gt_polys=polys,
+                                  gt_poly_edges=b.get("poly_edges"))
         with annotate("tsod.backward"):
             out["losses"]["total"].backward()
         state.step += 1
@@ -280,12 +286,13 @@ def eval_step(state: TrainState, batch: Dict,
     b = _to_device(batch, model.device)
     return model.train_forward(
         _images_f32(b["image"]), b["boxes"], b["labels"], b["valid"],
-        train=False, generator=None if deterministic else generator)
+        train=False, generator=None if deterministic else generator,
+        gt_polys=b.get("polys"), gt_poly_edges=b.get("poly_edges"))
 
 
 def predict_step(state: TrainState, images):
-    """True inference ``-> (boxes, scores, labels, valid)`` on f32 or u8
-    images (numpy or tensor)."""
+    """True inference ``-> (boxes, scores, labels, valid)``, and ``masks``
+    with ``cfg.mask_head``, on f32 or u8 images (numpy or tensor)."""
     model = state.model
     x = _to_device({"image": images}, model.device)["image"]
     return model.predict(_images_f32(x))
@@ -314,11 +321,13 @@ def eval_scan_resident(state: TrainState, data: Dict[str, torch.Tensor], idx,
         b = _gather(data, sel)              # one batch at a time
         images = _images_f32(b["image"])
         if use_predict:
-            pred = model.predict(images)
+            pred = model.predict(images)[:len(_EVAL_KEYS)]
             loss = torch.zeros((), dtype=torch.float32, device=images.device)
         else:
             o = model.train_forward(images, b["boxes"], b["labels"],
-                                    b["valid"], train=False)
+                                    b["valid"], train=False,
+                                    gt_polys=b.get("polys"),
+                                    gt_poly_edges=b.get("poly_edges"))
             pred = [o[k] for k in _EVAL_KEYS]
             loss = o["losses"]["total"]
         row = dict(zip(_EVAL_KEYS, pred), loss_total=loss,

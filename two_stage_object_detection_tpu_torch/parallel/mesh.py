@@ -379,6 +379,9 @@ def place_train_state(state, mesh: Mesh, debug: bool = False,
         raise ValueError(f"the state is on {state.model.device}, this rank's "
                          f"mesh device is {mesh.device}")
     spatial = spatial and mesh.model_group is not None
+    if state.cfg.mask_head and mesh.model_group is not None:
+        raise ValueError("mask_head=True trains over a data axis only: the "
+                         "mask head has no tensor-parallel or spatial route")
     with torch.no_grad():
         _coalesced(state_tensors(state), lambda flat: broadcast_(flat, 0))
     state.group, state.model_group = mesh.group, mesh.model_group

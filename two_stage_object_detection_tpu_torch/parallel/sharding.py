@@ -120,6 +120,8 @@ def shard_train_state(state, mesh) -> None:
     the same way; AdamW is element-wise, so the slices of the whole state
     are the sliced state's."""
     model, opt = state.model, state.optimizer
+    if state.cfg.mask_head:
+        raise ValueError("mask_head=True has no tensor-parallel route")
     split = {n: d for n, d in infer_param_sharding(model, mesh).items()
              if d is not None}
     size, index = mesh.shape["model"], mesh.model_index

@@ -182,7 +182,10 @@ def quantized(model: nn.Module, scales: Mapping[str, float]):
     """Inside, the eligible convs of ``model`` listed in ``scales`` with a
     positive absmax compute :func:`int8_conv` with ``s_x = absmax / 127``.
     Their ``forward`` is replaced on the instance and restored on exit; a
-    model must not be used from another thread while it is quantized."""
+    model must not be used from another thread while it is quantized.
+    A Mask R-CNN (a model with a ``mask_head``) has no int8 route."""
+    if getattr(model, "mask_head", None) is not None:
+        raise ValueError("mask_head=True has no int8 route")
     swapped = []
     for path, m in eligible_convs(model).items():
         amax = float(scales.get(path, 0.0))

@@ -23,6 +23,11 @@ The counterpart of the JAX package's ``serving.py``, name for name:
   which runs on the CPU or the card; ``portable=False`` keeps the CUDA
   kernels as the port's custom ops (``tsod::*``), a CUDA-only artifact.
 
+A Mask R-CNN (``Config(mask_head=True)``) answers a fifth field, ``masks``:
+each detection's 28x28 mask probabilities on its own box, float16;
+:func:`paste_masks` pastes them into the image, on the device, for a caller
+that wants bitmaps.
+
 :meth:`Predictor.from_checkpoint` loads the port's own checkpoints
 (``utils/checkpoint.py``); :meth:`Predictor.from_jax_variables` takes the
 JAX package's flax variables as numpy trees.  ``mesh`` (a
@@ -55,6 +60,8 @@ from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
 from two_stage_object_detection_tpu_torch.utils.profiling import annotate
 
 FIELDS = ("boxes", "scores", "labels", "valid")
+# the fields of a Mask R-CNN's answers: a fifth, its masks
+FIELDS_WITH_MASKS = (*FIELDS, "masks")
 
 # BT.601 full-range RGB -> YCbCr, the matrix every JPEG codec uses
 # (ITU-T T.871), float32 as in the JAX package
@@ -188,6 +195,9 @@ class Predictor:
                              "over devices of this process")
         if wire not in _WIRES:
             raise ValueError(f"wire must be one of {_WIRES}, got {wire!r}")
+        if cfg.mask_head and (spatial or int8_scales):
+            raise ValueError("mask_head=True serves neither spatial=True nor "
+                             "int8_scales: the mask head has no such route")
         h, w = cfg.input_size
         if wire == "yuv420" and (h % 2 or w % 2):
             raise ValueError(f"wire='yuv420' needs even input_size, got "
@@ -307,9 +317,13 @@ class Predictor:
         return stack
 
     def _predict(self, model: FasterRCNN, x: torch.Tensor):
-        """The wire's conversion on the device, then ``model``'s predict."""
+        """The wire's conversion on the device, then ``model``'s predict; a
+        Mask R-CNN's masks leave it as float16 (half the bytes to the host)."""
         with self._int8_on([model]):
-            return model.predict(self._to_float(x))
+            res = model.predict(self._to_float(x))
+        if res is None or len(res) == len(FIELDS):
+            return res
+        return (*res[:4], res[4].half())
 
     def _shard_predict(self, model: FasterRCNN, x: torch.Tensor):
         """One worker of a spatial bucket: ``model``'s predict on its shard's
@@ -410,7 +424,12 @@ class Predictor:
 
         Returns host arrays ``boxes [N, D, 4]``, ``scores [N, D]``,
         ``labels [N, D]`` (1-based classes) and ``valid [N, D]`` with
-        ``D = cfg.max_detections``.
+        ``D = cfg.max_detections``; with ``cfg.mask_head`` also ``masks [N,
+        D, M, M]`` float16 (``M = 2 * cfg.mask_roi_size``, 28): the
+        probability of each bin of a detection's box, on a grid of ``M x M``
+        equal bins over the box, of belonging to the object (its class's
+        channel), zero where ``valid`` is False (:func:`paste_masks` puts
+        them into the image).
         """
         with annotate("tsod.request"):
             with annotate("tsod.wire"):
@@ -429,7 +448,7 @@ class Predictor:
                 i += take
             outs += [self._fetch(p) for p in pending]
             cat = tuple(np.concatenate(parts) for parts in zip(*outs))
-            return dict(zip(FIELDS, cat))
+            return dict(zip(FIELDS_WITH_MASKS, cat))
 
     def _to_wire(self, images: np.ndarray) -> np.ndarray:
         """Validate a request and put it in the wire layout ``[N,
@@ -478,6 +497,32 @@ class Predictor:
             raise ValueError("f32 Predictor takes [0,1] float images "
                              "(use wire='u8' for uint8 requests)")
         return images.astype(np.float32, copy=False)
+
+
+def paste_masks(boxes, masks, img_size, threshold: float = 0.5):
+    """Each detection's ``M x M`` mask pasted into the image, as
+    detectron2's ``paste_masks_in_image`` does: ``boxes [..., D, 4]`` and
+    ``masks [..., D, M, M]`` (tensors on any device, or numpy) -> ``[..., D,
+    H, W]`` bool on the masks' device, ``img_size = (H, W)``.  Each pixel
+    centre is placed in its box's mask grid and the mask read there
+    bilinearly (``F.grid_sample``, ``align_corners=False``, zero outside),
+    then held to ``threshold``.  ``H * W`` bytes a detection."""
+    boxes = torch.as_tensor(boxes, dtype=torch.float32)
+    masks = torch.as_tensor(masks).to(torch.float32)
+    boxes = boxes.to(masks.device)
+    lead, (m1, m2) = masks.shape[:-2], masks.shape[-2:]
+    b = boxes.reshape(-1, 4)
+    h, w = img_size
+    ys = torch.arange(h, dtype=torch.float32, device=masks.device) + 0.5
+    xs = torch.arange(w, dtype=torch.float32, device=masks.device) + 0.5
+    gy = (ys[None] - b[:, 1:2]) / (b[:, 3:4] - b[:, 1:2]) * 2 - 1   # [N, H]
+    gx = (xs[None] - b[:, 0:1]) / (b[:, 2:3] - b[:, 0:1]) * 2 - 1   # [N, W]
+    n = b.shape[0]
+    grid = torch.stack([gx[:, None, :].expand(n, h, w),
+                        gy[:, :, None].expand(n, h, w)], dim=-1)
+    img = torch.nn.functional.grid_sample(
+        masks.reshape(n, 1, m1, m2), grid, align_corners=False)
+    return (img[:, 0] >= threshold).reshape(*lead, h, w)
 
 
 class DynamicBatcher:

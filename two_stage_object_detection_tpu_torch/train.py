@@ -108,21 +108,27 @@ def build_loaders(cfg: Config, data_root: str = "data",
               dict(shard_count=mesh.processes, shard_index=mesh.data_index))
     train_idx = load_coco(
         os.path.join(data_root, "annotations", "instances_train2017.json"),
-        os.path.join(data_root, "train2017"), ratio=cfg.train_ratio)
+        os.path.join(data_root, "train2017"), ratio=cfg.train_ratio,
+        polygons=cfg.mask_head)
     eval_idx = load_coco(
         os.path.join(data_root, "annotations", "instances_val2017.json"),
-        os.path.join(data_root, "val2017"), ratio=cfg.eval_ratio)
+        os.path.join(data_root, "val2017"), ratio=cfg.eval_ratio,
+        polygons=cfg.mask_head)
     train_ds = DetectionDataset(train_idx, cfg.input_size, cfg.max_gt_boxes,
                                 train=cfg.augment,
                                 decode_only=cfg.device_augment,
                                 cache=cfg.cache_decoded,
                                 cache_max_bytes=cfg.cache_max_bytes,
-                                uint8_images=cfg.transfer_uint8)
+                                uint8_images=cfg.transfer_uint8,
+                                max_vertices=(cfg.max_mask_vertices if cfg.mask_head
+                                              else 0))
     eval_ds = DetectionDataset(eval_idx, cfg.input_size, cfg.max_gt_boxes,
                                train=False, decode_only=cfg.device_augment,
                                cache=cfg.cache_decoded,
                                cache_max_bytes=cfg.cache_max_bytes,
-                               uint8_images=cfg.transfer_uint8)
+                               uint8_images=cfg.transfer_uint8,
+                               max_vertices=(cfg.max_mask_vertices if cfg.mask_head
+                                             else 0))
     if cfg.cache_device:
         mk_cached = lambda ds, shuffle, **kw: DeviceDatasetCache(
             ds, cfg.batch_size, shuffle=shuffle, seed=0,
