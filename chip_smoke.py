@@ -21,7 +21,14 @@ kernel 5b (kernel 5's scatter backward) on both routes of their plan (the
 gradient slice in shared memory at B=16, 38x38x512; global atomics on a
 128x128 map at B=2) within their stated tolerance, and kernels 1 and 3 bit
 for bit above the 112,128 rows one walk launch holds (112,129 and 250,000
-rows at B=2, walked in chunks).  Then it
+rows at B=2, walked in chunks).  The backbones' conv epilogue
+(``csrc/conv_epilogue.cu``) is held bit for bit against its plain version
+and timed, beside its byte bound and the unfolded passes it replaces, at
+the largest map of each served trunk (``conv_epilogue``: HarDNet-39's 1024
+channels at 150x150, ReLU6; ``conv_epilogue_residual``: ResNet-50's 256 at
+200x272 of 800x1088, PReLU and the residual), and at HarDNet-39's widest
+layer of 4-byte pairs (``conv_epilogue_pairs``: 410 channels at 150x150,
+ReLU6).  Then it
 serves requests through the port's ``Predictor`` on
 three paths, each at full width (bfloat16, seeded random weights), with
 every launch counter set to 0 just before and read just after:
@@ -34,6 +41,12 @@ every launch counter set to 0 just before and read just after:
   classes, 5000 -> 1000 proposals, 100 detections): kernels 1 and 2, the
   mask head's kernel 2 at P=14 counted apart (``windowed_align_p14``);
   every answer's ``masks`` float16 probabilities, zero in invalid slots.
+
+On each, every conv + batch-norm pair of the trunk must have run folded in
+every bucket (``utils.profiling.counters``, no fallback) and the epilogue
+must have launched, with a residual on the ResNet paths
+(``conv_epilogue_residual`` counts those) and in 4-byte pairs on HarDNet's
+(``conv_epilogue_pairs``); no train micro-step may launch it.
 
 Kernel 4, kernel 3's one-image launch, is off both paths (as the JAX
 package's ``_fused_kernel`` is off its predict path): it is checked and
@@ -129,8 +142,10 @@ JPEGs decoded to 600x600 and tiled, counters set to 0 just before each step:
 * Export: ``export_program(portable=False)`` of the flagship and of
   ``Config()`` at b=16 (f32), saved, loaded and run on the card: kernels 1
   and 2, and 3 and 5, must launch from the loaded programs, whose outputs
-  are held against eager predict; ``portable=True`` at b=1 must launch no
-  kernel, held against eager ``pallas="off"``.  Export seconds, bytes and
+  are held against eager predict; the programs run the unfolded trunk
+  (``models/layers.py:fold_route``), so the epilogue must not launch from
+  them; ``portable=True`` at b=1 must launch no kernel, held against eager
+  ``pallas="off"``.  Export seconds, bytes and
   the loaded b=16 time beside eager.
 * int8: for three backbone convs (the stem, K=147; a 3x3 over 64 channels;
   a 3x3 over 512) the ``torch._int_mm`` accumulators against the float64
@@ -216,7 +231,8 @@ Then the spatial phase (image rows over the model axis,
   single scale: ``valid`` and ``labels`` equal to the plain ``Predictor``'s,
   boxes within ``rtol=1e-4, atol=1e-3``; the launch counters set to 0 just
   before the spatial request and read just after: kernels 1 and 2 (the
-  flagship), 3 and 5 (the single scale) launched; each request's time
+  flagship), 3 and 5 (the single scale) and the conv epilogue (each
+  shard's trunk on the folded route) launched; each request's time
   beside the plain one's.
 * 2 gloo ranks on ``cuda:0`` as a ``(1, 2)`` mesh, one flagship train
   micro-step and update at b=2 from rank 0's weights: the ranks' states
@@ -269,7 +285,8 @@ Output: progress lines; the card's ``nvidia-smi`` name and power limit; one
 JSON line ``{"kernels": [...]}`` with each kernel's launches, error, times
 and bound (kernel 2 twice: ``windowed_align`` at the box head's R=300, its
 launches all of kernel 2's; ``windowed_align_p14`` at the mask head's
-shape, its launches those at P=14); and last, ``{"ok": true, "device": {...}}``.  With ``--json``,
+shape, its launches those at P=14; the epilogue three times, its launches
+all, those with a residual and those in 4-byte pairs); and last, ``{"ok": true, "device": {...}}``.  With ``--json``,
 the measured numbers also go to that file.  Without a CUDA device,
 or outside the repository, it exits nonzero and prints no result.
 
@@ -641,6 +658,104 @@ def align_shape(make, label: str, p: int):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=err, max_abs_err_f32=err32,
                 bytes=nbytes, footprint_bytes=per_roi)
+
+
+# --------------------------------------------------------- conv epilogue
+# the largest map of each served trunk that the epilogue writes, B=16 bf16:
+# HarDNet-39's transition3 (1024 channels at 150x150 of 600x600, ReLU6) and
+# ResNet-50's layer1 conv3 (256 at 200x272 of 800x1088, PReLU + residual);
+# and HarDNet-39's widest layer in 4-byte pairs, block3's last (410 at
+# 150x150, ReLU6)
+EPILOGUE_SHAPES = {"conv_epilogue": ((16, 1024, 150, 150), "relu6", False),
+                   "conv_epilogue_residual": ((16, 256, 200, 272), "prelu",
+                                              True),
+                   "conv_epilogue_pairs": ((16, 410, 150, 150), "relu6",
+                                           False)}
+
+
+def check_epilogue(rng, dev):
+    """The conv epilogue at :data:`EPILOGUE_SHAPES`: bitwise against its
+    plain version, timed beside its byte bound (read y and the residual,
+    write y) and the unfolded route's passes it replaces (batch norm, then
+    the clamp; or batch norm, the add and the PReLU).  Returns the kernels
+    line's rows and each shape's numbers."""
+    import torch.nn.functional as F
+    from two_stage_object_detection_tpu_torch.ops.conv_epilogue import (
+        conv_epilogue, conv_epilogue_reference)
+    from two_stage_object_detection_tpu_torch.ops.windowed_align import (
+        align_vector_width)
+    cl = torch.channels_last
+    rows, shapes = [], {}
+    for name, (shape, act, res) in EPILOGUE_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        y = (torch.randn(shape, device=dev, generator=gen) * 3).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        r = (torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+             .contiguous(memory_format=cl) if res else None)
+        c = shape[1]
+        bias = torch.randn(c, device=dev, generator=gen)
+        slope = torch.full((1,), 0.25, device=dev)
+        want = conv_epilogue_reference(y, bias, r, act, slope)
+        got = conv_epilogue(y.clone(memory_format=cl), bias, r, act, slope)
+        require(torch.equal(got, want), f"{name} differs from its plain "
+                "version")
+        del got, want
+        ms = cuda_time_ms(lambda: conv_epilogue(y, bias, r, act, slope), 20)
+        plain_ms = cuda_time_ms(lambda: conv_epilogue_reference(
+            y, bias, r, act, slope), 3, warmup=1)
+        mean, var = torch.randn(c, device=dev), torch.rand(c, device=dev) + .5
+
+        def unfolded():
+            v = F.batch_norm(y, mean, var, bias, bias, False, 0.0, 1e-5)
+            if res:
+                return F.prelu(v + r, slope.to(v.dtype))
+            return torch.clamp(v, 0.0, 6.0)
+
+        unfolded_ms = cuda_time_ms(unfolded, 20)
+        nbytes = (3 if res else 2) * y.numel() * y.element_size() + c * 4
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        vec = align_vector_width(c, torch.bfloat16) * 2
+        log(f"kernel {name} bf16 {list(shape)} {act}"
+            f"{' + residual' if res else ''}, {vec}-byte vectors: "
+            f"{ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB), plain "
+            f"{plain_ms:.3f} ms; the unfolded passes it replaces "
+            f"{unfolded_ms:.4f} ms; bitwise equal to the plain version")
+        shapes[name] = dict(shape=list(shape), act=act, residual=res,
+                            vector_bytes=vec, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            unfolded_ms=unfolded_ms, bytes=nbytes)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="two_stage_object_detection_tpu_torch/csrc/conv_epilogue.cu",
+            replaces=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by="bytes", library_ms=None))
+        del y, r
+    return rows, shapes
+
+
+@contextlib.contextmanager
+def epilogue_launches():
+    """The epilogue's launches while inside, by the kernels line's rows:
+    ``conv_epilogue_residual`` those with a residual,
+    ``conv_epilogue_pairs`` those in 4-byte vectors."""
+    from two_stage_object_detection_tpu_torch.ops import conv_epilogue as ce
+    from two_stage_object_detection_tpu_torch.ops.windowed_align import (
+        align_vector_width)
+    launch, tally = ce._launch, collections.Counter()
+
+    def counted(*args):
+        y = args[0]
+        tally["conv_epilogue_residual"] += args[2] is not None
+        tally["conv_epilogue_pairs"] += align_vector_width(
+            y.shape[1], y.dtype) * y.element_size() == 4
+        return launch(*args)
+
+    ce._launch = counted
+    try:
+        yield tally
+    finally:
+        ce._launch = launch
 
 
 # ------------------------------------------------------------ kernels 3/4
@@ -1204,7 +1319,9 @@ def counters():
         roi_pool_bwd_scatter, roi_pool_max)
     from two_stage_object_detection_tpu_torch.ops.windowed_align import (
         windowed_roi_align_batched)
-    return {"greedy_nms": greedy_nms,
+    from two_stage_object_detection_tpu_torch.ops.conv_epilogue import (
+        conv_epilogue)
+    return {"greedy_nms": greedy_nms, "conv_epilogue": conv_epilogue,
             "windowed_align": windowed_roi_align_batched,
             "fused_proposals_batched": fused_proposals_batched,
             "fused_proposals": fused_proposals, "roi_pool_max": roi_pool_max,
@@ -1280,11 +1397,15 @@ def serve(cfg, rng, label: str, expect):
         model.predict(torch.from_numpy(images[:b]).to(model.device))
     torch.cuda.synchronize()
 
+    from two_stage_object_detection_tpu_torch.models.layers import BatchNorm
+    from two_stage_object_detection_tpu_torch.utils.profiling import (
+        counters as events)
     wrappers = counters()
     for fn in wrappers.values():
         fn.launches = 0
+    events.clear()
     detections = {}
-    with align_sizes() as sizes:
+    with align_sizes() as sizes, epilogue_launches() as epilogues:
         for wire, server in servers.items():
             for n in SERVE_REQUESTS[wire]:
                 req = images[:n] if wire == "f32" else np.round(
@@ -1295,6 +1416,18 @@ def serve(cfg, rng, label: str, expect):
                     check_masks(out, n, cfg)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     launches[f"windowed_align_p{MASK_P}"] = sizes[MASK_P]
+    launches.update(epilogues)
+    for name in ("conv_epilogue_residual", "conv_epilogue_pairs"):
+        launches.setdefault(name, 0)
+    # every conv + batch norm pair of the trunk folded in each bucket
+    buckets = sum(len(v) for v in SERVE_REQUESTS.values())
+    pairs = sum(isinstance(m, BatchNorm) for m in model.extractor.modules())
+    fold = {k: v for k, v in events.items() if k.startswith("fold.")}
+    log(f"{label} folded route over {buckets} buckets: {fold} "
+        f"({pairs} conv + batch-norm pairs in the trunk)")
+    require(fold.get("fold.folded") == buckets * pairs and not any(
+        k.startswith("fold.fallback") for k in fold), f"the {label} trunk "
+        "did not run folded in every bucket")
     if cfg.mask_head:
         require(sizes[MASK_P] > 0, f"the {label} path never pooled at "
                 f"P={MASK_P}")
@@ -1484,6 +1617,8 @@ def train(cfg, rng, label: str, expect):
         changed.append(n_changed(model, snap))
     peak = torch.cuda.max_memory_allocated()
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    require(launches["conv_epilogue"] == 0, f"{label} train: the folded "
+            "route ran in a train micro-step")
     log(f"{label} train: 4 micro-steps at b=16, grad_accum_steps=2: "
         f"{state.updates} updates; step ms {[round(t, 1) for t in step_ms]}; "
         f"peak memory {peak / 1e9:.2f} GB; kernel launches {launches}")
@@ -2643,6 +2778,8 @@ def serving(smi: str):
             for name in expect:
                 require(counts.get(name, 0) > 0,
                         f"the exported {label} program never launched {name}")
+            require(counts.get("conv_epilogue", 0) == 0, f"the exported "
+                    f"{label} program launched the folded route's epilogue")
             os.unlink(path)
         del single
         path = os.path.join(tmp, "portable.pt2")
@@ -3776,9 +3913,9 @@ def spatial(smi: str) -> dict:
     out = {}
     paths = {"flagship": (Config(fpn=True, backbone="resnet50",
                                  loc_normalize=True),
-                          ("greedy_nms", "windowed_align")),
+                          ("greedy_nms", "windowed_align", "conv_epilogue")),
              "single-scale": (Config(), ("fused_proposals_batched",
-                                         "roi_pool_max"))}
+                                         "roi_pool_max", "conv_epilogue"))}
     for label, (cfg, expect) in paths.items():
         out[label] = spatial_predict(cfg, rng, label, expect,
                                      SP_SHARDS[label])
@@ -4041,15 +4178,21 @@ def main() -> int:
     pool_row, pool_shapes = check_roi_pool(rng, dev)
     bwd_rows, bwd_shapes = check_roi_pool_bwd(rng, dev)
     kernels += [pool_row, *bwd_rows]
+    epi_rows, epi_shapes = check_epilogue(rng, dev)
+    kernels += epi_rows
     cap_shapes = check_above_cap(rng, dev)
     torch.cuda.empty_cache()
 
     paths = {"flagship": (Config(fpn=True, backbone="resnet50",
                                  loc_normalize=True),
-                          ("greedy_nms", "windowed_align")),
+                          ("greedy_nms", "windowed_align", "conv_epilogue",
+                           "conv_epilogue_residual")),
              "single-scale": (Config(), ("fused_proposals_batched",
-                                         "roi_pool_max")),
-             "mask_r50": (mask_config(), ("greedy_nms", "windowed_align"))}
+                                         "roi_pool_max", "conv_epilogue",
+                                         "conv_epilogue_pairs")),
+             "mask_r50": (mask_config(), ("greedy_nms", "windowed_align",
+                                          "conv_epilogue",
+                                          "conv_epilogue_residual"))}
     launches, detections, perf, parity = {}, {}, {}, {}
     for label, (cfg, expect) in paths.items():
         counts, detections[label], perf[label] = serve(cfg, rng, label, expect)
@@ -4141,7 +4284,8 @@ def main() -> int:
                        "roi_pool_bwd_shapes": bwd_shapes,
                        "above_row_cap_shapes": cap_shapes,
                        "greedy_nms_shapes": nms_shapes,
-                       "windowed_align_shapes": align_shapes}, f,
+                       "windowed_align_shapes": align_shapes,
+                       "conv_epilogue_shapes": epi_shapes}, f,
                       indent=1)
     log(smi)
     log(json.dumps(line))

@@ -1,5 +1,5 @@
-"""PyTorch port, the CUDA kernels (1, 2, 3/4, 5, 5's scatter backward, 6)
-against their plain PyTorch versions.
+"""PyTorch port, the CUDA kernels (1, 2, 3/4, 5, 5's scatter backward, 6,
+and the conv epilogue) against their plain PyTorch versions.
 
 These need an NVIDIA GPU and ``nvcc`` (the kernels build from
 ``two_stage_object_detection_tpu_torch/csrc`` at first use); without a GPU
@@ -19,7 +19,10 @@ import pytest
 import torch
 
 from two_stage_object_detection_tpu_torch.config import Config
+from two_stage_object_detection_tpu_torch.models.layers import BatchNorm
 from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
+from two_stage_object_detection_tpu_torch.ops.conv_epilogue import (
+    conv_epilogue, conv_epilogue_reference)
 from two_stage_object_detection_tpu_torch.ops.anchors import make_fpn_anchors
 from two_stage_object_detection_tpu_torch.ops.proposals import (
     MAX_KERNEL_ROWS, _decode_masked, fused_proposals, fused_proposals_batched,
@@ -37,6 +40,7 @@ from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     windowed_align_op, windowed_roi_align_batched)
 from two_stage_object_detection_tpu_torch.quantize import (
     conv_int32, conv_int32_reference)
+from two_stage_object_detection_tpu_torch.utils.profiling import counters
 # the module beside this file, by its own name: an installed package
 # named ``tests`` would shadow the directory's
 from torch_nms_cases import offset_candidates
@@ -844,3 +848,110 @@ def test_int8_conv_int_mm_equals_float64(rng, dev, n, c, hw, o, k, stride,
     want = conv_int32_reference(x, w, stride, pad)
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert got.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("act", ["none", "relu6", "prelu"])
+@pytest.mark.parametrize("c", [26, 82, 256, 410, 1024])
+def test_conv_epilogue_kernel_bitwise_equals_plain(dev, c, act, residual,
+                                                   dtype):
+    """The conv epilogue, in place on a channels-last map, equals its plain
+    version bit for bit at HarDNet's and ResNet's widths (16-byte vectors
+    where a pixel's bytes allow, 4-byte pairs at 26, 82 and 410 in bf16) on
+    odd pixel counts (3 x 7 x 5), with NaN and the clamp's edges among the
+    values; the launch is counted and writes into ``y``."""
+    cl = torch.channels_last
+    gen = torch.Generator(device=dev).manual_seed(c)
+    y = (torch.randn(3, c, 7, 5, device=dev, generator=gen) * 4).to(dtype)
+    y = y.contiguous(memory_format=cl)
+    y[0, 0, 0, :3] = torch.tensor([float("nan"), 6.0, 0.0])
+    r = (torch.randn(y.shape, device=dev, generator=gen).to(dtype)
+         .contiguous(memory_format=cl) if residual else None)
+    bias = torch.randn(c, device=dev, generator=gen)
+    slope = torch.full((1,), 0.1, device=dev)
+    want = conv_epilogue_reference(y, bias, r, act, slope)
+    before = conv_epilogue.launches
+    out = y.clone(memory_format=cl)
+    got = conv_epilogue(out, bias, r, act, slope)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert conv_epilogue.launches == before + 1
+
+
+@pytest.mark.parametrize("c,act,residual", [
+    (26, "relu6", False), (410, "relu6", False), (410, "prelu", True),
+    (256, "prelu", True)])
+def test_conv_epilogue_kernel_bitwise_over_grid_strides(dev, c, act,
+                                                       residual):
+    """The epilogue on a bf16 map of 1.2 to 3.0 million vectors, 1.1 to 11
+    passes of its grid on the H100 (132 SMs x 8 blocks x 256 threads, each
+    taking as many vectors as make 16 bytes), so that every thread steps
+    its channel from pass to pass and the last pass is partial: bit for bit
+    its plain version, at two of HarDNet's 4-byte-pair widths and at a
+    16-byte one."""
+    cl = torch.channels_last
+    gen = torch.Generator(device=dev).manual_seed(c)
+    shape = (5, c, 37, 41) if c == 410 else (9, c, 101, 103)
+    y = (torch.randn(shape, device=dev, generator=gen) * 4).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    r = (torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+         .contiguous(memory_format=cl) if residual else None)
+    bias = torch.randn(c, device=dev, generator=gen)
+    slope = torch.full((1,), 0.1, device=dev)
+    want = conv_epilogue_reference(y, bias, r, act, slope)
+    got = conv_epilogue(y.clone(memory_format=cl), bias, r, act, slope)
+    assert torch.equal(got, want)
+
+
+def _randomised_norms(model, seed=0):
+    """Batch-norm scales, shifts and running statistics away from their
+    initial 1 / 0, so that the fold is not the identity."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                c = m.weight.shape[0]
+                m.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=gen) * 0.2)
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
+                m.running_var.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("hardnet39", Config()),
+    ("resnet50_fpn", Config(fpn=True, backbone="resnet50",
+                            input_size=(800, 1088)))])
+def test_folded_features_match_unfolded(rng, dev, name, cfg):
+    """``features`` of HarDNet-39 at 600x600 and of ResNet-50-FPN at
+    800x1088, B=2, bf16: the folded route (inference mode) against the
+    unfolded one (the same eval-mode model with gradients on), each beside
+    the float32 model's features.  Every conv + batch-norm pair folds, and
+    the folded route is as near the float32 features as the unfolded one:
+    each rounds in bf16, at other places."""
+    model = FasterRCNN(cfg, seed=0)
+    _randomised_norms(model)
+    ref = FasterRCNN(cfg.replace(compute_dtype="float32"), seed=0)
+    ref.load_state_dict(model.state_dict())
+    h, w = cfg.input_size
+    x = torch.from_numpy(rng.rand(2, h, w, 3).astype(np.float32)).to(dev)
+    counters.clear()
+    with torch.inference_mode():
+        folded = model.features(x)
+    pairs = sum(isinstance(m, BatchNorm) for m in model.extractor.modules())
+    assert counters["fold.folded"] == pairs
+    with torch.enable_grad():
+        unfolded = model.features(x)
+        want = ref.features(x)
+    assert counters["fold.folded"] == pairs
+    assert counters["fold.fallback.grad"] == 2
+    maps = lambda t: t if isinstance(t, tuple) else (t,)
+    for f, u, r in zip(maps(folded), maps(unfolded), maps(want)):
+        scale = float(r.abs().max())
+        err_f = float((f.float() - r).abs().max()) / scale
+        err_u = float((u.detach().float() - r.detach()).abs().max()) / scale
+        print(f"{name} {tuple(r.shape)}: folded {err_f:.3e}, unfolded "
+              f"{err_u:.3e} of the f32 map's largest magnitude")
+        assert err_f <= 1.5 * err_u + 1e-3

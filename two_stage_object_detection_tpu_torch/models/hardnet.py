@@ -24,6 +24,12 @@ depth-wise stride-2 downs and the tail included), so the row shards of
 ``parallel/spatial.py`` need nothing else here but the dropout's mask.  Only the
 depth-wise form (``depth_wise=True``) is built: it is the only one the
 backbone registry of either package constructs.
+
+Predict on the card takes the folded route (``layers.fold_route``): each
+layer's batch norm folded into its conv, one epilogue of bias and ReLU6 a
+``ConvLayer``, and each depth-wise layer's bias deferred into the 1x1 convs
+that alone read its output (the layers' ``_folded`` methods, which
+:meth:`HarDNetFeatureExtraction.forward` calls in place of the layers).
 """
 
 from __future__ import annotations
@@ -36,8 +42,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from two_stage_object_detection_tpu_torch.models.layers import (
-    BatchNorm, Conv, frozen_running_stats)
+    BatchNorm, Conv, cached_fold, epilogue, fold_norm, fold_route,
+    fold_sources, frozen_running_stats, through_1x1)
 from two_stage_object_detection_tpu_torch.parallel import spatial
+from two_stage_object_detection_tpu_torch.utils.profiling import counters
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +65,31 @@ class ConvLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return relu6(self.norm(self.conv(x)))
 
+    def _fold(self, pending=None):
+        """Folded ``(w', b')``: ``w'`` in the compute dtype, ``b'`` float32,
+        taking in ``pending``, a per-channel bias the input carries (a
+        1x1 layer only: :func:`~.layers.through_1x1`)."""
+        w, b = fold_norm(self.conv, self.norm)
+        if pending is not None:
+            if w.shape[2:] != (1, 1) or self.conv.padding:
+                raise ValueError("a pending bias passes through an unpadded "
+                                 "1x1 conv only")
+            b = through_1x1(w, b, pending)
+        return w.to(self.conv.compute_dtype), b
+
+    def _run_folded(self, x, params):
+        w, b = params
+        counters["fold.folded"] += 1
+        return epilogue(self.conv.forward(x, w), b, act="relu6")
+
+    def _folded(self, x, pending=None):
+        """The folded route: the conv with the folded weight, then bias and
+        ReLU6 in one epilogue; ``pending`` as in :meth:`_fold`."""
+        params = cached_fold(
+            self, fold_sources(self.conv, self.norm, pending=pending),
+            lambda: self._fold(pending))
+        return self._run_folded(x, params)
+
 
 class DWConvLayer(nn.Module):
     """Depth-wise 3x3 conv (no bias) + BN, no activation."""
@@ -70,6 +103,26 @@ class DWConvLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(self.dwconv(x))
 
+    def _fold(self):
+        w, b = fold_norm(self.dwconv, self.norm)
+        return w.to(self.dwconv.compute_dtype), b
+
+    def _run_folded(self, x, params, defer):
+        w, b = params
+        counters["fold.folded"] += 1
+        y = self.dwconv.forward(x, w)
+        return (y, b) if defer else (epilogue(y, b), None)
+
+    def _folded(self, x, defer=False):
+        """The folded route -> ``(y, pending)``.  With ``defer`` the bias is
+        not added but returned as ``pending`` (float32 ``[C]``), for the
+        unpadded 1x1 convs that alone consume ``y`` to take in
+        (:func:`~.layers.through_1x1`), and this layer makes no pass of its
+        own; else one epilogue adds it and ``pending`` is None."""
+        params = cached_fold(self, fold_sources(self.dwconv, self.norm),
+                             self._fold)
+        return self._run_folded(x, params, defer)
+
 
 class CombConvLayer(nn.Module):
     """1x1 ``ConvLayer`` followed by a depth-wise 3x3."""
@@ -82,6 +135,15 @@ class CombConvLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer2(self.layer1(x))
+
+    def _fold(self, pending=None):
+        return self.layer1._fold(pending), self.layer2._fold()
+
+    def _run_folded(self, x, params):
+        """The folded route on :meth:`_fold`'s ``params`` -> ``(y,
+        pending)``, the depth-wise layer's bias deferred."""
+        return self.layer2._run_folded(
+            self.layer1._run_folded(x, params[0]), params[1], defer=True)
 
 
 def hard_block_links(n_layers: int, base_ch: int, growth_rate: int,
@@ -129,24 +191,64 @@ class HarDBlock(nn.Module):
     def __init__(self, in_channels: int, growth_rate: int, grmul: float,
                  n_layers: int, keep_base: bool = False, dtype=torch.float32):
         super().__init__()
-        out_chs, in_chs, self.links, block_out = hard_block_links(
+        self.out_chs, in_chs, self.links, block_out = hard_block_links(
             n_layers, in_channels, growth_rate, grmul)
         self.keep_base = keep_base
         self.out_channels = block_out + (in_channels if keep_base else 0)
         for t in range(1, n_layers + 1):
             self.add_module(f"layer{t - 1}", CombConvLayer(
-                in_chs[t - 1], out_chs[t], dtype=dtype))
+                in_chs[t - 1], self.out_chs[t], dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _keep(self, n: int) -> List[int]:
+        return [i for i in range(n)
+                if (i == 0 and self.keep_base) or i == n - 1 or i % 2 == 1]
+
+    def _run(self, x: torch.Tensor, layer) -> torch.Tensor:
+        """``layer(t, input)`` gives layer ``t``'s output."""
         outputs = [x]
-        for t, link in enumerate(self.links, start=1):
+        for t, link in enumerate(self.links):
             tin = [outputs[j] for j in link]
             inp = torch.cat(tin, dim=1) if len(tin) > 1 else tin[0]
-            outputs.append(getattr(self, f"layer{t - 1}")(inp))
-        n = len(outputs)
-        keep = [o for i, o in enumerate(outputs)
-                if (i == 0 and self.keep_base) or i == n - 1 or i % 2 == 1]
-        return torch.cat(keep, dim=1)
+            outputs.append(layer(t, inp))
+        return torch.cat([outputs[i] for i in self._keep(len(outputs))],
+                         dim=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x, lambda t, inp: getattr(self, f"layer{t}")(inp))
+
+    def _pending(self, pend, idx):
+        """The pending bias of the concatenation of outputs ``idx``, zeros
+        for those that carry none; None if none does."""
+        parts = [pend[j] for j in idx]
+        like = next((p for p in parts if p is not None), None)
+        if like is None:
+            return None
+        return torch.cat([like.new_zeros(self.out_chs[j]) if p is None else p
+                          for j, p in zip(idx, parts)])
+
+    def _fold(self, pending):
+        """Each layer's folded parameters, every depth-wise bias deferred to
+        the 1x1 layers and the transition that consume it, and the pending
+        bias of the block's output; ``pending`` is the input's."""
+        pend, layers = [pending], []
+        for t, link in enumerate(self.links):
+            params = getattr(self, f"layer{t}")._fold(
+                self._pending(pend, link))
+            layers.append(params)
+            pend.append(params[1][1])
+        return layers, self._pending(pend, self._keep(len(pend)))
+
+    def _folded(self, x, pending=None):
+        """The folded route -> ``(y, pending)``: one epilogue a layer (its
+        1x1 conv's bias and ReLU6), none for the depth-wise convs, whose
+        biases reach the output's ``pending``."""
+        mods = [m for c in self.children() for m in (
+            c.layer1.conv, c.layer1.norm, c.layer2.dwconv, c.layer2.norm)]
+        layers, out = cached_fold(self, fold_sources(*mods, pending=pending),
+                                  lambda: self._fold(pending))
+        y = self._run(x, lambda t, inp: getattr(self, f"layer{t}")
+                      ._run_folded(inp, layers[t])[0])
+        return y, out
 
 
 _ARCH = {
@@ -264,20 +366,38 @@ class HarDNetFeatureExtraction(nn.Module):
         return x * (u >= self.DROPOUT).to(x.dtype) / (1.0 - self.DROPOUT)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator = None):
-        x = self.stem2(self.stem1(self.stem0(x)))
+        """On the folded route (``layers.fold_route``) each layer runs its
+        ``_folded``: a depth-wise layer whose output feeds only 1x1 convs
+        (the stem's, the blocks', and each down followed by a block) leaves
+        its bias ``pending`` for them to take in; a down before the tail
+        and ``pyr_down`` add theirs."""
+        fold = fold_route(self, x)
+        if fold:
+            x = self.stem1._folded(self.stem0._folded(x))
+            x, pending = self.stem2._folded(x, defer=True)
+        else:
+            x, pending = self.stem2(self.stem1(self.stem0(x))), None
         taps = []
         for i in range(self.n_blocks):
-            x = self._block(i, x)
+            if fold:
+                x, pending = getattr(self, f"block{i}")._folded(x, pending)
+            else:
+                x = self._block(i, x)
             if i == self.n_blocks - 1 and self.arch == 85 and self.training:
                 x = self._dropout(x, generator)
-            x = getattr(self, f"transition{i}")(x)
+            transition = getattr(self, f"transition{i}")
+            x = transition._folded(x, pending) if fold else transition(x)
+            pending = None                      # the transition took it in
             if i in self.tap_after:
                 taps.append(x)
             if hasattr(self, f"down{i}"):
-                x = getattr(self, f"down{i}")(x)
+                down = getattr(self, f"down{i}")
+                x, pending = (down._folded(x, defer=i < self.n_blocks - 1)
+                              if fold else (down(x), None))
         x = self.tail2(self.tail1(F.relu(self.tail0(x))))
         if self.pyramid:
-            return (*taps, x, self.pyr_down(x))
+            c5 = self.pyr_down._folded(x)[0] if fold else self.pyr_down(x)
+            return (*taps, x, c5)
         return x
 
 

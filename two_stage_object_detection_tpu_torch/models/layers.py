@@ -7,6 +7,13 @@ to ``compute_dtype`` for the operation, as a flax module with
 ``bias``, ``running_mean``, ``running_var``), so the flax-to-torch map
 (``utils/jax_weights.py``) is one rule per layer type.  Initialisation
 draws from an explicit ``torch.Generator`` (:func:`init_weights`).
+
+The backbones' predict on the card takes a folded route
+(:func:`fold_route`): each eval-mode :class:`BatchNorm` is folded into the
+conv before it (:func:`fold_norm`), cached on the module
+(:func:`cached_fold`), the conv runs with the folded weight and no bias
+(:meth:`Conv.forward`'s ``weight``), and the bias, residual and activation
+after it are one pass of ``ops/conv_epilogue.py``'s kernel.
 """
 
 from __future__ import annotations
@@ -17,8 +24,12 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
+from two_stage_object_detection_tpu_torch.ops.conv_epilogue import (
+    conv_epilogue)
 from two_stage_object_detection_tpu_torch.parallel import spatial
+from two_stage_object_detection_tpu_torch.utils.profiling import counters
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
@@ -51,10 +62,17 @@ class Conv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, weight: torch.Tensor = None
+                ) -> torch.Tensor:
+        """``weight``: a folded weight in the compute dtype
+        (:func:`fold_norm`) to convolve with in place of ``self.weight``,
+        and no bias (the folded route's epilogue adds it)."""
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        w = self.weight.to(dt)
+        if weight is None:
+            bias = None if self.bias is None else self.bias.to(dt)
+            w = self.weight.to(dt)
+        else:
+            bias, w = None, weight
         shard = spatial.current()
         if shard is not None:
             return shard.conv(
@@ -290,3 +308,117 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         if isinstance(m, (Conv, ConvTranspose, Dense)):
             m.reset_parameters(generator)
+
+
+# ------------------------------------------------------------ folded route
+def fold_route(trunk: nn.Module, x: torch.Tensor) -> bool:
+    """Whether a backbone's call on ``x`` takes the folded route: on a CUDA
+    tensor, in eval mode, with gradients off (``predict``'s
+    ``inference_mode``, never training, not even with ``freeze_bn``),
+    outside ``torch.compile`` and ``torch.export``'s tracing, and with no
+    conv's ``forward`` replaced (``quantize.quantized``) and no hook on a
+    conv or norm (the route calls each conv's ``forward`` and no norm:
+    ``quantize.calibrate`` hooks them).  A row shard
+    (``parallel/spatial.py``) takes the route too: the folded conv is
+    :meth:`Conv.forward`, which runs on the shard's rows, and the epilogue
+    is elementwise.  Otherwise it counts ``fold.fallback.<reason>`` in
+    ``utils.profiling.counters`` and the caller runs the modules as they
+    are.  One check a backbone call; the reasons are tested in the order
+    below, so that training returns at the first.
+
+    A traced program (``serving.export_program``) keeps the unfolded
+    route: its weights are the program's inputs, so a fold inside it would
+    run again on every call, and ``torch.export`` copies an intermediate
+    before an op writes it in place, which would cost the pass the
+    epilogue saves."""
+    reason = _unfolded_reason(trunk, x)
+    if reason is None:
+        return True
+    counters["fold.fallback." + reason] += 1
+    return False
+
+
+def _unfolded_reason(trunk: nn.Module, x: torch.Tensor):
+    if trunk.training:
+        return "train"
+    if torch.is_grad_enabled():
+        return "grad"
+    if torch.compiler.is_compiling() or isinstance(x, FakeTensor):
+        return "compile"
+    mods = trunk.__dict__.get("_fold_modules")
+    if mods is None:
+        mods = [m for m in trunk.modules() if isinstance(m, (Conv, BatchNorm))]
+        trunk.__dict__["_fold_modules"] = mods
+    for m in mods:
+        if m.training:
+            return "train"
+        if "forward" in m.__dict__:
+            return "int8"
+        if m._forward_hooks or m._forward_pre_hooks:
+            return "hooks"
+    if not x.is_cuda:
+        return "cpu"
+    return None
+
+
+def fold_norm(conv: Conv, norm: BatchNorm):
+    """``norm`` (eval mode) folded into ``conv``: float32 ``(w', b')`` with
+    ``w' = w * s`` by output channel and ``b' = beta - mean * s`` (plus the
+    conv's own bias), ``s = gamma / sqrt(var + eps)``, so that
+    ``conv(x, w') + b' == norm(conv(x))``."""
+    scale = norm.weight / torch.sqrt(norm.running_var + norm.EPS)
+    w = conv.weight * scale[:, None, None, None]
+    b = norm.bias - norm.running_mean * scale
+    if conv.bias is not None:
+        b = b + conv.bias
+    return w, b
+
+
+def fold_sources(*modules: nn.Module, pending=None):
+    """The tensors a fold of ``modules`` reads: their own parameters and
+    buffers, and the ``pending`` bias of the input, if any."""
+    out = [t for m in modules
+           for t in (*m._parameters.values(), *m._buffers.values())
+           if t is not None]
+    if pending is not None:
+        out.append(pending)
+    return out
+
+
+def cached_fold(owner: nn.Module, sources, build):
+    """``build()``, cached on ``owner`` and rebuilt when a tensor of
+    ``sources`` changes: each is stamped with its identity, storage and
+    ``_version``, which ``load_state_dict``, an optimiser step and a
+    train-mode batch norm's statistics update all bump (an inference
+    tensor, such as a bias another cache built under ``inference_mode``,
+    keeps no version and is never written: its identity stamps it).  The
+    cache holds its sources, so no identity is reused while it lives.
+    Counts each build in ``fold.rebuild``.  The cache is a plain
+    attribute: not state, not saved."""
+    stamp = [(id(t), t.data_ptr(), 0 if t.is_inference() else t._version)
+             for t in sources]
+    hit = owner.__dict__.get("_fold_cache")
+    if hit is not None and hit[0] == stamp:
+        return hit[2]
+    value = build()
+    owner.__dict__["_fold_cache"] = (stamp, list(sources), value)
+    counters["fold.rebuild"] += 1
+    return value
+
+
+def through_1x1(w: torch.Tensor, b: torch.Tensor, pending):
+    """The bias of an unpadded 1x1 conv of folded weight ``w`` (f32, ``[O,
+    I, 1, 1]``) and bias ``b`` whose input carries a per-channel bias
+    ``pending [I]`` not yet added (None: none): ``b + w . pending``, exact,
+    since every output pixel is ``w`` times one input pixel."""
+    if pending is None:
+        return b
+    return b + w[:, :, 0, 0] @ pending
+
+
+def epilogue(y: torch.Tensor, bias: torch.Tensor, residual=None,
+             act: str = "none", slope=None) -> torch.Tensor:
+    """The folded route's pass after an unbiased conv (the kernel on the
+    card, its plain version on the CPU), counted in ``fold.epilogue``."""
+    counters["fold.epilogue"] += 1
+    return conv_epilogue(y, bias, residual, act, slope)

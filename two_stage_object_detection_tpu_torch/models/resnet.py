@@ -8,6 +8,10 @@ padding, which for the 1x1 stride-2 shortcut convs pads nothing; a stem
 max pool that pads with -inf (on a row shard, only at the image's real
 top and bottom: ``parallel/spatial.py``).  Submodules carry the flax names
 (``conv1``, ``bn1``, ``relu``, ``ds_conv``, ``ds_norm``, ``layer{i}_{j}``).
+
+Predict on the card takes the folded route (``layers.fold_route``): each
+conv with its batch norm folded in, then one epilogue of bias and PReLU,
+the block's last also adding the shortcut, whose conv's bias it takes in.
 """
 
 from __future__ import annotations
@@ -18,8 +22,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from two_stage_object_detection_tpu_torch.models.layers import BatchNorm, Conv
+from two_stage_object_detection_tpu_torch.models.layers import (
+    BatchNorm, Conv, cached_fold, epilogue, fold_norm, fold_route,
+    fold_sources)
 from two_stage_object_detection_tpu_torch.parallel import spatial
+from two_stage_object_detection_tpu_torch.utils.profiling import counters
 
 
 class PReLU(nn.Module):
@@ -58,6 +65,11 @@ class BasicBlock(nn.Module):
         y = self.bn2(self.conv2(y))
         return self.relu(y + identity)
 
+    def _folded(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` on the folded route: two epilogues."""
+        return _folded_block(self, x, (self.conv1, self.bn1),
+                             (self.conv2, self.bn2))
+
 
 class Bottleneck(nn.Module):
     expansion = 4
@@ -88,6 +100,48 @@ class Bottleneck(nn.Module):
         y = self.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         return self.relu(y + identity)
+
+    def _folded(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` on the folded route: three epilogues."""
+        return _folded_block(self, x, (self.conv1, self.bn1),
+                             (self.conv2, self.bn2), (self.conv3, self.bn3))
+
+
+def _fold_pairs(pairs, shortcut=None):
+    """Folded ``[(w', b')]`` of the (conv, norm) ``pairs`` (weights in the
+    compute dtype, biases float32) and the ``shortcut`` pair's weight or
+    None: the shortcut's bias joins the last pair's, so that one epilogue
+    adds both."""
+    folded = [fold_norm(c, n) for c, n in pairs]
+    w_ds = None
+    if shortcut is not None:
+        w_ds, b_ds = fold_norm(*shortcut)
+        w_ds = w_ds.to(shortcut[0].compute_dtype)
+        folded[-1] = (folded[-1][0], folded[-1][1] + b_ds)
+    return [(w.to(c.compute_dtype), b) for (w, b), (c, _) in
+            zip(folded, pairs)], w_ds
+
+
+def _folded_block(block, x, *pairs):
+    """A residual block on the folded route: each conv with its norm folded
+    in, then one epilogue of its bias and the block's PReLU; the last also
+    adds the shortcut (the input, or the folded shortcut conv's unbiased
+    output), in the same pass.  The shortcut conv makes no pass of its
+    own."""
+    shortcut = (block.ds_conv, block.ds_norm) if block.downsample else None
+    mods = [m for pair in pairs for m in pair] + list(shortcut or ())
+    folded, w_ds = cached_fold(block, fold_sources(*mods),
+                               lambda: _fold_pairs(pairs, shortcut))
+    counters["fold.folded"] += len(mods) // 2
+    conv_last = pairs[-1][0]
+    identity = (block.ds_conv.forward(x, w_ds) if block.downsample
+                else x.to(conv_last.compute_dtype))
+    slope = block.relu.weight
+    y = x
+    for (conv, _), (w, b) in zip(pairs[:-1], folded[:-1]):
+        y = epilogue(conv.forward(y, w), b, act="prelu", slope=slope)
+    w, b = folded[-1]
+    return epilogue(conv_last.forward(y, w), b, identity, "prelu", slope)
 
 
 class ResNetFeatureExtraction(nn.Module):
@@ -129,12 +183,24 @@ class ResNetFeatureExtraction(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: torch.Generator = None):
         """``generator`` is the backbones' common train-mode argument; this
-        one draws nothing."""
-        x = self.relu(self.bn1(self.conv1(x)))
+        one draws nothing.  On the folded route (``layers.fold_route``) the
+        stem and every block run folded."""
+        fold = fold_route(self, x)
+        x = self._stem_folded(x) if fold else self.relu(self.bn1(self.conv1(x)))
         x = spatial.max_pool(x, 3, 2, 1)
         taps = []
         for names in self.stages:
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                x = block._folded(x) if fold else block(x)
             taps.append(x)
         return tuple(taps) if self.pyramid else x
+
+    def _stem_folded(self, x: torch.Tensor) -> torch.Tensor:
+        """conv1 -> bn1 -> PReLU as the folded conv and one epilogue."""
+        pair = (self.conv1, self.bn1)
+        w, b = cached_fold(self, fold_sources(*pair),
+                           lambda: _fold_pairs([pair])[0][0])
+        counters["fold.folded"] += 1
+        return epilogue(self.conv1.forward(x, w), b, act="prelu",
+                        slope=self.relu.weight)

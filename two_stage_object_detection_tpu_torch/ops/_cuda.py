@@ -25,7 +25,8 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("nms", "windowed_align", "proposals", "roi_pool", "roi_pool_bwd")
+SOURCES = ("nms", "windowed_align", "proposals", "roi_pool", "roi_pool_bwd",
+           "conv_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

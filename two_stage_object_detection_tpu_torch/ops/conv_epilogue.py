@@ -1,0 +1,110 @@
+"""The conv epilogue of the backbones' folded predict route.
+
+With eval-mode batch norm folded into a conv's weights and a float32 bias
+(``models/layers.py:fold_norm``), what is left after the unbiased conv is
+``act(y + bias[c] (+ residual))``: one pass over its output where batch
+norm, the residual add and the activation took one each.
+:func:`conv_epilogue` runs it on CUDA tensors as the hand-written kernel
+``csrc/conv_epilogue.cu``, in place, and on the CPU as its plain version,
+:func:`conv_epilogue_reference`.  The two agree bit for bit: both sum in
+float32 in the same order and round once.  It is no custom op: only the
+eager folded route calls it, and a traced program keeps the unfolded
+route (``models/layers.py:fold_route`` says why).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from two_stage_object_detection_tpu_torch.ops import _cuda
+from two_stage_object_detection_tpu_torch.ops.windowed_align import (
+    align_vector_width)
+
+ACTS = {"none": 0, "relu6": 1, "prelu": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def conv_epilogue_reference(y: torch.Tensor, bias: torch.Tensor,
+                            residual: Optional[torch.Tensor] = None,
+                            act: str = "none",
+                            slope: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Plain version: ``act(y + bias[c] (+ residual))`` of ``y [N, C, H,
+    W]`` in float32, rounded once to ``y``'s dtype.  ``bias [C]`` float32;
+    ``act`` one of :data:`ACTS`: ``"relu6"`` clamps to [0, 6],
+    ``"prelu"`` scales the negatives by the one-element ``slope``, taken in
+    ``y``'s dtype as ``F.prelu`` takes its weight."""
+    v = y.to(torch.float32) + bias.to(torch.float32)[:, None, None]
+    if residual is not None:
+        v = v + residual.to(torch.float32)
+    if act == "relu6":
+        v = torch.clamp(v, 0.0, 6.0)
+    elif act == "prelu":
+        a = slope.to(y.dtype).to(torch.float32)
+        v = torch.where(v >= 0, v, v * a)
+    elif act != "none":
+        raise ValueError(f"unknown activation {act!r}")
+    return v.to(y.dtype)
+
+
+def conv_epilogue(y: torch.Tensor, bias: torch.Tensor,
+                  residual: Optional[torch.Tensor] = None, act: str = "none",
+                  slope: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``act(y + bias[c] (+ residual))`` as :func:`conv_epilogue_reference`.
+
+    On a CUDA tensor it launches the kernel, in place on ``y`` once ``y``
+    is channels-last in memory (a conv's output on the card is: the port's
+    weights are), and returns ``y``; on the CPU it returns the plain
+    version's new tensor.  Each launch is counted in
+    ``conv_epilogue.launches``."""
+    if not y.is_cuda:
+        return conv_epilogue_reference(y, bias, residual, act, slope)
+    cl = torch.channels_last
+    y = y.contiguous(memory_format=cl)
+    if residual is not None:
+        residual = residual.contiguous(memory_format=cl)
+    _launch(y, bias, residual, ACTS[act], slope)
+    return y
+
+
+conv_epilogue.launches = 0
+
+
+def _launch(y, bias, residual, act, slope):
+    n, c, h, w = y.shape
+    dt = y.dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"conv_epilogue takes f32 or bf16, got {dt}")
+    # the channels-last tensors as the [N, H, W, C] arrays the kernel reads
+    _cuda.require(y.permute(0, 2, 3, 1), "y", dt)
+    if residual is not None:
+        _cuda.require(residual.permute(0, 2, 3, 1), "residual", dt,
+                      (n, h, w, c))
+    _cuda.require(bias, "bias", torch.float32, (c,))
+    if act == ACTS["prelu"]:
+        _cuda.require(slope, "slope", torch.float32, (1,))
+    elif act not in ACTS.values():
+        raise ValueError(f"unknown activation code {act}")
+    fn = _epilogue_fn()
+    with torch.cuda.device(y.device):
+        status = fn(y.data_ptr(),
+                    None if residual is None else residual.data_ptr(),
+                    bias.data_ptr(),
+                    slope.data_ptr() if act == ACTS["prelu"] else None,
+                    y.numel(), c, act, _DTYPES[dt], align_vector_width(c, dt),
+                    _cuda.stream_handle(y))
+    _cuda.check(status, "conv_epilogue_launch")
+    conv_epilogue.launches += 1
+
+
+@functools.cache
+def _epilogue_fn():
+    fn = _cuda.library("conv_epilogue").conv_epilogue_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn

@@ -646,7 +646,10 @@ def export_program(cfg: Config, model: FasterRCNN, path: str,
     ``portable=False`` exports ``model`` as it is; on the card its kernels
     stay in the graph as the port's custom ops (``tsod::*``), so the
     artifact runs only on a CUDA device, in a process that has imported
-    this package's ops (:func:`load_exported` does).
+    this package's ops (:func:`load_exported` does).  Either program runs
+    the backbone unfolded, batch norm as a pass of its own: eager predict
+    on the card folds it (``models/layers.py:fold_route`` says why a traced
+    program does not).
     """
     model.eval()
     if portable:

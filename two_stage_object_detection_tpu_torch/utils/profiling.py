@@ -11,11 +11,13 @@ The port's counterpart of the JAX package's ``utils/profiling.py``:
   ``nets/trainer.py``) all go through it, so while nothing records each
   costs one check and no ``record_function``;
 * :func:`enable_nan_checks`: ``torch.autograd.set_detect_anomaly``;
-* :func:`device_memory_stats`: ``torch.cuda.memory_stats`` per device.
+* :func:`device_memory_stats`: ``torch.cuda.memory_stats`` per device;
+* :data:`counters`: the program's event counts, by name.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 from typing import Dict, Optional
@@ -40,6 +42,15 @@ def trace(log_dir: str = "torch-trace"):
 
 
 _OFF = contextlib.nullcontext()
+
+#: Event counts, by name, kept whether or not a profiler records (a
+#: ``Counter`` increment each).  The backbones' folded predict route
+#: (``models/layers.py:fold_route``) counts ``fold.folded``, the conv +
+#: batch-norm pairs it ran folded; ``fold.epilogue``, its epilogue calls;
+#: ``fold.rebuild``, rebuilds of a module's folded weights; and
+#: ``fold.fallback.<reason>``, trunk calls that took the unfolded route.
+#: Readers reset it with ``counters.clear()``.
+counters: collections.Counter = collections.Counter()
 
 
 def annotate(name: str):
