@@ -680,10 +680,10 @@ def check_epilogue(rng, dev):
     the clamp; or batch norm, the add and the PReLU).  Returns the kernels
     line's rows and each shape's numbers."""
     import torch.nn.functional as F
+    from two_stage_object_detection_tpu_torch.ops._cuda import (
+        align_vector_width)
     from two_stage_object_detection_tpu_torch.ops.conv_epilogue import (
         conv_epilogue, conv_epilogue_reference)
-    from two_stage_object_detection_tpu_torch.ops.windowed_align import (
-        align_vector_width)
     cl = torch.channels_last
     rows, shapes = [], {}
     for name, (shape, act, res) in EPILOGUE_SHAPES.items():
@@ -740,7 +740,7 @@ def epilogue_launches():
     ``conv_epilogue_residual`` those with a residual,
     ``conv_epilogue_pairs`` those in 4-byte vectors."""
     from two_stage_object_detection_tpu_torch.ops import conv_epilogue as ce
-    from two_stage_object_detection_tpu_torch.ops.windowed_align import (
+    from two_stage_object_detection_tpu_torch.ops._cuda import (
         align_vector_width)
     launch, tally = ce._launch, collections.Counter()
 
@@ -822,18 +822,16 @@ def fused_bound_ms(locs, fg, anchors, img, n_post: int):
 def sort_ms(locs, fg, anchors, img, iters: int = 20) -> float:
     """Device time of kernel 3's launch A alone (decode, mask, sort)."""
     from two_stage_object_detection_tpu_torch.ops import _cuda
-    from two_stage_object_detection_tpu_torch.ops import proposals as P
     b, n, _ = locs.shape
     keys = torch.empty((b, n), dtype=torch.int64, device=locs.device)
     boxes = torch.empty((b, n, 4), dtype=torch.float32, device=locs.device)
     scores = torch.empty((b, n), dtype=torch.float32, device=locs.device)
-    fn = P._sort_fn()
 
     def run():
-        _cuda.check(fn(locs.data_ptr(), fg.data_ptr(), anchors.data_ptr(), b,
-                       n, 16.0, float(img[0]), float(img[1]), keys.data_ptr(),
-                       boxes.data_ptr(), scores.data_ptr(),
-                       _cuda.stream_handle(locs)), "proposals_sort_launch")
+        _cuda.launch("proposals_sort_launch", locs.device, locs.data_ptr(),
+                     fg.data_ptr(), anchors.data_ptr(), b, n, 16.0,
+                     float(img[0]), float(img[1]), keys.data_ptr(),
+                     boxes.data_ptr(), scores.data_ptr())
     return cuda_time_ms(run, iters)
 
 
@@ -1309,24 +1307,30 @@ def check_outputs(out, n: int, cfg):
     return int(v.sum())
 
 
-def counters():
-    """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from two_stage_object_detection_tpu_torch.ops.proposals import (
-        fused_proposals, fused_proposals_batched, greedy_nms)
-    from two_stage_object_detection_tpu_torch.ops.roi_pool_bwd import (
-        roi_pool_bwd_recompute)
-    from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
-        roi_pool_bwd_scatter, roi_pool_max)
-    from two_stage_object_detection_tpu_torch.ops.windowed_align import (
-        windowed_roi_align_batched)
-    from two_stage_object_detection_tpu_torch.ops.conv_epilogue import (
-        conv_epilogue)
-    return {"greedy_nms": greedy_nms, "conv_epilogue": conv_epilogue,
-            "windowed_align": windowed_roi_align_batched,
-            "fused_proposals_batched": fused_proposals_batched,
-            "fused_proposals": fused_proposals, "roi_pool_max": roi_pool_max,
-            "roi_pool_bwd_recompute": roi_pool_bwd_recompute,
-            "roi_pool_bwd_scatter": roi_pool_bwd_scatter}
+# the kernels line's name of each launch counter (``utils.profiling.counters``)
+LAUNCH_KEYS = {"greedy_nms": "launch.greedy_nms",
+               "conv_epilogue": "launch.conv_epilogue",
+               "windowed_align": "launch.windowed_roi_align_batched",
+               "fused_proposals_batched": "launch.fused_proposals_batched",
+               "fused_proposals": "launch.fused_proposals",
+               "roi_pool_max": "launch.roi_pool_max",
+               "roi_pool_bwd_recompute": "launch.roi_pool_bwd_recompute",
+               "roi_pool_bwd_scatter": "launch.roi_pool_bwd_scatter"}
+
+
+def reset_launches():
+    """Set every event counter of the program to 0, the launches among
+    them."""
+    from two_stage_object_detection_tpu_torch.utils.profiling import counters
+    counters.clear()
+
+
+def launch_counts(launched_only: bool = False) -> dict:
+    """Each kernel's launches since :func:`reset_launches`, by the kernels
+    line's names; with ``launched_only`` those that launched."""
+    from two_stage_object_detection_tpu_torch.utils.profiling import counters
+    got = {name: counters[key] for name, key in LAUNCH_KEYS.items()}
+    return {k: n for k, n in got.items() if n or not launched_only}
 
 
 @contextlib.contextmanager
@@ -1400,10 +1404,7 @@ def serve(cfg, rng, label: str, expect):
     from two_stage_object_detection_tpu_torch.models.layers import BatchNorm
     from two_stage_object_detection_tpu_torch.utils.profiling import (
         counters as events)
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
-    events.clear()
+    reset_launches()
     detections = {}
     with align_sizes() as sizes, epilogue_launches() as epilogues:
         for wire, server in servers.items():
@@ -1414,7 +1415,7 @@ def serve(cfg, rng, label: str, expect):
                 detections[f"{wire}_{n}"] = check_outputs(out, n, cfg)
                 if cfg.mask_head:
                     check_masks(out, n, cfg)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = launch_counts()
     launches[f"windowed_align_p{MASK_P}"] = sizes[MASK_P]
     launches.update(epilogues)
     for name in ("conv_epilogue_residual", "conv_epilogue_pairs"):
@@ -1601,9 +1602,7 @@ def train(cfg, rng, label: str, expect):
     model, state = create_train_state(cfg, seed=0, steps_per_epoch=8)
     gen = torch.Generator(device=model.device).manual_seed(0)
     batches = [train_batch(rng, cfg, 16) for _ in range(4)]
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, changed = [], [], []
     for batch in batches:
@@ -1616,7 +1615,7 @@ def train(cfg, rng, label: str, expect):
         losses.append({k: float(v) for k, v in out.items()})
         changed.append(n_changed(model, snap))
     peak = torch.cuda.max_memory_allocated()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = launch_counts()
     require(launches["conv_epilogue"] == 0, f"{label} train: the folded "
             "route ran in a train micro-step")
     log(f"{label} train: 4 micro-steps at b=16, grad_accum_steps=2: "
@@ -1843,9 +1842,7 @@ def train_modes(cfg, rng):
         c = cfg.replace(grad_accum_steps=2, roi_bwd=mode)
         model, state = create_train_state(c, seed=0)
         batch = train_batch(rng, c, 2)
-        wrappers = counters()
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_launches()
         ms = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -1858,8 +1855,7 @@ def train_modes(cfg, rng):
         require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
                 f"train roi_bwd={mode}: a parameter is not finite after the "
                 "update")
-        launched[mode] = {n: f.launches for n, f in wrappers.items()
-                          if f.launches}
+        launched[mode] = launch_counts(launched_only=True)
         require("roi_pool_bwd_recompute" not in launched[mode]
                 and "roi_pool_bwd_scatter" not in launched[mode],
                 f"roi_bwd={mode} launched a backward kernel")
@@ -1997,7 +1993,6 @@ def drivers(cfg, smi: str, bare_step_ms: float):
                if native.available() else pil)
     log(f"drivers: decoder: {decoder}")
     log(f"drivers: Loader copy scheme: {DevicePut.scheme}")
-    wrappers = counters()
     out = {"decoder": decoder, "copy_scheme": DevicePut.scheme}
     with tempfile.TemporaryDirectory() as tmp:
         root = driver_data_root(os.path.join(tmp, "data"))
@@ -2005,12 +2000,11 @@ def drivers(cfg, smi: str, bare_step_ms: float):
         sets = [a for kv in DRIVER_SETS for a in ("--set", kv)]
         common = ["--flagship", "--data-root", root, "--weights", weights,
                   *sets]
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         run_cli(["train", *common, "--eval-period", "1", "--no-viz"])
         train_s = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches = launch_counts()
         epochs = [r for r in records.records if hasattr(r, "epoch")]
         require(len(epochs) == 2, f"{len(epochs)} epochs logged, not 2")
         for r in epochs:
@@ -2075,8 +2069,7 @@ def drivers(cfg, smi: str, bare_step_ms: float):
 
         out["eval"] = {}
         for flag, protocol in (([], "train-graph"), (["--predict"], "predict")):
-            for fn in wrappers.values():
-                fn.launches = 0
+            reset_launches()
             n = len(records.records)
             sweep = json.loads(run_cli(["eval", *common, "--checkpoint", "best",
                                         *flag]))
@@ -2088,7 +2081,7 @@ def drivers(cfg, smi: str, bare_step_ms: float):
                     f"eval {protocol}: mAPs {vals}")
             require(bool(np.isfinite(sweep["eval_loss"])),
                     f"eval {protocol}: eval_loss {sweep['eval_loss']}")
-            ev_launch = {k: f.launches for k, f in wrappers.items() if f.launches}
+            ev_launch = launch_counts(launched_only=True)
             require(ev_launch.get("greedy_nms", 0) > 0
                     and ev_launch.get("windowed_align", 0) > 0,
                     f"eval {protocol} did not launch kernels 1 and 2")
@@ -2181,18 +2174,15 @@ def roi_route(cfg, rng, label: str, expect, absent, kernel_roi_ms: float):
     server = Predictor(cfg, model, batch_sizes=(16,), wire="f32")
     model.predict(x16)                       # cuDNN's choice, outside the count
     torch.cuda.synchronize()
-    wrappers = counters()
-
     def launched(what):
-        got = {name: fn.launches for name, fn in wrappers.items()}
+        got = launch_counts()
         for name in expect:
             require(got[name] > 0, f"{label} {what} never launched {name}")
         for name in absent:
             require(got[name] == 0, f"{label} {what} launched {name}")
         return {k: v for k, v in got.items() if v}
 
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     n_det = check_outputs(server(images), 16, cfg)
     predict_launches = launched("predict")
     with torch.inference_mode():
@@ -2221,8 +2211,7 @@ def roi_route(cfg, rng, label: str, expect, absent, kernel_roi_ms: float):
                                       steps_per_epoch=8)
     gen = torch.Generator(device=model.device).manual_seed(0)
     batches = [train_batch(rng, cfg, 16) for _ in range(2)]
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     snap = snapshot(model)
@@ -2307,7 +2296,6 @@ def resident(smi: str, stream: dict, bare_step_ms: float, augment_ms: float):
     t_phase = time.perf_counter()
     records = Records()
     logging.getLogger("two_stage_object_detection_tpu_torch").addHandler(records)
-    wrappers = counters()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = driver_data_root(os.path.join(tmp, "long"), LONG_IMAGES)
@@ -2316,12 +2304,11 @@ def resident(smi: str, stream: dict, bare_step_ms: float, augment_ms: float):
         sets = [a for kv in DRIVER_SETS for a in ("--set", kv)]
         common = ["--flagship", "--data-root", root, "--weights", weights,
                   *sets, "--set", *RESIDENT_SETS]
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         run_cli(["train", *common, "--eval-period", "100", "--no-viz"])
         train_s = time.perf_counter() - t0
-        launches = {k: f.launches for k, f in wrappers.items() if f.launches}
+        launches = launch_counts(launched_only=True)
         epochs = [r for r in records.records if hasattr(r, "epoch")]
         caches = [r for r in records.records if hasattr(r, "cache_bytes")]
         require(len(epochs) == 2 and all(np.isfinite(r.loss) for r in epochs),
@@ -2552,15 +2539,6 @@ def serving(smi: str):
         DetectionServer, decode_image)
 
     t_phase = time.perf_counter()
-    wrappers = counters()
-
-    def zero():
-        for fn in wrappers.values():
-            fn.launches = 0
-
-    def launched():
-        return {k: fn.launches for k, fn in wrappers.items() if fn.launches}
-
     cfg = Config(fpn=True, backbone="resnet50", loc_normalize=True)
     c32 = cfg.replace(compute_dtype="float32", score_thresh=0.0)
     h, w = cfg.input_size
@@ -2578,7 +2556,7 @@ def serving(smi: str):
     dev_rgb = _yuv420_unpack(torch.from_numpy(packed).cuda(), h, w).cpu()
     require(np.array_equal(dev_rgb.numpy(), rgb32),
             "the yuv420 unpack on the card differs from its reference")
-    zero()
+    reset_launches()
     torch.backends.cudnn.deterministic = True   # for the f32 comparisons
     share, bitwise = agree(
         Predictor(c32, m32, SERVE_BUCKETS, wire="yuv420")(packed),
@@ -2588,7 +2566,7 @@ def serving(smi: str):
         f"equals yuv420_to_rgb_reference bit for bit; f32 (TF32 off) "
         f"Predictor(wire='yuv420') against Predictor(wire='f32') on the "
         f"reference pixels: {share:.3f} of slots agree (tolerance 0.95), "
-        f"bitwise {bitwise}; launches {launched()}")
+        f"bitwise {bitwise}; launches {launch_counts(launched_only=True)}")
     require(share >= 0.95, "the yuv420 wire's detections differ")
     wires = {wire: Predictor(cfg, m16, SERVE_BUCKETS, wire=wire)
              for wire in ("f32", "u8", "yuv420")}
@@ -2643,7 +2621,7 @@ def serving(smi: str):
     singles = [req16[i % 16] for i in range(64)]
     results, lat = [None] * 64, [0.0] * 64
     torch.backends.cudnn.deterministic = True
-    zero()
+    reset_launches()
     with DynamicBatcher(batched, max_wait_ms=5.0) as dyn:
         def client(t):
             for i in range(t, 64, 16):
@@ -2658,7 +2636,7 @@ def serving(smi: str):
         for t in threads:
             t.join()
         wall = time.perf_counter() - t0
-    counts = launched()
+    counts = launch_counts(launched_only=True)
     direct = [batched(s) for s in singles]
     got = {k: np.concatenate([r[k] for r in results]) for k in FIELDS}
     want = {k: np.concatenate([r[k] for r in direct]) for k in FIELDS}
@@ -2680,7 +2658,7 @@ def serving(smi: str):
 
     # e. the HTTP front
     sizes = [decode_image(b, (h, w))[1:] for b in bodies]
-    zero()
+    reset_launches()
     with DetectionServer(wires["yuv420"], max_wait_ms=5.0,
                          host="127.0.0.1", port=0).start() as srv:
         def post(body, path="/detect"):
@@ -2715,7 +2693,7 @@ def serving(smi: str):
         resp = conn.getresponse()
         health = (resp.status, json.loads(resp.read().decode()))
         conn.close()
-    counts = launched()
+    counts = launch_counts(launched_only=True)
     require(len(answers) == 8 * 8 * len(bodies), "missing HTTP answers")
     n_det = 0
     for j, status, payload in answers:
@@ -2758,9 +2736,9 @@ def serving(smi: str):
                                     portable=False)
             export_s = time.perf_counter() - t0
             run = load_exported(path)
-            zero()
+            reset_launches()
             got = outputs(run(x16))
-            counts = launched()
+            counts = launch_counts(launched_only=True)
             share, bitwise = agree(got, outputs(model.predict(x16)))
             loaded_ms = cuda_time_ms(lambda: run(x16), 5)
             eager_ms = cuda_time_ms(lambda: model.predict(x16), 5)
@@ -2789,9 +2767,9 @@ def serving(smi: str):
         run = load_exported(path)
         plain = FasterRCNN(c32.replace(pallas="off", pallas_roi=False))
         plain.load_state_dict(m32.state_dict())
-        zero()
+        reset_launches()
         got = outputs(run(x16[:1]))
-        counts = launched()
+        counts = launch_counts(launched_only=True)
         share, bitwise = agree(got, outputs(plain.predict(x16[:1])))
         out["export"]["portable"] = {"export_s": export_s, "bytes": nbytes,
                                      "launches": counts, "agree": share,
@@ -2837,10 +2815,10 @@ def serving(smi: str):
     del inputs
     scales = filter_scales(calibrate(m16, [x16b[:4]]), prefix="extractor")
     quant = Predictor(cfg, m16, SERVE_BUCKETS, wire="u8", int8_scales=scales)
-    zero()
+    reset_launches()
     got = quant(req16)
     n_valid = check_outputs(got, 16, cfg)
-    counts = launched()
+    counts = launch_counts(launched_only=True)
     out["int8"] = {"convs": len(scales), "valid": n_valid,
                    "ms": host_ms(lambda: quant(req16)),
                    "bf16_ms": out["wire_ms"]["u8"], "launches": counts}
@@ -3145,9 +3123,7 @@ def _dp_rank(rank: int, world: int, tmp: str) -> None:
     grads, box, relu = {}, [], []
     state.optimizer.register_step_pre_hook(_grad_hook(model, grads))
     hooks = [_box_head_hook(model, box), _rpn_relu_hook(model, relu)]
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     for g in data["train"]:
@@ -3160,7 +3136,7 @@ def _dp_rank(rank: int, world: int, tmp: str) -> None:
         losses.append({k: float(v) for k, v in out.items()})
     for h in hooks:
         h.remove()
-    launches = {n: fn.launches for n, fn in wrappers.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     require(state.updates == 1, f"rank {rank}: {state.updates} updates")
     assert_replicated(state_tensors(state), mesh.group)
@@ -3266,9 +3242,7 @@ def _tp_rank(rank: int, world: int, tmp: str) -> None:
     state.optimizer.register_step_pre_hook(_grad_hook(model, grads))
     hook = _box_head_hook(model, box)
     comm = _timed_model_collectives(mesh.model_group)
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for g in data["train"]:
@@ -3280,7 +3254,7 @@ def _tp_rank(rank: int, world: int, tmp: str) -> None:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     hook.remove()
     comm = {k: list(v) for k, v in comm.items()}
-    launches = {n: fn.launches for n, fn in wrappers.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     require(state.updates == 1, f"tp rank {rank}: {state.updates} updates")
     assert_replicated(state_tensors(state), mesh.group)
@@ -3762,17 +3736,15 @@ def spatial_predict(cfg, rng, label: str, expect, shards) -> dict:
            "score_thresh": c32.score_thresh}
     require(out["detections"] == j, f"{label} spatial: {out['detections']} "
             f"detections above the threshold, not {j}")
-    wrappers = counters()
     for n in shards:
         sp = Predictor(c32, model, batch_sizes=(1,), spatial=True,
                        mesh=make_mesh(1, n, devices=["cuda:0"] * n))
         require(sp.spatial, f"{label}: Predictor(spatial=True) on (1, {n}) "
                 "takes no row split")
         sp(x)                                           # warm
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_launches()
         got = sp(x)
-        launches = {k: fn.launches for k, fn in wrappers.items()}
+        launches = launch_counts()
         for k in expect:
             require(launches[k] > 0, f"{label} spatial (1, {n}): {k} never "
                     "launched")
@@ -3862,16 +3834,14 @@ def _sp_rank(rank: int, world: int, tmp: str) -> None:
     batch = torch.load(os.path.join(tmp, "sp_batch.pt"), weights_only=False)
     grads = {}
     state.optimizer.register_step_pre_hook(_grad_hook(model, grads))
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, losses = train_step(state, batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    launches = launch_counts(launched_only=True)
     peak = torch.cuda.max_memory_allocated() / 1e9
     require(state.updates == 1, f"spatial rank {rank}: no update")
     assert_replicated(state_tensors(state))
@@ -4076,13 +4046,11 @@ def quality(smi: str) -> dict:
         name = " ".join([command] + [f"{k}={v}" for k, v in
                                      {**kw, **sets}.items()])
         log(f"=== quality {q}: {name} ===")
-        cs = counters()
-        for fn in cs.values():
-            fn.launches = 0
+        reset_launches()
         trained = {}
         res = tq.run(command, sets=sets, log=log, on_trained=lambda: (
-            trained.update({k: fn.launches for k, fn in cs.items()})), **kw)
-        launches = {k: fn.launches for k, fn in cs.items()}
+            trained.update(launch_counts())), **kw)
+        launches = launch_counts()
         fails = [f"{q} {f}" for f in res["failures"]]
         if res["compute_dtype"] != "bfloat16":
             fails.append(f"{q}: trained in {res['compute_dtype']}, not bf16")

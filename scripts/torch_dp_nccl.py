@@ -105,9 +105,7 @@ def main() -> int:
 
     grads = {}
     state.optimizer.register_step_pre_hook(cs._grad_hook(model, grads))
-    wrappers = cs.counters()
-    for fn in wrappers.values():
-        fn.launches = 0
+    cs.reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     step_ms, losses = [], []
@@ -118,7 +116,7 @@ def main() -> int:
         _sync(dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in out.items()})
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = cs.launch_counts()
     peak = (torch.cuda.max_memory_allocated(dev) / 1e9
             if dev.type == "cuda" else None)
     cs.require(state.updates == 1, "one update")

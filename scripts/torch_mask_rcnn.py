@@ -57,11 +57,7 @@ def build_generic(out_dir: str):
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(proc.stdout + proc.stderr)
-    fn = ctypes.CDLL(lib).windowed_align_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _cuda.bind(ctypes.CDLL(lib), "windowed_align_launch")
     return fn, proc.stdout + proc.stderr
 
 
@@ -70,8 +66,6 @@ def launch(fn, pyr, rois, levels, scales, p: int, s: int = 2, win: int = 32):
     ``ops/windowed_align.py:windowed_align_op`` makes it."""
     import torch
     from two_stage_object_detection_tpu_torch.ops import _cuda
-    from two_stage_object_detection_tpu_torch.ops.windowed_align import (
-        _DTYPES, align_vector_width)
     b, r, _ = rois.shape
     c, n = pyr[0].shape[-1], len(pyr)
     out = torch.empty((b, r, p, p, c), dtype=pyr[0].dtype, device=rois.device)
@@ -80,8 +74,9 @@ def launch(fn, pyr, rois, levels, scales, p: int, s: int = 2, win: int = 32):
                 (ctypes.c_int * (2 * n))(*[d for f in pyr for d in f.shape[1:3]]),
                 (ctypes.c_float * (2 * n))(*sc), n, rois.data_ptr(),
                 levels.data_ptr(), out.data_ptr(), b, r, c, p, s, win, 0,
-                _DTYPES[pyr[0].dtype], align_vector_width(c, pyr[0].dtype),
-                _cuda.stream_handle(rois))
+                _cuda.DTYPES[pyr[0].dtype],
+                _cuda.align_vector_width(c, pyr[0].dtype),
+                torch.cuda.current_stream(rois.device).cuda_stream)
     _cuda.check(status, "windowed_align_launch (generic)")
     return out
 
@@ -107,10 +102,10 @@ def align(args) -> dict:
         fpn_level_assign, span_aware_levels)
     from two_stage_object_detection_tpu_torch.ops import _cuda
     from two_stage_object_detection_tpu_torch.ops.windowed_align import (
-        _align_fn, windowed_roi_align_batched)
+        windowed_roi_align_batched)
     dev = torch.device("cuda")
     _cuda.build_all()
-    spec = _align_fn()
+    spec = _cuda.entry("windowed_align_launch")
     generic, log = build_generic(os.path.join(str(_cuda.BUILD_ROOT),
                                               "generic_p14"))
     h, w, b, r, c = 800, 1088, 16, 100, 256

@@ -55,7 +55,6 @@ def main() -> int:
         print("torch_nms_clusters: no CUDA device available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    launch = P._nms_fn()
     rows = []
     for b in (1, 4, 16):
         for k, n_post in cs.NMS_SHAPES:
@@ -68,11 +67,9 @@ def main() -> int:
                        torch.empty((b, n_post), device=dev),
                        torch.empty((b, n_post), dtype=torch.bool, device=dev),
                        torch.empty((b, n_post), dtype=torch.int32, device=dev))
-                _cuda.check(launch(boxes.data_ptr(), scores.data_ptr(), b, k,
-                                   k, n_post, 0.7, cluster,
-                                   *[t.data_ptr() for t in out], 0,
-                                   None, _cuda.stream_handle(boxes)),
-                            "nms_launch")
+                _cuda.launch("nms_launch", dev, boxes.data_ptr(),
+                             scores.data_ptr(), b, k, k, n_post, 0.7, cluster,
+                             *[t.data_ptr() for t in out], 0, None)
                 return out
 
             picked = P._nms_cluster(dev.index, b, k)

@@ -52,11 +52,17 @@ def _resnet_stem(m, x):
     return m._stem_folded(x), m.relu(m.bn1(m.conv1(x)))
 
 
-def _folded_trunk(m, x):
-    """The trunk's forward with the route's check passed, as on a CUDA
-    tensor: its folded route on the CPU."""
+def _route_passed(m):
+    """The trunk's route check passed, as on a CUDA tensor, while inside:
+    its folded route on the CPU.  Enter it from one thread only:
+    ``mock.patch`` is not thread-safe, and two threads' patches can restore
+    each other's, leaving the check passed for the rest of the process."""
     module = hardnet if isinstance(m, HarDNetFeatureExtraction) else resnet
-    with mock.patch.object(module, "fold_route", lambda trunk, x: True):
+    return mock.patch.object(module, "fold_route", lambda trunk, x: True)
+
+
+def _folded_trunk(m, x):
+    with _route_passed(m):
         return m(x)
 
 
@@ -211,7 +217,8 @@ def test_folded_route_on_row_shards_matches_the_whole_map(kind):
     the unsharded trunk's unfolded output in float32 within 1e-5 of its
     largest magnitude, and the pairs ran folded (the shards' threads share
     the counter, whose increments two threads may interleave: it reads at
-    least one trunk's pairs and at most both)."""
+    least one trunk's pairs and at most both).  The route's check is passed
+    from this thread, and is the route's own again afterwards."""
     m = _trunk(kind)
     x = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(4))
     with torch.no_grad():
@@ -223,7 +230,7 @@ def test_folded_route_on_row_shards_matches_the_whole_map(kind):
         try:
             shard = spatial.Shard(group.transport(i), 64, 64)
             with torch.inference_mode(), spatial.sharded(shard):
-                out = _folded_trunk(m, shard.own_rows(x, x))
+                out = m(shard.own_rows(x, x))
             got[i] = out if isinstance(out, tuple) else (out,)
         except Exception as e:                             # noqa: BLE001
             errors.append(e)
@@ -231,10 +238,11 @@ def test_folded_route_on_row_shards_matches_the_whole_map(kind):
 
     counters.clear()
     threads = [threading.Thread(target=work, args=(i,)) for i in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(120)
+    with _route_passed(m):
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
     assert not errors, errors
     pairs = sum(isinstance(b, BatchNorm) for b in m.modules())
     assert pairs <= counters["fold.folded"] <= n * pairs
@@ -242,6 +250,8 @@ def test_folded_route_on_row_shards_matches_the_whole_map(kind):
         g = torch.cat([out[level] for out in got], 2)
         assert g.shape == w.shape
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    # the check is the route's own again for every later test
+    assert hardnet.fold_route is fold_route and resnet.fold_route is fold_route
 
 
 def test_fold_route_engages_only_on_cuda_tensors():

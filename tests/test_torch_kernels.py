@@ -94,12 +94,12 @@ def test_greedy_nms_kernel_bitwise_equals_plain(rng, dev, b, k, n_post, edges):
     B=16, and on masked, few-survivor and all-suppressing images."""
     boxes, scores = _sorted_rows(rng, b, k, edges)
     boxes, scores = boxes.to(dev), scores.to(dev)
-    before = greedy_nms.launches
+    before = counters["launch.greedy_nms"]
     got = greedy_nms(boxes, scores, n_post=n_post, iou_threshold=0.7)
     want = greedy_nms_rows_reference(boxes, scores, n_post=n_post,
                                      iou_threshold=0.7)
     torch.cuda.synchronize()
-    assert greedy_nms.launches == before + 1
+    assert counters["launch.greedy_nms"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     if edges:
@@ -149,12 +149,12 @@ def test_greedy_nms_kernel_above_the_row_cap(rng, dev, k, case):
     boxes, scores = boxes.to(dev), scores.to(dev)
     chunks = nms_chunks(k)
     assert len(chunks) == (2 if k == MAX_KERNEL_ROWS + 1 else 3)
-    before = greedy_nms.launches
+    before = counters["launch.greedy_nms"]
     got = greedy_nms(boxes, scores, n_post=n_post, iou_threshold=0.7)
     want = greedy_nms_rows_reference(boxes, scores, n_post=n_post,
                                      iou_threshold=0.7)
     torch.cuda.synchronize()
-    assert greedy_nms.launches == before + 1
+    assert counters["launch.greedy_nms"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     rows0 = chunks[0][1]
@@ -193,12 +193,12 @@ def test_greedy_nms_kernel_index_equals_plain(rng, dev, case, b, r, n_class,
     launch."""
     boxes, scores = (t.to(dev) for t in _offset_rows(rng, b, r, n_class,
                                                       case))
-    before = greedy_nms.launches
+    before = counters["launch.greedy_nms"]
     got = greedy_nms(boxes, scores, n_post=n_post, iou_threshold=thr)
     want = greedy_nms_rows_reference(boxes, scores, n_post=n_post,
                                      iou_threshold=thr)
     torch.cuda.synchronize()
-    assert greedy_nms.launches == before + 1
+    assert counters["launch.greedy_nms"] == before + 1
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -239,15 +239,15 @@ def test_proposal_routes_drop_the_index(rng, dev):
     bit."""
     locs, fg, anchors = (t.to(dev) for t in _proposal_data(rng, 2, 20000))
     kw = dict(nms_iou=0.7, n_post_nms=300, min_size=16.0)
-    for n_pre_nms, counter in ((3000, greedy_nms),
-                               (None, fused_proposals_batched)):
-        before = counter.launches
+    for n_pre_nms, counter in ((3000, "launch.greedy_nms"),
+                               (None, "launch.fused_proposals_batched")):
+        before = counters[counter]
         got = proposals_batched(locs, fg, anchors, (600, 600),
                                 n_pre_nms=n_pre_nms, **kw)
         want = proposals_batched(locs, fg, anchors, (600, 600),
                                  n_pre_nms=n_pre_nms, use_kernel=False, **kw)
         torch.cuda.synchronize()
-        assert counter.launches == before + 1
+        assert counters[counter] == before + 1
         assert len(got) == len(want) == 3
         for g, w in zip(got, want):
             assert torch.equal(g, w)
@@ -275,14 +275,14 @@ def test_post_process_makes_no_synchronising_call(dev):
     del model.post_process
     args = grabbed[0]
     torch.cuda.synchronize()
-    before = greedy_nms.launches
+    before = counters["launch.greedy_nms"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.inference_mode():
             got = model.post_process(*args)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert greedy_nms.launches == before + 1
+    assert counters["launch.greedy_nms"] == before + 1
     model.cfg = cfg.replace(pallas="off")
     with torch.inference_mode():
         want = model.post_process(*args)
@@ -310,12 +310,12 @@ def test_windowed_align_kernel_matches_plain(rng, dev, dtype, c, r, p, s):
     wh = torch.from_numpy(rng.rand(2, r, 2).astype(np.float32) * 150 + 2)
     rois = torch.cat([x1, x1 + wh], -1).to(dev)
     levels = torch.from_numpy(rng.randint(0, 4, (2, r)).astype(np.int32)).to(dev)
-    before = windowed_roi_align_batched.launches
+    before = counters["launch.windowed_roi_align_batched"]
     got = windowed_roi_align_batched(pyr, rois, levels, scales, p, s)
     want = windowed_roi_align_batched([t.float() for t in pyr], rois, levels,
                                       scales, p, s, use_kernel=False)
     torch.cuda.synchronize()
-    assert windowed_roi_align_batched.launches == before + 1
+    assert counters["launch.windowed_roi_align_batched"] == before + 1
     assert got.shape == (2, r, p, p, c) and got.dtype == dtype
     diff = (got.float() - want).abs()
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 * want.abs() + 1e-5
@@ -369,13 +369,13 @@ def test_mask_head_kernel_route_matches_plain(rng, dev):
     wh = torch.from_numpy(rng.rand(2, 5, 2).astype(np.float32) * 40 + 4)
     rois = torch.cat([x1, x1 + wh], -1).to(dev)
     labels = torch.from_numpy(rng.randint(0, 4, (2, 5))).to(dev)
-    before = windowed_roi_align_batched.launches
+    before = counters["launch.windowed_roi_align_batched"]
     with torch.no_grad():
         got = head(pyr, rois, labels, (96, 128))
         head.use_kernel = False
         want = head(pyr, rois, labels, (96, 128))
     torch.cuda.synchronize()
-    assert windowed_roi_align_batched.launches == before + 1
+    assert counters["launch.windowed_roi_align_batched"] == before + 1
     assert got.shape == (2, 5, 28, 28)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
@@ -391,10 +391,10 @@ def test_windowed_align_kernel_rejects_misaligned_input(dev):
                          dtype=torch.bfloat16)[1:].view(1, 4, 4, 8)
     rois = torch.tensor([[[0.0, 0.0, 16.0, 16.0]]], device=dev)
     levels = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-    before = windowed_roi_align_batched.launches
+    before = counters["launch.windowed_roi_align_batched"]
     with pytest.raises(ValueError, match="16-byte aligned"):
         windowed_roi_align_batched(pyr, rois, levels, scales)
-    assert windowed_roi_align_batched.launches == before
+    assert counters["launch.windowed_roi_align_batched"] == before
 
 
 def _proposal_data(rng, b, n, img=600.0):
@@ -434,12 +434,12 @@ def test_fused_proposals_kernel_bitwise_equals_plain(rng, dev, b, n, n_post,
         fg = torch.where(torch.arange(n, device=dev) % (n // 50) == 0, fg,
                          zeros)
     kw = dict(nms_iou=0.7, n_post_nms=n_post, min_size=16.0)
-    before = fused_proposals_batched.launches, greedy_nms.launches
+    before = counters["launch.fused_proposals_batched"], counters["launch.greedy_nms"]
     got = fused_proposals_batched(locs, fg, anchors, (600, 600), **kw)
     want = fused_proposals_rows_reference(locs, fg, anchors, (600, 600), **kw)
     torch.cuda.synchronize()
-    assert fused_proposals_batched.launches == before[0] + 1
-    assert greedy_nms.launches == before[1]
+    assert counters["launch.fused_proposals_batched"] == before[0] + 1
+    assert counters["launch.greedy_nms"] == before[1]
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     if signed_zeros:
@@ -451,11 +451,11 @@ def test_fused_proposals_one_image_kernel(rng, dev):
     """Kernel 4 (the B=1 launch) == the plain version, bit for bit."""
     locs, fg, anchors = (t.to(dev) for t in _proposal_data(rng, 1, 2000))
     kw = dict(nms_iou=0.7, n_post_nms=100, min_size=16.0)
-    before = fused_proposals.launches
+    before = counters["launch.fused_proposals"]
     got = fused_proposals(locs[0], fg[0], anchors, (600, 600), **kw)
     want = fused_proposals_rows_reference(locs, fg, anchors, (600, 600), **kw)
     torch.cuda.synchronize()
-    assert fused_proposals.launches == before + 1
+    assert counters["launch.fused_proposals"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w[0])
 
@@ -475,12 +475,12 @@ def test_fpn_256_predict_proposals_take_kernel_3(rng, dev):
     kw = dict(nms_iou=cfg.rpn_nms_iou, n_post_nms=cfg.n_test_post_nms,
               min_size=cfg.proposal_min_size, n_pre_nms=cfg.n_test_pre_nms)
     locs, fg = locs.to(dev), fg.to(dev)
-    before = fused_proposals_batched.launches
+    before = counters["launch.fused_proposals_batched"]
     got = proposals_batched(locs, fg, anchors, (256, 256), **kw)
     want = proposals_batched(locs, fg, anchors, (256, 256), use_kernel=False,
                              **kw)
     torch.cuda.synchronize()
-    assert fused_proposals_batched.launches == before + 1
+    assert counters["launch.fused_proposals_batched"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[2].sum()) > 0
@@ -510,11 +510,11 @@ def test_fused_proposals_kernel_above_the_row_cap(rng, dev, n, case):
         fg[:, n_dup:] *= 0.5
     locs, fg, anchors = locs.to(dev), fg.to(dev), anchors.to(dev)
     kw = dict(nms_iou=0.7, n_post_nms=n_post, min_size=16.0)
-    before = fused_proposals_batched.launches
+    before = counters["launch.fused_proposals_batched"]
     got = fused_proposals_batched(locs, fg, anchors, (600, 600), **kw)
     want = fused_proposals_rows_reference(locs, fg, anchors, (600, 600), **kw)
     torch.cuda.synchronize()
-    assert fused_proposals_batched.launches == before + 1
+    assert counters["launch.fused_proposals_batched"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     rows0 = nms_chunks(n)[0][1]
@@ -543,11 +543,11 @@ def test_roi_pool_kernel_equals_plain(rng, dev, dtype, c):
     rois[:, 1] = [-40, 16, 24, 80]                     # empty first bins
     rois = torch.from_numpy(rois.astype(np.float32)).to(dev)
     feats = feats.to(dev, dtype)
-    before = roi_pool_max.launches
+    before = counters["launch.roi_pool_max"]
     got = roi_pool_max(feats, rois, 7, 1.0 / 16)
     want = roi_pool_argmax(feats, rois, 7, 1.0 / 16)
     torch.cuda.synchronize()
-    assert roi_pool_max.launches == before + 1
+    assert counters["launch.roi_pool_max"] == before + 1
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -620,11 +620,11 @@ def test_roi_pool_bwd_kernel_matches_plain(rng, dev, dtype, c):
     from a bf16 map), ties and empty bins included; the result is in the
     map's dtype; one launch is counted."""
     feats, rois, g = _pool_case(rng, dev, dtype, c)
-    before = roi_pool_bwd_recompute.launches
+    before = counters["launch.roi_pool_bwd_recompute"]
     got = roi_pool_bwd_recompute(feats, rois, g, 7, 1.0 / 16)
     want = roi_pool_grad_first_argmax(feats, rois, g, 7, 1.0 / 16)
     torch.cuda.synchronize()
-    assert roi_pool_bwd_recompute.launches == before + 1
+    assert counters["launch.roi_pool_bwd_recompute"] == before + 1
     assert got.dtype == want.dtype == dtype and got.shape == feats.shape
     argmax = roi_pool_argmax(feats, rois, 7, 1.0 / 16)[1]
     mass = scatter_argmax_grad(argmax, g.abs(), 12, 10)
@@ -641,16 +641,16 @@ def test_roi_pool_backward_kernels_through_autograd(rng, dev):
     plain versions, and each counts its launch."""
     feats, rois, g = _pool_case(rng, dev, torch.float32, 16)
     want = roi_pool_grad_first_argmax(feats, rois, g, 7, 1.0 / 16)
-    counts = (roi_pool_bwd_recompute.launches, roi_pool_bwd_scatter.launches)
+    counts = (counters["launch.roi_pool_bwd_recompute"], counters["launch.roi_pool_bwd_scatter"])
     f = feats.clone().requires_grad_(True)
     (roi_pool_fast(f, rois, 7, 1.0 / 16) * g).sum().backward()
-    assert roi_pool_bwd_recompute.launches == counts[0] + 1
+    assert counters["launch.roi_pool_bwd_recompute"] == counts[0] + 1
     torch.testing.assert_close(f.grad, want, rtol=0, atol=1e-4)
     f = feats.clone().requires_grad_(True)
     pooled, argmax = roi_pool_max(f, rois, 7, 1.0 / 16)
     (pooled * g).sum().backward()
     torch.cuda.synchronize()
-    assert roi_pool_bwd_scatter.launches == counts[1] + 1
+    assert counters["launch.roi_pool_bwd_scatter"] == counts[1] + 1
     torch.testing.assert_close(f.grad, want, rtol=0, atol=1e-4)
     torch.testing.assert_close(roi_pool_bwd_scatter(argmax, g, 12, 10),
                                scatter_argmax_grad(argmax, g, 12, 10),
@@ -711,14 +711,14 @@ def test_roi_pool_bwd_kernels_match_plain_on_each_route(rng, dev, b, h, w, c,
         assert roi_pool_bwd_plan(kind, b, h, w, c, 40, elem if kind ==
                                  "recompute" else 4)["route"] == route
     feats, rois, g = _bwd_case(rng, dev, b, h, w, c, dtype)
-    counts = (roi_pool_bwd_recompute.launches, roi_pool_bwd_scatter.launches)
+    counts = (counters["launch.roi_pool_bwd_recompute"], counters["launch.roi_pool_bwd_scatter"])
     got6 = roi_pool_bwd_recompute(feats, rois, g, 7, 1.0 / 16)
     want6 = roi_pool_grad_first_argmax(feats, rois, g, 7, 1.0 / 16)
     argmax, tol = _bwd_tol(feats, rois, g, want6)
     got5 = roi_pool_bwd_scatter(argmax, g, h, w)
     want5 = scatter_argmax_grad(argmax, g, h, w)
     torch.cuda.synchronize()
-    assert (roi_pool_bwd_recompute.launches, roi_pool_bwd_scatter.launches) \
+    assert (counters["launch.roi_pool_bwd_recompute"], counters["launch.roi_pool_bwd_scatter"]) \
         == (counts[0] + 1, counts[1] + 1)
     assert got6.dtype == dtype and got5.dtype == torch.float32
     assert bool(((got6.float() - want6.float()).abs() <= tol).all())
@@ -780,10 +780,10 @@ def test_custom_ops_pass_opcheck(rng, dev):
     torch.library.opcheck(greedy_nms_op, (boxes, scores, 60, 0.7))
     want = greedy_nms_rows_reference(boxes, scores, n_post=60,
                                      iou_threshold=0.7)
-    before = greedy_nms.launches
+    before = counters["launch.greedy_nms"]
     for g, w in zip(greedy_nms_op(boxes, scores, 60, 0.7), want):
         assert torch.equal(g, w)
-    assert greedy_nms.launches == before + 1
+    assert counters["launch.greedy_nms"] == before + 1
 
     locs, fg, anchors = (t.to(dev) for t in _proposal_data(rng, 2, 600))
     args = (locs, fg, anchors, 600.0, 600.0, 0.7, 64, 16.0)
@@ -791,10 +791,10 @@ def test_custom_ops_pass_opcheck(rng, dev):
     want = fused_proposals_rows_reference(locs, fg, anchors, (600.0, 600.0),
                                           nms_iou=0.7, n_post_nms=64,
                                           min_size=16.0)
-    before = fused_proposals_batched.launches
+    before = counters["launch.fused_proposals_batched"]
     for g, w in zip(fused_proposals_op(*args), want):
         assert torch.equal(g, w)
-    assert fused_proposals_batched.launches == before + 1
+    assert counters["launch.fused_proposals_batched"] == before + 1
 
     hw = [(40, 40), (20, 20), (10, 10), (5, 5)]
     pyr = [torch.randn(2, h, w, 32, device=dev) for h, w in hw]
@@ -806,12 +806,12 @@ def test_custom_ops_pass_opcheck(rng, dev):
                               ).to(dev)
     args = (pyr, rois, levels, scales, 7, 2, 32, False)
     torch.library.opcheck(windowed_align_op, args)
-    before = windowed_roi_align_batched.launches
+    before = counters["launch.windowed_roi_align_batched"]
     got = windowed_align_op(*args)
     want = windowed_roi_align_batched(pyr, rois, levels, [
         (h / 160.0, w / 160.0) for h, w in hw], use_kernel=False)
     assert float((got - want).abs().max()) <= 1e-5
-    assert windowed_roi_align_batched.launches == before + 1
+    assert counters["launch.windowed_roi_align_batched"] == before + 1
 
     feats = torch.from_numpy((rng.randint(-8, 8, size=(2, 12, 10, 8)) / 4.0)
                              .astype(np.float32)).to(dev)
@@ -822,12 +822,12 @@ def test_custom_ops_pass_opcheck(rng, dev):
     want = roi_pool_argmax(feats, rois, 7, 1.0 / 16)
     for op, n_out in ((roi_pool_values_op, 1), (roi_pool_argmax_op, 2)):
         torch.library.opcheck(op, (feats, rois, 7, 1.0 / 16))
-        before = roi_pool_max.launches
+        before = counters["launch.roi_pool_max"]
         got = op(feats, rois, 7, 1.0 / 16)
         got = (got,) if n_out == 1 else got
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-        assert roi_pool_max.launches == before + 1
+        assert counters["launch.roi_pool_max"] == before + 1
 
 
 @pytest.mark.parametrize("n,c,hw,o,k,stride,pad", [
@@ -871,14 +871,14 @@ def test_conv_epilogue_kernel_bitwise_equals_plain(dev, c, act, residual,
     bias = torch.randn(c, device=dev, generator=gen)
     slope = torch.full((1,), 0.1, device=dev)
     want = conv_epilogue_reference(y, bias, r, act, slope)
-    before = conv_epilogue.launches
+    before = counters["launch.conv_epilogue"]
     out = y.clone(memory_format=cl)
     got = conv_epilogue(out, bias, r, act, slope)
     torch.cuda.synchronize()
     assert got.data_ptr() == out.data_ptr()
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
-    assert conv_epilogue.launches == before + 1
+    assert counters["launch.conv_epilogue"] == before + 1
 
 
 @pytest.mark.parametrize("c,act,residual", [

@@ -12,6 +12,7 @@ against the interpreted Pallas ``_truncated_nms_call`` and the JAX
 """
 
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +29,7 @@ from two_stage_object_detection_tpu_torch.ops.proposals import (
     MAX_KERNEL_ROWS, NMS_MAX_CLUSTER, NMS_TILE, greedy_nms_rows_reference,
     nms_cluster_size)
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
-    align_vector_width, windowed_roi_align_batched)
+    windowed_roi_align_batched)
 
 jr = importlib.import_module("two_stage_object_detection_tpu.ops.roi_pool")
 T = torch.from_numpy
@@ -162,7 +163,7 @@ def test_align_vector_width(dtype, c, vec):
     """The widest 16/8/4/2-byte vector that divides a pixel's channels: C
     is a whole number of vectors, and each pixel of an aligned map starts on
     one."""
-    assert align_vector_width(c, dtype) == vec
+    assert _cuda.align_vector_width(c, dtype) == vec
     size = torch.empty((), dtype=dtype).element_size()
     assert c % vec == 0 and (c * size) % (vec * size) == 0
     assert vec * size in (16, 8, 4, 2) or vec == 1
@@ -170,7 +171,7 @@ def test_align_vector_width(dtype, c, vec):
 
 def test_align_vector_width_rejects_other_dtypes():
     with pytest.raises(ValueError, match="f32 or bf16"):
-        align_vector_width(256, torch.float16)
+        _cuda.align_vector_width(256, torch.float16)
 
 
 def test_check_aligned():
@@ -180,3 +181,26 @@ def test_check_aligned():
     _cuda.check_aligned(buf, "buf")
     with pytest.raises(ValueError, match="16-byte aligned"):
         _cuda.check_aligned(buf[1:], "view")
+
+
+def _c_letter(param: str) -> str:
+    """A C parameter's letter in ``_cuda.ENTRIES``: ``p`` for any pointer,
+    else its type's."""
+    ctype = param.rsplit(None, 1)[0] if "*" not in param else "*"
+    return {"*": "p", "int": "i", "long long": "l", "float": "f"}[ctype]
+
+
+def test_entries_match_the_csrc_prototypes():
+    """``_cuda.ENTRIES`` is every ``extern "C"`` function of ``csrc/*.cu``,
+    each under its own source with one letter a parameter of its
+    prototype, and each returns an int."""
+    found = {}
+    for path in sorted(_cuda.SRC_DIR.glob("*.cu")):
+        src = path.read_text()
+        for ret, name, params in re.findall(
+                r'extern "C"\s+(\w+)\s+(\w+)\s*\(([^)]*)\)', src):
+            assert ret == "int", name
+            letters = "".join(_c_letter(" ".join(p.split()))
+                              for p in params.split(","))
+            found[name] = (path.stem, letters)
+    assert found == _cuda.ENTRIES

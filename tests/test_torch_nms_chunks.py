@@ -7,16 +7,16 @@ walks the score-sorted rows in chunks (``nms_chunks``), one launch each:
 a launch first clears its rows against every box the earlier chunks kept,
 then walks its own rows into the slots still free.  Kernel 3's launch B is
 the same walk.  Here the plain chunked walk
-(``greedy_nms_chunked_reference``, chunk size as a parameter) is held bit
-for bit against the plain one-pass steps and against the JAX package's
+(:func:`greedy_nms_chunked_reference`, chunk size as a parameter) is held
+bit for bit against the plain one-pass steps and against the JAX package's
 ``_batched_nms_kernel`` run interpreted; then the chunk planner.  The
 kernel itself runs only on the card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
 
 The detector's post-process runs its class-offset NMS as one call of
 kernel 1 with the kept rows' index (``nets/detector.py:class_offset_nms``);
-its plain route is held index for index against ``ops/nms.py:nms``, the
-loop it replaced.
+its plain route is held index for index against the JAX package's
+``ops/nms.py:nms``, image by image.
 """
 
 import jax.numpy as jnp
@@ -24,12 +24,13 @@ import numpy as np
 import pytest
 import torch
 
+from two_stage_object_detection_tpu.ops.nms import nms as j_nms
 from two_stage_object_detection_tpu.ops.pallas_proposals import (
     _truncated_nms_call)
 from two_stage_object_detection_tpu_torch.nets.detector import (
     class_offset_nms)
 from two_stage_object_detection_tpu_torch.ops import proposals as tp
-from two_stage_object_detection_tpu_torch.ops.nms import nms
+from two_stage_object_detection_tpu_torch.ops.nms import NEG_INF
 from torch_nms_cases import offset_candidates
 
 T = torch.from_numpy
@@ -44,6 +45,70 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def greedy_nms_chunked_reference(boxes: torch.Tensor, scores: torch.Tensor,
+                                 *, n_post: int, iou_threshold: float,
+                                 chunk: int):
+    """Kernel 1's chunked walk in plain PyTorch, with the chunk size as a
+    parameter; the tests hold it against ``greedy_nms_rows_reference``.
+
+    The sorted rows go ``chunk`` at a time.  Each chunk's rows are first
+    cleared against every box earlier chunks kept (their IoU taken with the
+    kept box as the selected one, as a step takes it), then walked with
+    ``greedy_nms_rows_reference``'s steps into the slots still free.
+    A row is kept exactly when no earlier kept row overlaps it by more than
+    the threshold, so the result is the same bit for bit.  Shapes as there,
+    each kept row's index counted from the table's first row.
+    """
+    b, k, _ = boxes.shape
+    dev = boxes.device
+    rows = torch.arange(b, device=dev)
+    thr = torch.tensor(iou_threshold, dtype=torch.float32, device=dev)
+    out_boxes = torch.zeros((b, n_post, 4), dtype=boxes.dtype, device=dev)
+    out_scores = torch.zeros((b, n_post), dtype=scores.dtype, device=dev)
+    out_valid = torch.zeros((b, n_post), dtype=torch.bool, device=dev)
+    out_index = torch.zeros((b, n_post), dtype=torch.int32, device=dev)
+    n_kept = torch.zeros(b, dtype=torch.int64, device=dev)
+
+    def iou_above(sel, x1, y1, x2, y2, area):
+        ix1 = torch.maximum(x1, sel[:, 0:1])
+        iy1 = torch.maximum(y1, sel[:, 1:2])
+        ix2 = torch.minimum(x2, sel[:, 2:3])
+        iy2 = torch.minimum(y2, sel[:, 3:4])
+        inter = (torch.clamp(ix2 - ix1, min=0.0)
+                 * torch.clamp(iy2 - iy1, min=0.0))
+        sel_area = (sel[:, 2] - sel[:, 0]) * (sel[:, 3] - sel[:, 1])
+        return inter / (area + sel_area[:, None] - inter + 1e-8) > thr
+
+    for c0 in range(0, k, chunk):
+        cb = boxes[:, c0:c0 + chunk]
+        x1, y1, x2, y2 = cb.unbind(-1)
+        area = (x2 - x1) * (y2 - y1)
+        s_alive = scores[:, c0:c0 + chunk].clone()
+        for m in range(int(n_kept.max())):
+            sup = iou_above(out_boxes[:, m], x1, y1, x2, y2, area)
+            s_alive = torch.where(sup & (n_kept > m)[:, None], NEG_INF, s_alive)
+        while bool((n_kept < n_post).any()):
+            i = torch.argmax(s_alive, dim=1)
+            sc = s_alive[rows, i]
+            take = (sc > NEG_INF / 2) & (n_kept < n_post)
+            if not bool(take.any()):
+                break
+            sel = cb[rows, i]
+            sup = iou_above(sel, x1, y1, x2, y2, area)
+            sup[rows, i] = True
+            s_alive = torch.where(sup & take[:, None], NEG_INF, s_alive)
+            slot = n_kept.clamp(max=n_post - 1)
+            t = take[:, None]
+            out_boxes[rows, slot] = torch.where(t, sel, out_boxes[rows, slot])
+            out_scores[rows, slot] = torch.where(take, sc,
+                                                 out_scores[rows, slot])
+            out_valid[rows, slot] |= take
+            out_index[rows, slot] = torch.where(
+                take, (c0 + i).to(torch.int32), out_index[rows, slot])
+            n_kept += take.to(torch.int64)
+    return out_boxes, out_scores, out_valid, out_index
 
 
 def _rows(rng, b, k, case, n_dup=0):
@@ -96,7 +161,7 @@ def test_chunked_walk_equals_plain_steps(rng, chunk, case):
     ``n_post``, the later ones clear their rows against its boxes), and on
     -0.0/+0.0 ties."""
     boxes, scores, n_post = _case(rng, chunk, case)
-    got = tp.greedy_nms_chunked_reference(T(boxes), T(scores), n_post=n_post,
+    got = greedy_nms_chunked_reference(T(boxes), T(scores), n_post=n_post,
                                           iou_threshold=THR, chunk=chunk)
     want = tp.greedy_nms_rows_reference(T(boxes), T(scores), n_post=n_post,
                                         iou_threshold=THR)
@@ -125,7 +190,7 @@ def test_chunked_walk_equals_interpreted_pallas_kernel(rng, chunk, case):
     jb, js, jv = _truncated_nms_call(jnp.asarray(boxes), jnp.asarray(scores),
                                      nms_iou=THR, n_post_nms=n_post,
                                      interpret=True)
-    tb, ts, tv, _ = tp.greedy_nms_chunked_reference(
+    tb, ts, tv, _ = greedy_nms_chunked_reference(
         T(boxes), T(scores), n_post=n_post, iou_threshold=THR, chunk=chunk)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
@@ -159,7 +224,7 @@ def test_chunked_walk_index_equals_plain_steps(rng, chunk, case):
     table's first row across chunks, equals the one-pass steps' index, 0 in
     the slots not kept; the index gathers the kept boxes."""
     boxes, scores, n_post = _case(rng, chunk, case)
-    got = tp.greedy_nms_chunked_reference(T(boxes), T(scores), n_post=n_post,
+    got = greedy_nms_chunked_reference(T(boxes), T(scores), n_post=n_post,
                                           iou_threshold=THR, chunk=chunk)
     want = tp.greedy_nms_rows_reference(T(boxes), T(scores), n_post=n_post,
                                         iou_threshold=THR)
@@ -187,12 +252,12 @@ def test_chunked_walk_index_equals_plain_steps(rng, chunk, case):
 def test_class_offset_nms_plain_route_equals_nms_loop(rng, case, b, r, n_class,
                                                       thr, n_post):
     """The post-process's class-offset NMS on its plain route (kernel 1's
-    plain version with the index) keeps the same candidates as
-    ``ops/nms.py:nms`` over the offset boxes, index for index and mask for
-    mask: on tied scores, one box under two classes (which the offset keeps
-    apart), rows under the score threshold, an image with no valid
-    candidate, fewer survivors than ``n_post``, and a crowd in which the
-    threshold suppresses most rows."""
+    plain version with the index) keeps the same candidates as the JAX
+    package's ``ops/nms.py:nms`` over the offset boxes, image by image,
+    index for index and mask for mask: on tied scores, one box under two
+    classes (which the offset keeps apart), rows under the score
+    threshold, an image with no valid candidate, fewer survivors than
+    ``n_post``, and a crowd in which the threshold suppresses most rows."""
     cand_boxes, cand_scores, cand_labels = offset_candidates(
         rng, b, r, n_class, case, size=64)
     img_size = (64, 64)
@@ -200,11 +265,14 @@ def test_class_offset_nms_plain_route_equals_nms_loop(rng, case, b, r, n_class,
                                  img_size, iou_threshold=thr,
                                  max_detections=n_post, use_kernel=False)
     offset = cand_labels.to(torch.float32) * (64.0 + 2.0)
-    want_idx, want_keep = nms(cand_boxes + offset[..., None], cand_scores,
-                              thr, n_post, valid=cand_scores > 0)
-    assert idx.dtype == want_idx.dtype == torch.int64
-    assert torch.equal(keep, want_keep)
-    assert torch.equal(idx, want_idx)
+    boxes = (cand_boxes + offset[..., None]).numpy()
+    assert idx.dtype == torch.int64
+    for i in range(b):
+        want_idx, want_keep = j_nms(
+            jnp.asarray(boxes[i]), jnp.asarray(cand_scores[i].numpy()), thr,
+            n_post, valid=jnp.asarray((cand_scores[i] > 0).numpy()))
+        np.testing.assert_array_equal(keep[i].numpy(), np.asarray(want_keep))
+        np.testing.assert_array_equal(idx[i].numpy(), np.asarray(want_idx))
 
     n_valid = (cand_scores > 0).sum(1)
     kept = keep.sum(1)

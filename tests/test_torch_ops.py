@@ -35,6 +35,7 @@ from two_stage_object_detection_tpu_torch.ops.proposals import (
     greedy_nms, greedy_nms_rows_reference, proposals_batched)
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     windowed_roi_align_batched)
+from two_stage_object_detection_tpu_torch.utils.profiling import counters
 
 # the JAX package's ops/__init__ re-exports functions named like modules
 ja = importlib.import_module("two_stage_object_detection_tpu.ops.anchors")
@@ -170,13 +171,13 @@ def test_greedy_nms_rows_matches_pallas_kernel(rng):
 def test_greedy_nms_wrapper_uses_plain_version_on_cpu(rng):
     """On CPU tensors the wrapper runs the plain version, launches nothing."""
     boxes, scores = _sorted_nms_inputs(rng, b=1, k=64)
-    before = greedy_nms.launches
+    before = counters["launch.greedy_nms"]
     got = greedy_nms(T(boxes), T(scores), n_post=8, iou_threshold=0.7)
     want = greedy_nms_rows_reference(T(boxes), T(scores), n_post=8,
                                      iou_threshold=0.7)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert greedy_nms.launches == before
+    assert counters["launch.greedy_nms"] == before
 
 
 @pytest.mark.parametrize("n_pre", [64, 400])

@@ -6,10 +6,11 @@ launch A (``csrc/proposals.cu``) decodes and masks every anchor and sorts
 each image's rows by a unique 64-bit key (score descending, -0.0 taken as
 +0.0, then the row index ascending), and launch B is kernel 1's greedy walk
 (``csrc/nms.cu``) over the sorted rows.  Here the plain versions of those
-two launches (``order_keys``, ``sorted_rows_reference``,
-``fused_proposals_sorted_reference``) are held, bit for bit, against kernel
-3's plain version (``fused_proposals_rows_reference``: argmax steps with no
-sort) and against the JAX package's ``_batched_kernel`` run interpreted.
+two launches (``order_keys``, ``sorted_rows_reference``, composed in
+:func:`fused_proposals_sorted_reference`) are held, bit for bit, against
+kernel 3's plain version (``fused_proposals_rows_reference``: argmax steps
+with no sort) and against the JAX package's ``_batched_kernel`` run
+interpreted.
 Then the Python that plans the launches: kernel 1's cluster bounds (a block
 holds at most 219 tiles of 64 rows in shared memory) and kernel 5's map
 slices (``roi_pool_plan``).  The kernels themselves run only on the card
@@ -41,6 +42,22 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def fused_proposals_sorted_reference(rpn_locs: torch.Tensor,
+                                     rpn_fg_scores: torch.Tensor,
+                                     anchors: torch.Tensor, img_size, *,
+                                     nms_iou: float, n_post_nms: int,
+                                     min_size: float):
+    """Kernel 3's two launches in plain PyTorch: decode and mask, sort by
+    ``order_keys`` (launch A), then kernel 1's steps over the sorted rows
+    (launch B).  Equals ``fused_proposals_rows_reference`` bit for bit;
+    shapes as there."""
+    roi, masked = tp._decode_masked(rpn_locs, rpn_fg_scores, anchors,
+                                    img_size, min_size)
+    boxes, scores = tp.sorted_rows_reference(roi, masked)
+    return tp.greedy_nms_rows_reference(boxes, scores, n_post=n_post_nms,
+                                        iou_threshold=nms_iou)[:3]
 
 
 def _inputs(rng, b, n, scores="ties"):
@@ -85,7 +102,7 @@ def test_sorted_walk_equals_plain_argmax_steps(rng, n, n_post, scores):
     locs, fg, anchors = _inputs(rng, 2, n, scores)
     kw = dict(KW, n_post_nms=n_post)
     want = tp.fused_proposals_rows_reference(locs, fg, anchors, IMG, **kw)
-    got = tp.fused_proposals_sorted_reference(locs, fg, anchors, IMG, **kw)
+    got = fused_proposals_sorted_reference(locs, fg, anchors, IMG, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
         assert torch.equal(torch.signbit(g), torch.signbit(w))
@@ -114,7 +131,7 @@ def test_sorted_walk_equals_interpreted_batched_kernel(rng, n, n_post):
     want = j_fused_batched(jnp.asarray(locs.numpy()), jnp.asarray(fg.numpy()),
                            jnp.asarray(anchors.numpy()), IMG, interpret=True,
                            **kw)
-    got = tp.fused_proposals_sorted_reference(locs, fg, anchors, IMG, **kw)
+    got = fused_proposals_sorted_reference(locs, fg, anchors, IMG, **kw)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert got[2].sum(1).min() > 0

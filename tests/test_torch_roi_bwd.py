@@ -37,6 +37,7 @@ from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
     roi_pool_bwd_scatter, roi_pool_max)
 from two_stage_object_detection_tpu_torch.ops.windowed_align import (
     multilevel_roi_align_hybrid_batched, windowed_roi_align_batched)
+from two_stage_object_detection_tpu_torch.utils.profiling import counters
 
 # the JAX ops package re-exports a function under its module's name
 jroi = importlib.import_module("two_stage_object_detection_tpu.ops.roi_pool")
@@ -134,10 +135,10 @@ def test_roi_pool_fast_and_kernel6_wrapper_on_cpu(rng):
     plain version on CPU tensors and counts no launch; the result keeps the
     map's dtype (bf16 maps: f32 accumulation, one rounding)."""
     feats, rois, g = _inputs(rng, "ties")
-    before = roi_pool_bwd_recompute.launches
+    before = counters["launch.roi_pool_bwd_recompute"]
     got = roi_pool_bwd_recompute(T(feats), T(rois), T(g), P, SCALE)
     want = troi.roi_pool_grad_first_argmax(T(feats), T(rois), T(g), P, SCALE)
-    assert roi_pool_bwd_recompute.launches == before
+    assert counters["launch.roi_pool_bwd_recompute"] == before
     assert torch.equal(got, want)
     f = T(feats).requires_grad_(True)
     (roi_pool_fast(f, T(rois), P, SCALE) * T(g)).sum().backward()
@@ -164,9 +165,9 @@ def test_roi_pool_max_backward_matches_jax_pallas(rng, data):
     (pooled * T(g)).sum().backward()
     np.testing.assert_allclose(f.grad.numpy(), want, rtol=0, atol=1e-5)
     # the scatter wrapper on the CPU is its plain version
-    before = roi_pool_bwd_scatter.launches
+    before = counters["launch.roi_pool_bwd_scatter"]
     again = roi_pool_bwd_scatter(argmax, T(g), *feats.shape[1:3])
-    assert roi_pool_bwd_scatter.launches == before
+    assert counters["launch.roi_pool_bwd_scatter"] == before
     np.testing.assert_allclose(again.numpy(), want, rtol=0, atol=1e-5)
     assert (argmax < 0).any()
 

@@ -22,6 +22,7 @@ from two_stage_object_detection_tpu_torch.ops import proposals as tp
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
     roi_pool, roi_pool_argmax)
 from two_stage_object_detection_tpu_torch.ops.roi_pool_max import roi_pool_max
+from two_stage_object_detection_tpu_torch.utils.profiling import counters
 
 T = torch.from_numpy
 IMG = (128, 160)          # (H, W)
@@ -77,9 +78,9 @@ def test_fused_proposals_plain_matches_pallas_batched(rng):
     _assert_proposals_equal(got, want)
     assert got[2].numpy().sum(1).min() > 0
     # the wrapper runs the plain version on CPU tensors and launches nothing
-    before = tp.fused_proposals_batched.launches
+    before = counters["launch.fused_proposals_batched"]
     again = tp.fused_proposals_batched(T(locs), T(fg), T(anchors), IMG, **kw)
-    assert tp.fused_proposals_batched.launches == before
+    assert counters["launch.fused_proposals_batched"] == before
     for a, b in zip(again, got):
         assert torch.equal(a, b)
 
@@ -90,9 +91,9 @@ def test_fused_proposals_one_image_matches_pallas_fused(rng):
     kw = dict(nms_iou=0.7, n_post_nms=32, min_size=8.0)
     want = j_fused(jnp.asarray(locs[0]), jnp.asarray(fg[0]),
                    jnp.asarray(anchors), IMG, interpret=True, **kw)
-    before = tp.fused_proposals.launches
+    before = counters["launch.fused_proposals"]
     got = tp.fused_proposals(T(locs[0]), T(fg[0]), T(anchors), IMG, **kw)
-    assert tp.fused_proposals.launches == before
+    assert counters["launch.fused_proposals"] == before
     assert got[0].shape == (32, 4) and got[2].shape == (32,)
     _assert_proposals_equal(got, want)
 
@@ -171,9 +172,9 @@ def test_roi_pool_matches_jax_roi_pool(rng):
 
 def test_roi_pool_max_wrapper_uses_plain_version_on_cpu(rng):
     feats, rois = _pool_inputs(rng, b=1, r=4)
-    before = roi_pool_max.launches
+    before = counters["launch.roi_pool_max"]
     got = roi_pool_max(T(feats), T(rois), 7, 1.0 / 16)
     want = roi_pool_argmax(T(feats), T(rois), 7, 1.0 / 16)
-    assert roi_pool_max.launches == before
+    assert counters["launch.roi_pool_max"] == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)

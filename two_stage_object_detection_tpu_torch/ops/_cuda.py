@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface, bound with ``ctypes``.  The build runs at first use, all
@@ -7,12 +7,20 @@ sources at once (one ``nvcc`` process each), into
 rebuilds and an unchanged one loads from disk.  A missing ``nvcc`` or a
 failed build raises: there is no fallback to the plain versions.
 
+This is the op modules' one seam to the kernels: :data:`ENTRIES` holds the
+C signature of every entry point, :func:`entry` looks one up, and
+:func:`launch` calls a launch function on a device's current stream,
+checks its status and counts the call in ``utils.profiling.counters``.
+The kernels' ABI rules that more than one kernel follows live here too
+(:data:`DTYPES`, :func:`align_vector_width`).
+
 Nothing here runs at import time; the CPU tests import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,6 +31,8 @@ from pathlib import Path
 
 import torch
 
+from two_stage_object_detection_tpu_torch.utils.profiling import counters
+
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("nms", "windowed_align", "proposals", "roi_pool", "roi_pool_bwd",
@@ -32,6 +42,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict = {}
+
+#: every entry point of ``csrc/*.cu``: its source and its C argument types,
+#: a letter each (``p`` a pointer, ``i`` int, ``l`` long long, ``f``
+#: float), all returning an int.  A launch function's last argument is the
+#: stream it launches on; it returns ``cudaGetLastError()``.
+ENTRIES = {
+    "nms_launch": ("nms", "ppiiiifippppipp"),
+    "nms_pick_cluster": ("nms", "iiii"),
+    "proposals_sort_launch": ("proposals", "pppiifffpppp"),
+    "windowed_align_launch": ("windowed_align", "pppipppiiiiiiiiip"),
+    "roi_pool_launch": ("roi_pool", "ppppiiiiiifiiiiip"),
+    "roi_pool_bwd_recompute_launch": ("roi_pool_bwd", "ppppiiiiiifiiiiip"),
+    "roi_pool_bwd_scatter_launch": ("roi_pool_bwd", "pppiiiiiip"),
+    "conv_epilogue_launch": ("conv_epilogue", "ppppliiiip"),
+}
+_C_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+            "l": ctypes.c_longlong, "f": ctypes.c_float}
+
+#: the kernels' code of a map's float format (their ``dtype`` argument)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _nvcc() -> str:
@@ -95,14 +125,59 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def bind(lib: ctypes.CDLL, name: str):
+    """``lib``'s entry point ``name`` with the argument types of
+    :data:`ENTRIES` (``lib`` may be another build of its source)."""
+    fn = getattr(lib, name)
+    fn.argtypes = [_C_TYPES[a] for a in ENTRIES[name][1]]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def entry(name: str):
+    """The entry point ``name`` of :data:`ENTRIES`, bound once."""
+    return bind(library(ENTRIES[name][0]), name)
+
+
+def launch(name: str, device: torch.device, *args,
+           count: str | None = None) -> None:
+    """Call the launch function ``name`` with ``args`` and ``device``'s
+    current stream, with ``device`` current; raise on the status it
+    returns, and count the call in ``counters[count]`` where one is
+    named."""
+    fn = entry(name)
+    with torch.cuda.device(device):
+        status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(status, name)
+    if count is not None:
+        counters[count] += 1
+
+
+def dtype_code(dtype: torch.dtype, kernel: str) -> int:
+    """:data:`DTYPES`' code of ``dtype``; raises for a format the kernels
+    do not take."""
+    if dtype not in DTYPES:
+        raise ValueError(f"{kernel} kernel takes f32 or bf16, got {dtype}")
+    return DTYPES[dtype]
+
+
+def align_vector_width(c: int, dtype: torch.dtype) -> int:
+    """Channels kernels 2 and E load at once: the widest vector of 16, 8, 4
+    or 2 bytes (one element at least) that divides a pixel's ``c``
+    channels, so every pixel of a 16-byte aligned ``[..., c]`` map starts on
+    a vector and no channel is left over (bf16: 8 for C=256, 4 for C=260;
+    f32: 4 for C=256, 2 for C=30)."""
+    dtype_code(dtype, "windowed_align")
+    size = dtype.itemsize
+    return next(n // size for n in (16, 8, 4, 2)
+                if n >= size and (c * size) % n == 0)
+
+
 def check(status: int, what: str) -> None:
     """Raise on the ``cudaGetLastError()`` code a launch function returned."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
-
-
-def stream_handle(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:

@@ -14,18 +14,13 @@ route (``models/layers.py:fold_route`` says why).
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional
 
 import torch
 
 from two_stage_object_detection_tpu_torch.ops import _cuda
-from two_stage_object_detection_tpu_torch.ops.windowed_align import (
-    align_vector_width)
 
 ACTS = {"none": 0, "relu6": 1, "prelu": 2}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def conv_epilogue_reference(y: torch.Tensor, bias: torch.Tensor,
@@ -60,7 +55,7 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor,
     is channels-last in memory (a conv's output on the card is: the port's
     weights are), and returns ``y``; on the CPU it returns the plain
     version's new tensor.  Each launch is counted in
-    ``conv_epilogue.launches``."""
+    ``launch.conv_epilogue``."""
     if not y.is_cuda:
         return conv_epilogue_reference(y, bias, residual, act, slope)
     cl = torch.channels_last
@@ -71,14 +66,10 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor,
     return y
 
 
-conv_epilogue.launches = 0
-
-
 def _launch(y, bias, residual, act, slope):
     n, c, h, w = y.shape
     dt = y.dtype
-    if dt not in _DTYPES:
-        raise ValueError(f"conv_epilogue takes f32 or bf16, got {dt}")
+    code = _cuda.dtype_code(dt, "conv_epilogue")
     # the channels-last tensors as the [N, H, W, C] arrays the kernel reads
     _cuda.require(y.permute(0, 2, 3, 1), "y", dt)
     if residual is not None:
@@ -89,22 +80,9 @@ def _launch(y, bias, residual, act, slope):
         _cuda.require(slope, "slope", torch.float32, (1,))
     elif act not in ACTS.values():
         raise ValueError(f"unknown activation code {act}")
-    fn = _epilogue_fn()
-    with torch.cuda.device(y.device):
-        status = fn(y.data_ptr(),
-                    None if residual is None else residual.data_ptr(),
-                    bias.data_ptr(),
-                    slope.data_ptr() if act == ACTS["prelu"] else None,
-                    y.numel(), c, act, _DTYPES[dt], align_vector_width(c, dt),
-                    _cuda.stream_handle(y))
-    _cuda.check(status, "conv_epilogue_launch")
-    conv_epilogue.launches += 1
-
-
-@functools.cache
-def _epilogue_fn():
-    fn = _cuda.library("conv_epilogue").conv_epilogue_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    _cuda.launch("conv_epilogue_launch", y.device, y.data_ptr(),
+                 None if residual is None else residual.data_ptr(),
+                 bias.data_ptr(),
+                 slope.data_ptr() if act == ACTS["prelu"] else None,
+                 y.numel(), c, act, code, _cuda.align_vector_width(c, dt),
+                 count="launch.conv_epilogue")

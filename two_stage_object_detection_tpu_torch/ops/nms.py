@@ -1,9 +1,10 @@
 """Static-shape greedy non-maximum suppression on torch tensors.
 
 The counterpart of the JAX package's ``ops/nms.py`` select-and-suppress
-``nms`` / ``nms_padded``, batched: every step handles all images at once,
-so the only Python loop is over the ``max_output`` sequential steps that
-greedy NMS needs.  Semantics kept exactly:
+``nms`` / ``nms_padded``, batched.  :func:`nms` sorts and hands the
+selection to kernel 1 (:func:`~..ops.proposals.greedy_nms`: the
+hand-written kernel on a CUDA float32 tensor, its plain version
+elsewhere), whose steps keep the JAX semantics exactly:
 
 * candidates are visited in stable descending score order (ties go to the
   lower index, as ``lax.top_k`` and a stable ``argsort`` send them);
@@ -20,8 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from two_stage_object_detection_tpu_torch.ops.geometry import (
-    bbox_iou, device_constant)
+from two_stage_object_detection_tpu_torch.ops.geometry import bbox_iou
 
 NEG_INF = -1e9
 
@@ -36,18 +36,6 @@ def topk_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _iou_one_to_many(box: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-    """IoU of ``box [B, 4]`` against ``boxes [B, N, 4]`` -> ``[B, N]``."""
-    box = box[:, None, :]
-    tl = torch.maximum(box[..., :2], boxes[..., :2])
-    br = torch.minimum(box[..., 2:], boxes[..., 2:])
-    wh = torch.clamp(br - tl, min=0.0)
-    inter = wh[..., 0] * wh[..., 1]
-    area = (box[..., 2] - box[..., 0]) * (box[..., 3] - box[..., 1])
-    areas = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
-    return inter / (area + areas - inter + 1e-8)
-
-
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         max_output: int, valid: torch.Tensor | None = None):
     """Greedy NMS returning indices into the input, score-descending.
@@ -57,33 +45,25 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
       scores: ``[B, N]``.
       iou_threshold: strict-greater suppression threshold.
       max_output: output length.
-      valid: optional ``[B, N]`` bool mask of real (non-padding) inputs.
+      valid: optional ``[B, N]`` bool mask of real (non-padding) inputs;
+        the rest score ``NEG_INF`` and are never kept.
 
     Returns:
       ``(indices, keep_valid)``: ``[B, max_output]`` int64 indices (0 for
       padding slots) and the ``[B, max_output]`` bool mask of real slots.
     """
+    # kernel 1's module imports this one; looked up at call time
+    from two_stage_object_detection_tpu_torch.ops import proposals
     b, n, _ = boxes.shape
-    if valid is None:
-        valid = torch.ones((b, n), dtype=torch.bool, device=boxes.device)
-    scores = torch.where(valid, scores, NEG_INF)
+    if valid is not None:
+        scores = torch.where(valid, scores, NEG_INF)
     order = torch.sort(-scores, dim=1, stable=True).indices
-    alive = torch.gather(valid, 1, order)
-    boxes_sorted = (torch.gather(boxes, 1, order[..., None].expand(b, n, 4))
-                    * alive[..., None].to(boxes.dtype))
-    thr = device_constant([iou_threshold], boxes.dtype, boxes.device)[0]
-    rows = torch.arange(b, device=boxes.device)
-
-    out_pos = torch.zeros((b, max_output), dtype=torch.int64, device=boxes.device)
-    out_ok = torch.zeros((b, max_output), dtype=torch.bool, device=boxes.device)
-    for k in range(max_output):
-        i = torch.argmax(alive.to(torch.uint8), dim=1)   # first alive = best
-        out_ok[:, k] = alive[rows, i]
-        out_pos[:, k] = i
-        suppress = _iou_one_to_many(boxes_sorted[rows, i], boxes_sorted) > thr
-        alive = alive & ~suppress
-        alive[rows, i] = False
-    return torch.where(out_ok, torch.gather(order, 1, out_pos), 0), out_ok
+    _, _, keep, index = proposals.greedy_nms(
+        torch.gather(boxes, 1, order[..., None].expand(b, n, 4)),
+        torch.gather(scores, 1, order), n_post=max_output,
+        iou_threshold=iou_threshold,
+        use_kernel=boxes.dtype == scores.dtype == torch.float32)
+    return torch.where(keep, torch.gather(order, 1, index.long()), 0), keep
 
 
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,

@@ -17,7 +17,7 @@ two routes (:func:`proposals_batched` picks one as
   anchors and sorts each image's rows by a unique 64-bit key (score
   descending, index ascending: :func:`order_keys`), in shared memory and
   with no library sort; launch B is kernel 1's walk over the sorted rows
-  with ``K = N`` (:func:`_nms_walk`, which ``greedy_nms.launches`` does not
+  with ``K = N`` (:func:`_nms_walk`, which ``launch.greedy_nms`` does not
   count).  Taking "the best alive score, lowest index on ties" at each
   step, as the JAX kernel does, is walking the rows in that order.  Its
   per-image form, kernel 4 (:func:`fused_proposals`), is the same launches
@@ -33,7 +33,9 @@ On the card both go through ``torch.library`` custom ops,
 ``tsod::greedy_nms`` (:func:`greedy_nms_op`) and ``tsod::fused_proposals``
 (:func:`fused_proposals_op`), whose fake implementations give the output
 shapes: ``torch.export`` keeps the launches in its graph instead of tracing
-into ``ctypes``.  The real implementations launch and count.
+into ``ctypes``.  The real implementations launch and count each call in
+``utils.profiling.counters`` (``launch.greedy_nms``,
+``launch.fused_proposals_batched``; kernel 4's ``launch.fused_proposals``).
 
 Both kernels take any number of rows an image.  Kernel 1's walk holds up to
 ``MAX_KERNEL_ROWS`` (112,128) rows a launch in shared memory; above that it
@@ -43,7 +45,6 @@ launch first clearing its rows against the boxes earlier chunks kept.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -113,70 +114,6 @@ def greedy_nms_rows_reference(boxes: torch.Tensor, scores: torch.Tensor, *,
     return out_boxes, out_scores, out_valid, out_index
 
 
-def greedy_nms_chunked_reference(boxes: torch.Tensor, scores: torch.Tensor,
-                                 *, n_post: int, iou_threshold: float,
-                                 chunk: int):
-    """Kernel 1's chunked walk in plain PyTorch, with the chunk size as a
-    parameter; the tests hold it against :func:`greedy_nms_rows_reference`.
-
-    The sorted rows go ``chunk`` at a time.  Each chunk's rows are first
-    cleared against every box earlier chunks kept (their IoU taken with the
-    kept box as the selected one, as a step takes it), then walked with
-    :func:`greedy_nms_rows_reference`'s steps into the slots still free.
-    A row is kept exactly when no earlier kept row overlaps it by more than
-    the threshold, so the result is the same bit for bit.  Shapes as there,
-    each kept row's index counted from the table's first row.
-    """
-    b, k, _ = boxes.shape
-    dev = boxes.device
-    rows = torch.arange(b, device=dev)
-    thr = torch.tensor(iou_threshold, dtype=torch.float32, device=dev)
-    out_boxes = torch.zeros((b, n_post, 4), dtype=boxes.dtype, device=dev)
-    out_scores = torch.zeros((b, n_post), dtype=scores.dtype, device=dev)
-    out_valid = torch.zeros((b, n_post), dtype=torch.bool, device=dev)
-    out_index = torch.zeros((b, n_post), dtype=torch.int32, device=dev)
-    n_kept = torch.zeros(b, dtype=torch.int64, device=dev)
-
-    def iou_above(sel, x1, y1, x2, y2, area):
-        ix1 = torch.maximum(x1, sel[:, 0:1])
-        iy1 = torch.maximum(y1, sel[:, 1:2])
-        ix2 = torch.minimum(x2, sel[:, 2:3])
-        iy2 = torch.minimum(y2, sel[:, 3:4])
-        inter = (torch.clamp(ix2 - ix1, min=0.0)
-                 * torch.clamp(iy2 - iy1, min=0.0))
-        sel_area = (sel[:, 2] - sel[:, 0]) * (sel[:, 3] - sel[:, 1])
-        return inter / (area + sel_area[:, None] - inter + 1e-8) > thr
-
-    for c0 in range(0, k, chunk):
-        cb = boxes[:, c0:c0 + chunk]
-        x1, y1, x2, y2 = cb.unbind(-1)
-        area = (x2 - x1) * (y2 - y1)
-        s_alive = scores[:, c0:c0 + chunk].clone()
-        for m in range(int(n_kept.max())):
-            sup = iou_above(out_boxes[:, m], x1, y1, x2, y2, area)
-            s_alive = torch.where(sup & (n_kept > m)[:, None], NEG_INF, s_alive)
-        while bool((n_kept < n_post).any()):
-            i = torch.argmax(s_alive, dim=1)
-            sc = s_alive[rows, i]
-            take = (sc > NEG_INF / 2) & (n_kept < n_post)
-            if not bool(take.any()):
-                break
-            sel = cb[rows, i]
-            sup = iou_above(sel, x1, y1, x2, y2, area)
-            sup[rows, i] = True
-            s_alive = torch.where(sup & take[:, None], NEG_INF, s_alive)
-            slot = n_kept.clamp(max=n_post - 1)
-            t = take[:, None]
-            out_boxes[rows, slot] = torch.where(t, sel, out_boxes[rows, slot])
-            out_scores[rows, slot] = torch.where(take, sc,
-                                                 out_scores[rows, slot])
-            out_valid[rows, slot] |= take
-            out_index[rows, slot] = torch.where(
-                take, (c0 + i).to(torch.int32), out_index[rows, slot])
-            n_kept += take.to(torch.int64)
-    return out_boxes, out_scores, out_valid, out_index
-
-
 def nms_chunks(k: int) -> list[tuple[int, int]]:
     """Kernel 1's launches over ``k`` sorted rows an image, as ``(first
     row, rows)``: one launch up to ``MAX_KERNEL_ROWS`` rows, else the fewest
@@ -227,9 +164,6 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, *, n_post: int,
     return greedy_nms_op(boxes, scores, n_post, float(iou_threshold))
 
 
-greedy_nms.launches = 0
-
-
 @torch.library.custom_op("tsod::greedy_nms", mutates_args=(),
                          device_types="cuda")
 def greedy_nms_op(boxes: torch.Tensor, scores: torch.Tensor, n_post: int,
@@ -237,15 +171,14 @@ def greedy_nms_op(boxes: torch.Tensor, scores: torch.Tensor, n_post: int,
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """Kernel 1 as a custom op, so that ``torch.export`` keeps the launch
-    in its graph; counted in ``greedy_nms.launches``.  Arguments and
+    in its graph; counted in ``launch.greedy_nms``.  Arguments and
     outputs as :func:`greedy_nms_rows_reference`."""
     b, k, _ = boxes.shape
     boxes, scores = boxes.contiguous(), scores.contiguous()
     _cuda.require(boxes, "boxes", torch.float32, (b, k, 4))
     _cuda.require(scores, "scores", torch.float32, (b, k))
-    out = _nms_walk(boxes, scores, n_post, iou_threshold)
-    greedy_nms.launches += 1
-    return out
+    return _nms_walk(boxes, scores, n_post, iou_threshold,
+                     count="launch.greedy_nms")
 
 
 @greedy_nms_op.register_fake
@@ -262,12 +195,12 @@ def _nms_outputs(like: torch.Tensor, n_post: int):
             like.new_empty((b, n_post), dtype=torch.bool))
 
 
-def _nms_walk(boxes, scores, n_post, iou_threshold):
+def _nms_walk(boxes, scores, n_post, iou_threshold, count=None):
     """Launch kernel 1 (``csrc/nms.cu``) on checked ``[B, K]`` rows, once a
-    chunk of :func:`nms_chunks`, counted by no wrapper: :func:`greedy_nms`
-    and kernel 3 count their own calls.  Between chunks the count each image
-    kept stays on the device.  Returns boxes, scores, valid and the index
-    of each kept row."""
+    chunk of :func:`nms_chunks`, the first launch counted in ``count``
+    (:func:`greedy_nms` counts its calls, kernel 3 its own).  Between
+    chunks the count each image kept stays on the device.  Returns boxes,
+    scores, valid and the index of each kept row."""
     b, k, _ = boxes.shape
     dev = boxes.device
     chunks = nms_chunks(k)
@@ -277,17 +210,14 @@ def _nms_walk(boxes, scores, n_post, iou_threshold):
     out_index = torch.empty((b, n_post), dtype=torch.int32, device=dev)
     kept = (torch.zeros((b,), dtype=torch.int32, device=dev)
             if len(chunks) > 1 else None)
-    fn = _nms_fn()
-    with torch.cuda.device(dev):
-        for c0, rows in chunks:
-            status = fn(boxes.data_ptr() + c0 * 16, scores.data_ptr() + c0 * 4,
-                        b, rows, k, n_post, iou_threshold,
-                        _nms_cluster(dev.index, b, rows), out_boxes.data_ptr(),
-                        out_scores.data_ptr(), out_valid.data_ptr(),
-                        out_index.data_ptr(), c0,
-                        None if kept is None else kept.data_ptr(),
-                        _cuda.stream_handle(boxes))
-            _cuda.check(status, "nms_launch")
+    for c0, rows in chunks:
+        _cuda.launch("nms_launch", dev, boxes.data_ptr() + c0 * 16,
+                     scores.data_ptr() + c0 * 4, b, rows, k, n_post,
+                     iou_threshold, _nms_cluster(dev.index, b, rows),
+                     out_boxes.data_ptr(), out_scores.data_ptr(),
+                     out_valid.data_ptr(), out_index.data_ptr(), c0,
+                     None if kept is None else kept.data_ptr(),
+                     count=None if c0 else count)
     return out_boxes, out_scores, out_valid, out_index
 
 
@@ -295,21 +225,9 @@ def _nms_walk(boxes, scores, n_post, iou_threshold):
 def _nms_cluster(device_index: int, b: int, k: int) -> int:
     """Blocks per image that let all ``b`` images run at once on this card,
     within :func:`nms_cluster_bounds` (``csrc/nms.cu:nms_pick_cluster``)."""
-    fn = _cuda.library("nms").nms_pick_cluster
-    fn.argtypes = [ctypes.c_int] * 4
-    fn.restype = ctypes.c_int
     least, most = nms_cluster_bounds(k)
     with torch.cuda.device(device_index):
-        return fn(b, k, most, least)
-
-
-def _nms_fn():
-    fn = _cuda.library("nms").nms_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    return fn
+        return _cuda.entry("nms_pick_cluster")(b, k, most, least)
 
 
 def _decode_masked(rpn_locs, rpn_fg_scores, anchors, img_size, min_size):
@@ -365,22 +283,6 @@ def sorted_rows_reference(boxes: torch.Tensor, scores: torch.Tensor):
             torch.gather(scores, 1, idx))
 
 
-def fused_proposals_sorted_reference(rpn_locs: torch.Tensor,
-                                     rpn_fg_scores: torch.Tensor,
-                                     anchors: torch.Tensor, img_size, *,
-                                     nms_iou: float, n_post_nms: int,
-                                     min_size: float):
-    """Kernel 3's two launches in plain PyTorch: decode and mask, sort by
-    :func:`order_keys` (launch A), then kernel 1's steps over the sorted
-    rows (launch B).  Equals :func:`fused_proposals_rows_reference` bit for
-    bit; shapes as there."""
-    roi, masked = _decode_masked(rpn_locs, rpn_fg_scores, anchors, img_size,
-                                 min_size)
-    boxes, scores = sorted_rows_reference(roi, masked)
-    return greedy_nms_rows_reference(boxes, scores, n_post=n_post_nms,
-                                     iou_threshold=nms_iou)[:3]
-
-
 def fused_proposals_batched(rpn_locs: torch.Tensor,
                             rpn_fg_scores: torch.Tensor, anchors: torch.Tensor,
                             img_size, *, nms_iou: float, n_post_nms: int,
@@ -404,9 +306,6 @@ def fused_proposals_batched(rpn_locs: torch.Tensor,
                               float(min_size))
 
 
-fused_proposals_batched.launches = 0
-
-
 @torch.library.custom_op("tsod::fused_proposals", mutates_args=(),
                          device_types="cuda")
 def fused_proposals_op(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,
@@ -414,12 +313,11 @@ def fused_proposals_op(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,
                        nms_iou: float, n_post_nms: int, min_size: float
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel 3 (launch A, then kernel 1's walk) as a custom op, counted in
-    ``fused_proposals_batched.launches``.  Arguments and outputs as
+    ``launch.fused_proposals_batched``.  Arguments and outputs as
     :func:`fused_proposals_rows_reference`, the image size as two floats."""
-    out = _fused_launch(rpn_locs, rpn_fg_scores, anchors, (img_h, img_w),
-                        nms_iou, n_post_nms, min_size)
-    fused_proposals_batched.launches += 1
-    return out
+    return _fused_launch(rpn_locs, rpn_fg_scores, anchors, (img_h, img_w),
+                         nms_iou, n_post_nms, min_size,
+                         "launch.fused_proposals_batched")
 
 
 @fused_proposals_op.register_fake
@@ -432,7 +330,7 @@ def fused_proposals(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,
                     anchors: torch.Tensor, img_size, *, nms_iou: float,
                     n_post_nms: int, min_size: float, use_kernel: bool = True):
     """Kernel 4: :func:`fused_proposals_batched` for one image, the same
-    launches with ``B = 1``.
+    launches with ``B = 1``, counted in ``launch.fused_proposals``.
 
     ``rpn_locs [N, 4]``, ``rpn_fg_scores [N]``, ``anchors [N, 4]`` ->
     ``(rois [n_post, 4], scores [n_post], valid [n_post])``.
@@ -444,19 +342,15 @@ def fused_proposals(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,
             n_post_nms=n_post_nms, min_size=min_size)
     else:
         out = _fused_launch(locs, fg, anchors, img_size, nms_iou, n_post_nms,
-                            min_size)
-        fused_proposals.launches += 1
+                            min_size, "launch.fused_proposals")
     return tuple(t[0] for t in out)
 
 
-fused_proposals.launches = 0
-
-
 def _fused_launch(rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou,
-                  n_post, min_size):
-    """Launch A (decode, mask, sort; ``csrc/proposals.cu``) and launch B
-    (kernel 1's walk, ``csrc/nms.cu``, in chunks above ``MAX_KERNEL_ROWS``)
-    over ``[B, N]`` anchors."""
+                  n_post, min_size, count):
+    """Launch A (decode, mask, sort; ``csrc/proposals.cu``), counted in
+    ``count``, and launch B (kernel 1's walk, ``csrc/nms.cu``, in chunks
+    above ``MAX_KERNEL_ROWS``) over ``[B, N]`` anchors."""
     b, n, _ = rpn_locs.shape
     if n < 1:
         raise ValueError(f"the fused proposal kernel takes at least 1 anchor "
@@ -471,23 +365,13 @@ def _fused_launch(rpn_locs, rpn_fg_scores, anchors, img_size, nms_iou,
     keys = torch.empty((b, n), dtype=torch.int64, device=dev)
     sorted_boxes = torch.empty((b, n, 4), dtype=torch.float32, device=dev)
     sorted_scores = torch.empty((b, n), dtype=torch.float32, device=dev)
-    fn = _sort_fn()
     img_h, img_w = img_size
-    with torch.cuda.device(dev):
-        status = fn(locs.data_ptr(), scores.data_ptr(), anchors.data_ptr(), b,
-                    n, min_size, float(img_h), float(img_w), keys.data_ptr(),
-                    sorted_boxes.data_ptr(), sorted_scores.data_ptr(),
-                    _cuda.stream_handle(locs))
-    _cuda.check(status, "proposals_sort_launch")
+    _cuda.launch("proposals_sort_launch", dev, locs.data_ptr(),
+                 scores.data_ptr(), anchors.data_ptr(), b, n, min_size,
+                 float(img_h), float(img_w), keys.data_ptr(),
+                 sorted_boxes.data_ptr(), sorted_scores.data_ptr(),
+                 count=count)
     return _nms_walk(sorted_boxes, sorted_scores, n_post, nms_iou)[:3]
-
-
-def _sort_fn():
-    fn = _cuda.library("proposals").proposals_sort_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def proposals_batched(rpn_locs: torch.Tensor, rpn_fg_scores: torch.Tensor,

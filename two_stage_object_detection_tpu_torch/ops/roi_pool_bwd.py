@@ -28,8 +28,6 @@ otherwise; max is exact, so every route gives the same values.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from two_stage_object_detection_tpu_torch.ops import _cuda
@@ -38,7 +36,6 @@ from two_stage_object_detection_tpu_torch.ops.roi_pool import (
 from two_stage_object_detection_tpu_torch.ops.roi_pool_max import (
     bwd_plan, roi_pool_max)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_MODES = ("xla", "structured", "pallas")
 
 
@@ -54,14 +51,14 @@ def roi_pool_bwd_recompute(feats: torch.Tensor, rois: torch.Tensor,
       g: ``[B, R, P, P, C]`` f32 cotangent of the pooled values.
 
     Returns ``dfeat [B, H, W, C]`` in the map's dtype, accumulated in f32.
+    Each launch is counted in ``launch.roi_pool_bwd_recompute``.
     """
     if not (use_kernel and g.is_cuda):
         return roi_pool_grad_first_argmax(feats, rois, g, output_size,
                                           spatial_scale)
     b, h, w, c = feats.shape
     r, p = rois.shape[1], output_size
-    if feats.dtype not in _DTYPES:
-        raise ValueError(f"roi_pool_bwd kernel takes f32 or bf16, got {feats.dtype}")
+    code = _cuda.dtype_code(feats.dtype, "roi_pool_bwd")
     if c % 4:
         raise ValueError(f"roi_pool_bwd kernel takes C a multiple of 4, got {c}")
     _cuda.require(feats, "feats", feats.dtype, (b, h, w, c))
@@ -73,22 +70,12 @@ def roi_pool_bwd_recompute(feats: torch.Tensor, rois: torch.Tensor,
     dfeat = (torch.empty((b, h, w, c), dtype=feats.dtype, device=g.device)
              if slice_route else
              torch.zeros((b, h, w, c), dtype=torch.float32, device=g.device))
-    fn = _cuda.library("roi_pool_bwd").roi_pool_bwd_recompute_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(g.device):
-        status = fn(feats.data_ptr(), rois.data_ptr(), g.data_ptr(),
-                    dfeat.data_ptr(), b, h, w, c, r, p, spatial_scale,
-                    _DTYPES[feats.dtype], plan["vec_bytes"], plan["nv"],
-                    plan["n_slices"], plan["rois_per_pass"],
-                    _cuda.stream_handle(g))
-    _cuda.check(status, "roi_pool_bwd_recompute_launch")
-    roi_pool_bwd_recompute.launches += 1
+    _cuda.launch("roi_pool_bwd_recompute_launch", g.device, feats.data_ptr(),
+                 rois.data_ptr(), g.data_ptr(), dfeat.data_ptr(), b, h, w, c,
+                 r, p, spatial_scale, code, plan["vec_bytes"], plan["nv"],
+                 plan["n_slices"], plan["rois_per_pass"],
+                 count="launch.roi_pool_bwd_recompute")
     return dfeat if slice_route else dfeat.to(feats.dtype)
-
-
-roi_pool_bwd_recompute.launches = 0
 
 
 class _RoIPoolRecompute(torch.autograd.Function):

@@ -35,7 +35,6 @@ to f32 summation order.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -43,8 +42,6 @@ import torch
 from two_stage_object_detection_tpu_torch.ops import _cuda
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
     roi_pool_argmax, scatter_argmax_grad)
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # what a block may hold in dynamic shared memory on the H100 (232,448
 # bytes, less room for the slice kernel's static mbarrier), of which
@@ -188,7 +185,7 @@ def _forward(feats: torch.Tensor, rois: torch.Tensor, output_size: int,
 def roi_pool_values_op(feats: torch.Tensor, rois: torch.Tensor,
                        output_size: int, spatial_scale: float) -> torch.Tensor:
     """Kernel 5 without the index, as a custom op, so that ``torch.export``
-    keeps the launch in its graph; counted in ``roi_pool_max.launches``.
+    keeps the launch in its graph; counted in ``launch.roi_pool_max``.
     Arguments as :func:`roi_pool_max`; returns ``pooled``."""
     return _launch(feats, rois, output_size, spatial_scale, False)[0]
 
@@ -224,8 +221,7 @@ def _launch(feats, rois, output_size, spatial_scale, with_argmax):
     feats, rois = feats.contiguous(), rois.contiguous()
     b, h, w, c = feats.shape
     r, p = rois.shape[1], output_size
-    if feats.dtype not in _DTYPES:
-        raise ValueError(f"roi_pool kernel takes f32 or bf16, got {feats.dtype}")
+    code = _cuda.dtype_code(feats.dtype, "roi_pool")
     if c % 4:
         raise ValueError(f"roi_pool kernel takes C a multiple of 4, got {c}")
     _cuda.require(feats, "feats", feats.dtype, (b, h, w, c))
@@ -236,15 +232,12 @@ def _launch(feats, rois, output_size, spatial_scale, with_argmax):
     if r == 0 or b == 0:
         return pooled, argmax
     plan = _plan(rois.device.index, b, h, w, c, r, feats.element_size(), p)
-    fn = _pool_fn()
-    with torch.cuda.device(rois.device):
-        status = fn(feats.data_ptr(), rois.data_ptr(), pooled.data_ptr(),
-                    None if argmax is None else argmax.data_ptr(), b, h, w, c,
-                    r, p, spatial_scale, _DTYPES[feats.dtype],
-                    plan["vec_bytes"], plan["nv"], plan["n_slices"],
-                    plan["n_chunks"], _cuda.stream_handle(rois))
-    _cuda.check(status, "roi_pool_launch")
-    roi_pool_max.launches += 1
+    _cuda.launch("roi_pool_launch", rois.device, feats.data_ptr(),
+                 rois.data_ptr(), pooled.data_ptr(),
+                 None if argmax is None else argmax.data_ptr(), b, h, w, c, r,
+                 p, spatial_scale, code, plan["vec_bytes"], plan["nv"],
+                 plan["n_slices"], plan["n_chunks"],
+                 count="launch.roi_pool_max")
     return pooled, argmax
 
 
@@ -297,9 +290,6 @@ def roi_pool_max(feats: torch.Tensor, rois: torch.Tensor, output_size: int = 7,
                              use_kernel, with_argmax)
 
 
-roi_pool_max.launches = 0
-
-
 @functools.lru_cache(maxsize=None)
 def _plan(device_index, b, h, w, c, r, elem_bytes, pooled):
     n_sm = torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -313,15 +303,6 @@ def bwd_plan(kind, device_index, b, h, w, c, r, elem_bytes, pooled):
     return roi_pool_bwd_plan(kind, b, h, w, c, r, elem_bytes, n_sm, pooled)
 
 
-def _pool_fn():
-    fn = _cuda.library("roi_pool").roi_pool_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def roi_pool_bwd_scatter(argmax: torch.Tensor, g: torch.Tensor, h: int,
                          w: int, use_kernel: bool = True) -> torch.Tensor:
     """Kernel 5b, kernel 5's backward: add ``g`` at each bin's argmax.
@@ -333,7 +314,8 @@ def roi_pool_bwd_scatter(argmax: torch.Tensor, g: torch.Tensor, h: int,
     of an image in shared memory and writes it once; ``"direct"``: atomic
     adds into a zeroed map); either way equal to the plain version up to f32
     summation order.  Otherwise it runs
-    :func:`~..ops.roi_pool.scatter_argmax_grad`.
+    :func:`~..ops.roi_pool.scatter_argmax_grad`.  Each launch is counted in
+    ``launch.roi_pool_bwd_scatter``.
     """
     if not (use_kernel and g.is_cuda):
         return scatter_argmax_grad(argmax, g, h, w)
@@ -346,17 +328,8 @@ def roi_pool_bwd_scatter(argmax: torch.Tensor, g: torch.Tensor, h: int,
     plan = bwd_plan("scatter", g.device.index, b, h, w, c, r, 4, p)
     alloc = torch.empty if plan["route"] == "slice" else torch.zeros
     dfeat = alloc((b, h, w, c), dtype=torch.float32, device=g.device)
-    fn = _cuda.library("roi_pool_bwd").roi_pool_bwd_scatter_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(g.device):
-        status = fn(argmax.data_ptr(), g.data_ptr(), dfeat.data_ptr(), b,
-                    argmax[0].numel() // c, c, h * w, plan["nv"],
-                    plan["n_slices"], _cuda.stream_handle(g))
-    _cuda.check(status, "roi_pool_bwd_scatter_launch")
-    roi_pool_bwd_scatter.launches += 1
+    _cuda.launch("roi_pool_bwd_scatter_launch", g.device, argmax.data_ptr(),
+                 g.data_ptr(), dfeat.data_ptr(), b, argmax[0].numel() // c, c,
+                 h * w, plan["nv"], plan["n_slices"],
+                 count="launch.roi_pool_bwd_scatter")
     return dfeat
-
-
-roi_pool_bwd_scatter.launches = 0

@@ -25,8 +25,6 @@ from two_stage_object_detection_tpu_torch.ops import _cuda
 from two_stage_object_detection_tpu_torch.ops.roi_pool import (
     multilevel_roi_align, multilevel_roi_align_dense_grad, scale_pairs)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def windowed_roi_align_batched(pyramid, rois: torch.Tensor,
                                levels: torch.Tensor, scales,
@@ -53,9 +51,6 @@ def windowed_roi_align_batched(pyramid, rois: torch.Tensor,
                              sampling_ratio, window, aligned)
 
 
-windowed_roi_align_batched.launches = 0
-
-
 @torch.library.custom_op("tsod::windowed_align", mutates_args=(),
                          device_types="cuda")
 def windowed_align_op(pyramid: list[torch.Tensor], rois: torch.Tensor,
@@ -63,7 +58,7 @@ def windowed_align_op(pyramid: list[torch.Tensor], rois: torch.Tensor,
                       output_size: int, sampling_ratio: int, window: int,
                       aligned: bool) -> torch.Tensor:
     """Kernel 2 as a custom op, so that ``torch.export`` keeps the launch
-    in its graph; counted in ``windowed_roi_align_batched.launches``.
+    in its graph; counted in ``launch.windowed_roi_align_batched``.
     ``scales`` is the flat ``[sy_0, sx_0, sy_1, ...]`` list; the rest as
     :func:`windowed_roi_align_batched`."""
     p, s = output_size, sampling_ratio
@@ -72,7 +67,7 @@ def windowed_align_op(pyramid: list[torch.Tensor], rois: torch.Tensor,
     b, r, _ = rois.shape
     c = pyramid[0].shape[-1]
     dt = pyramid[0].dtype
-    vec = align_vector_width(c, dt)
+    vec = _cuda.align_vector_width(c, dt)
     for i, f in enumerate(pyramid):
         _cuda.require(f, f"pyramid[{i}]", dt, (b, f.shape[1], f.shape[2], c))
     _cuda.require(rois, "rois", torch.float32, (b, r, 4))
@@ -82,13 +77,10 @@ def windowed_align_op(pyramid: list[torch.Tensor], rois: torch.Tensor,
     feats = (ctypes.c_void_p * n)(*[f.data_ptr() for f in pyramid])
     hw = (ctypes.c_int * (2 * n))(*[d for f in pyramid for d in f.shape[1:3]])
     scl = (ctypes.c_float * (2 * n))(*scales)
-    fn = _align_fn()
-    with torch.cuda.device(rois.device):
-        status = fn(feats, hw, scl, n, rois.data_ptr(), levels.data_ptr(),
-                    out.data_ptr(), b, r, c, p, s, window, int(aligned),
-                    _DTYPES[dt], vec, _cuda.stream_handle(rois))
-    _cuda.check(status, "windowed_align_launch")
-    windowed_roi_align_batched.launches += 1
+    _cuda.launch("windowed_align_launch", rois.device, feats, hw, scl, n,
+                 rois.data_ptr(), levels.data_ptr(), out.data_ptr(), b, r, c,
+                 p, s, window, int(aligned), _cuda.DTYPES[dt], vec,
+                 count="launch.windowed_roi_align_batched")
     return out
 
 
@@ -98,28 +90,6 @@ def _(pyramid, rois, levels, scales, output_size, sampling_ratio, window,
     b, r, _ = rois.shape
     c = pyramid[0].shape[-1]
     return pyramid[0].new_empty((b, r, output_size, output_size, c))
-
-
-def align_vector_width(c: int, dtype: torch.dtype) -> int:
-    """Channels kernel 2 loads at once: the widest vector of 16, 8, 4 or 2
-    bytes (one element at least) that divides a pixel's ``c`` channels, so
-    every pixel of a 16-byte aligned ``[H, W, c]`` map starts on a vector
-    and no channel is left over (bf16: 8 for C=256, 4 for C=260; f32: 4 for
-    C=256, 2 for C=30)."""
-    if dtype not in _DTYPES:
-        raise ValueError(f"windowed_align kernel takes f32 or bf16, got {dtype}")
-    size = dtype.itemsize
-    return next(n // size for n in (16, 8, 4, 2)
-                if n >= size and (c * size) % n == 0)
-
-
-def _align_fn():
-    fn = _cuda.library("windowed_align").windowed_align_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 class _Hybrid(torch.autograd.Function):
