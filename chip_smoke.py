@@ -28,7 +28,14 @@ the largest map of each served trunk (``conv_epilogue``: HarDNet-39's 1024
 channels at 150x150, ReLU6; ``conv_epilogue_residual``: ResNet-50's 256 at
 200x272 of 800x1088, PReLU and the residual), and at HarDNet-39's widest
 layer of 4-byte pairs (``conv_epilogue_pairs``: 410 channels at 150x150,
-ReLU6).  Then it
+ReLU6).  HarDNet-39's depth-wise store (``csrc/depthwise_store.cu``) is
+held bit for bit against its plain version and timed, beside its byte
+bound and cuDNN's depth-wise conv plus the copies into the concatenations
+it makes unneeded, at B=16 on the trunk's widest depth-wise layer
+(``depthwise_store``: down2's 640 channels into block3's three buffers),
+its narrowest (16 channels into two) and its narrowest in 4-byte pairs
+(``depthwise_store_pairs``: 26 channels, one buffer at offset 16); and a
+whole B=16 trunk on the store route against its ``torch.cat`` route.  Then it
 serves requests through the port's ``Predictor`` on
 three paths, each at full width (bfloat16, seeded random weights), with
 every launch counter set to 0 just before and read just after:
@@ -46,7 +53,10 @@ On each, every conv + batch-norm pair of the trunk must have run folded in
 every bucket (``utils.profiling.counters``, no fallback) and the epilogue
 must have launched, with a residual on the ResNet paths
 (``conv_epilogue_residual`` counts those) and in 4-byte pairs on HarDNet's
-(``conv_epilogue_pairs``); no train micro-step may launch it.
+(``conv_epilogue_pairs``); no train micro-step may launch it.  On HarDNet's
+path every depth-wise layer must have launched the depth-wise store once
+a bucket, in 4-byte pairs among them, and no ``torch.cat`` been made
+(``hardnet.cat``).
 
 Kernel 4, kernel 3's one-image launch, is off both paths (as the JAX
 package's ``_fused_kernel`` is off its predict path): it is checked and
@@ -734,6 +744,160 @@ def check_epilogue(rng, dev):
     return rows, shapes
 
 
+# --------------------------------------------------------- depth-wise store
+# HarDNet-39's depth-wise layers at B=16 (600x600): (block, output, input
+# channels and map side, stride): down2 into block3 (its widest), block0's
+# output 1 (its narrowest) and output 2 (its narrowest in 4-byte pairs)
+STORE_LAYERS = {"depthwise_store": (3, 0, 640, 150, 1),
+                "depthwise_store_narrow": (0, 1, 16, 150, 1),
+                "depthwise_store_pairs": (0, 2, 26, 150, 1)}
+
+
+def store_trunk(dev):
+    """HarDNet-39's trunk, bf16, seeded, channels-last on ``dev``, eval."""
+    from two_stage_object_detection_tpu_torch.models.hardnet import (
+        HarDNetFeatureExtraction)
+    from two_stage_object_detection_tpu_torch.models.layers import (
+        init_weights)
+    trunk = HarDNetFeatureExtraction(39, dtype=torch.bfloat16)
+    init_weights(trunk, torch.Generator().manual_seed(0))
+    return trunk.to(dev).to(memory_format=torch.channels_last).eval()
+
+
+def check_depthwise_store(dev):
+    """Kernel D at :data:`STORE_LAYERS`, each into the destinations its
+    block's table gives: bitwise against its plain version, timed beside
+    its byte bound (read x, write each destination's slice) and cuDNN's
+    depth-wise conv plus the copies of its output into the buffers'
+    slices (what ``torch.cat`` moves for it).  Then a B=16 trunk on the
+    store route and on its ``torch.cat`` route (as under a row shard): each
+    route's time (CUDA events), the kernel's and the copies' device time
+    (``torch.profiler``), and the peak memory.  Returns the kernels line's
+    rows and the numbers."""
+    import types
+    from unittest import mock
+    import torch.nn.functional as F
+    from two_stage_object_detection_tpu_torch.models import hardnet
+    from two_stage_object_detection_tpu_torch.ops.depthwise_store import (
+        depthwise_store, depthwise_store_reference, store_vector_width)
+    from two_stage_object_detection_tpu_torch.utils.profiling import counters
+    cl, bf = torch.channels_last, torch.bfloat16
+    trunk = store_trunk(dev)
+    rows, shapes = [], {}
+    for name, (b, j, c, hw, s) in STORE_LAYERS.items():
+        asm = hardnet._Assembly(getattr(trunk, f"block{b}"), 16, hw, hw, bf,
+                                dev)
+        dests = [asm.into(i) for i in range(j + 1)][-1]
+        gen = torch.Generator(device=dev).manual_seed(j)
+        x = (torch.randn(16, c, hw * s, hw * s, device=dev, generator=gen)
+             * 2).to(bf).contiguous(memory_format=cl)
+        wt = torch.randn(c, 1, 3, 3, device=dev, generator=gen).to(bf)
+        y = torch.empty(16, c, hw, hw, device=dev, dtype=bf,
+                        memory_format=cl)
+        depthwise_store_reference(x, wt, s, None, [(y, 0)])
+        depthwise_store(x, wt, s, None, dests)
+        for buf, off in dests:
+            require(torch.equal(buf[:, off:off + c], y), f"{name} differs "
+                    "from its plain version")
+        ms = cuda_time_ms(lambda: depthwise_store(x, wt, s, None, dests), 20)
+        plain_ms = cuda_time_ms(lambda: depthwise_store_reference(
+            x, wt, s, None, dests), 3, warmup=1)
+        own = [(t, off) for t, off in dests if t.shape[1] == c]
+        slices = [(t, off) for t, off in dests if t.shape[1] != c]
+
+        def library():
+            z = F.conv2d(x, wt, None, s, 1, 1, c)
+            for t, off in slices:
+                t[:, off:off + c].copy_(z)
+
+        library_ms = cuda_time_ms(library, 20)
+        nbytes = (x.numel() + wt.numel() + len(dests) * y.numel()) * 2
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        vec = store_vector_width(c, bf, dests) * 2
+        log(f"kernel {name} bf16 [16, {c}, {hw * s}, {hw * s}] stride {s} "
+            f"into {len(own)} tensor(s) of its own and {len(slices)} "
+            f"buffer slice(s) (offsets {[off for _, off in dests]}, widths "
+            f"{[t.shape[1] for t, _ in dests]}), {vec}-byte vectors: "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: "
+            f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.3f} ms; cuDNN's conv "
+            f"and the slice copies {library_ms:.4f} ms; bitwise equal to the "
+            "plain version")
+        shapes[name] = dict(c=c, map=hw, stride=s, dests=len(dests),
+                            vector_bytes=vec, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, library_ms=library_ms,
+                            bytes=nbytes)
+        if name != "depthwise_store_narrow":
+            rows.append(dict(
+                name=name, route="cuda",
+                source="two_stage_object_detection_tpu_torch/csrc/"
+                       "depthwise_store.cu",
+                replaces=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms))
+        del asm, dests, x, y
+
+    x16 = torch.randn(16, 3, 600, 600, device=dev).contiguous(
+        memory_format=cl)
+    cat_route = mock.patch.object(hardnet, "spatial", types.SimpleNamespace(
+        current=lambda: object()))
+    bucket = {}
+    with torch.inference_mode():
+        for route in ("store", "cat"):
+            with cat_route if route == "cat" else contextlib.nullcontext():
+                trunk(x16)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                counters.clear()
+                trunk(x16)
+                torch.cuda.synchronize()
+                bucket[route] = dict(
+                    launches=counters["launch.depthwise_store"],
+                    cats=counters["hardnet.cat"],
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    ms=cuda_time_ms(lambda: trunk(x16), 10),
+                    kernel_ms=kernel_ms(lambda: trunk(x16),
+                                        "depthwise_store_kernel", 3),
+                    cat_ms=kernel_ms(lambda: trunk(x16), "CatArrayBatched",
+                                     3))
+    require(bucket["store"]["launches"] == 36 and bucket["store"]["cats"] == 0,
+            f"the store route made {bucket['store']}")
+    require(bucket["cat"]["launches"] == 0 and bucket["cat"]["cats"] == 20,
+            f"the cat route made {bucket['cat']}")
+    # the routes differ in the depth-wise convs and the copies alone
+    bucket["library_ms"] = (bucket["store"]["kernel_ms"] + bucket["cat"]["ms"]
+                            - bucket["store"]["ms"])
+    log(f"HarDNet-39 trunk b=16 bf16, store route against cat route: "
+        f"{bucket['store']['ms']:.3f} against {bucket['cat']['ms']:.3f} ms "
+        f"(CUDA events); the depth-wise store's 36 launches "
+        f"{bucket['store']['kernel_ms']:.3f} ms, the cat route's 20 copies "
+        f"{bucket['cat']['cat_ms']} ms (device time); cuDNN's depth-wise "
+        f"convs and the copies {bucket['library_ms']:.3f} ms; peak memory "
+        f"{bucket['store']['peak_gb']:.2f} against "
+        f"{bucket['cat']['peak_gb']:.2f} GB")
+    del trunk, x16
+    return rows, {**shapes, "bucket": bucket}
+
+
+@contextlib.contextmanager
+def store_launches():
+    """The depth-wise store's launches in 4-byte vectors while inside (the
+    kernels line's ``depthwise_store_pairs``)."""
+    from two_stage_object_detection_tpu_torch.models import hardnet
+    from two_stage_object_detection_tpu_torch.ops.depthwise_store import (
+        store_vector_width)
+    store, tally = hardnet.depthwise_store, collections.Counter()
+
+    def counted(x, weight, stride, bias, dests):
+        tally["depthwise_store_pairs"] += store_vector_width(
+            x.shape[1], x.dtype, dests) * x.element_size() == 4
+        return store(x, weight, stride, bias, dests)
+
+    hardnet.depthwise_store = counted
+    try:
+        yield tally
+    finally:
+        hardnet.depthwise_store = store
+
+
 @contextlib.contextmanager
 def epilogue_launches():
     """The epilogue's launches while inside, by the kernels line's rows:
@@ -1310,6 +1474,7 @@ def check_outputs(out, n: int, cfg):
 # the kernels line's name of each launch counter (``utils.profiling.counters``)
 LAUNCH_KEYS = {"greedy_nms": "launch.greedy_nms",
                "conv_epilogue": "launch.conv_epilogue",
+               "depthwise_store": "launch.depthwise_store",
                "windowed_align": "launch.windowed_roi_align_batched",
                "fused_proposals_batched": "launch.fused_proposals_batched",
                "fused_proposals": "launch.fused_proposals",
@@ -1401,12 +1566,15 @@ def serve(cfg, rng, label: str, expect):
         model.predict(torch.from_numpy(images[:b]).to(model.device))
     torch.cuda.synchronize()
 
+    from two_stage_object_detection_tpu_torch.models.hardnet import (
+        DWConvLayer)
     from two_stage_object_detection_tpu_torch.models.layers import BatchNorm
     from two_stage_object_detection_tpu_torch.utils.profiling import (
         counters as events)
     reset_launches()
     detections = {}
-    with align_sizes() as sizes, epilogue_launches() as epilogues:
+    with align_sizes() as sizes, epilogue_launches() as epilogues, \
+            store_launches() as stores:
         for wire, server in servers.items():
             for n in SERVE_REQUESTS[wire]:
                 req = images[:n] if wire == "f32" else np.round(
@@ -1418,7 +1586,9 @@ def serve(cfg, rng, label: str, expect):
     launches = launch_counts()
     launches[f"windowed_align_p{MASK_P}"] = sizes[MASK_P]
     launches.update(epilogues)
-    for name in ("conv_epilogue_residual", "conv_epilogue_pairs"):
+    launches.update(stores)
+    for name in ("conv_epilogue_residual", "conv_epilogue_pairs",
+                 "depthwise_store_pairs"):
         launches.setdefault(name, 0)
     # every conv + batch norm pair of the trunk folded in each bucket
     buckets = sum(len(v) for v in SERVE_REQUESTS.values())
@@ -1429,6 +1599,14 @@ def serve(cfg, rng, label: str, expect):
     require(fold.get("fold.folded") == buckets * pairs and not any(
         k.startswith("fold.fallback") for k in fold), f"the {label} trunk "
         "did not run folded in every bucket")
+    # every HarDNet depth-wise layer stored into its concatenations
+    dw = sum(isinstance(m, DWConvLayer) for m in model.extractor.modules())
+    log(f"{label} store route over {buckets} buckets: "
+        f"{launches['depthwise_store']} depth-wise stores ({dw} depth-wise "
+        f"layers), {events['hardnet.cat']} concatenation copies")
+    require(launches["depthwise_store"] == buckets * dw
+            and events["hardnet.cat"] == 0, f"the {label} trunk did not "
+            "store every depth-wise layer into its concatenations")
     if cfg.mask_head:
         require(sizes[MASK_P] > 0, f"the {label} path never pooled at "
                 f"P={MASK_P}")
@@ -1616,8 +1794,9 @@ def train(cfg, rng, label: str, expect):
         changed.append(n_changed(model, snap))
     peak = torch.cuda.max_memory_allocated()
     launches = launch_counts()
-    require(launches["conv_epilogue"] == 0, f"{label} train: the folded "
-            "route ran in a train micro-step")
+    require(launches["conv_epilogue"] == 0
+            and launches["depthwise_store"] == 0, f"{label} train: the "
+            "folded route ran in a train micro-step")
     log(f"{label} train: 4 micro-steps at b=16, grad_accum_steps=2: "
         f"{state.updates} updates; step ms {[round(t, 1) for t in step_ms]}; "
         f"peak memory {peak / 1e9:.2f} GB; kernel launches {launches}")
@@ -2756,8 +2935,10 @@ def serving(smi: str):
             for name in expect:
                 require(counts.get(name, 0) > 0,
                         f"the exported {label} program never launched {name}")
-            require(counts.get("conv_epilogue", 0) == 0, f"the exported "
-                    f"{label} program launched the folded route's epilogue")
+            require(counts.get("conv_epilogue", 0) == 0
+                    and counts.get("depthwise_store", 0) == 0, f"the "
+                    f"exported {label} program launched the folded route's "
+                    "kernels")
             os.unlink(path)
         del single
         path = os.path.join(tmp, "portable.pt2")
@@ -3748,6 +3929,8 @@ def spatial_predict(cfg, rng, label: str, expect, shards) -> dict:
         for k in expect:
             require(launches[k] > 0, f"{label} spatial (1, {n}): {k} never "
                     "launched")
+        require(launches["depthwise_store"] == 0, f"{label} spatial (1, {n}): "
+                "a row shard stored a depth-wise layer")
         require(np.array_equal(got["valid"], want["valid"])
                 and np.array_equal(got["labels"], want["labels"]),
                 f"{label} spatial (1, {n}): valid or labels differ")
@@ -4148,6 +4331,9 @@ def main() -> int:
     kernels += [pool_row, *bwd_rows]
     epi_rows, epi_shapes = check_epilogue(rng, dev)
     kernels += epi_rows
+    store_rows, store_shapes = check_depthwise_store(dev)
+    kernels += store_rows
+    torch.cuda.empty_cache()
     cap_shapes = check_above_cap(rng, dev)
     torch.cuda.empty_cache()
 
@@ -4157,7 +4343,9 @@ def main() -> int:
                            "conv_epilogue_residual")),
              "single-scale": (Config(), ("fused_proposals_batched",
                                          "roi_pool_max", "conv_epilogue",
-                                         "conv_epilogue_pairs")),
+                                         "conv_epilogue_pairs",
+                                         "depthwise_store",
+                                         "depthwise_store_pairs")),
              "mask_r50": (mask_config(), ("greedy_nms", "windowed_align",
                                           "conv_epilogue",
                                           "conv_epilogue_residual"))}
@@ -4253,7 +4441,8 @@ def main() -> int:
                        "above_row_cap_shapes": cap_shapes,
                        "greedy_nms_shapes": nms_shapes,
                        "windowed_align_shapes": align_shapes,
-                       "conv_epilogue_shapes": epi_shapes}, f,
+                       "conv_epilogue_shapes": epi_shapes,
+                       "depthwise_store_shapes": store_shapes}, f,
                       indent=1)
     log(smi)
     log(json.dumps(line))

@@ -5,11 +5,16 @@ Each module's folded function, called directly, with the epilogue's plain
 version (``ops/conv_epilogue.py``) in float32, against the module's own
 forward; when the route engages and when it falls back, read from
 ``utils.profiling.counters``; and the cache's rebuilds after each event
-that changes a folded tensor's sources.  The kernel itself is held in
-``tests/test_torch_kernels.py`` on the card.
+that changes a folded tensor's sources.  HarDNet's store route (each
+depth-wise conv stored into every buffer that reads it,
+``ops/depthwise_store.py``'s plain version here) against its ``torch.cat``
+route, and its destination tables against ``torch.cat``'s channel order.
+The kernels themselves are held in ``tests/test_torch_kernels.py`` on the
+card.
 """
 
 import threading
+import types
 from unittest import mock
 
 import pytest
@@ -20,11 +25,14 @@ from two_stage_object_detection_tpu_torch.config import Config
 from two_stage_object_detection_tpu_torch.models import hardnet, resnet
 from two_stage_object_detection_tpu_torch.models.hardnet import (
     CombConvLayer, ConvLayer, DWConvLayer, HarDBlock, HarDNetFeatureExtraction)
+from two_stage_object_detection_tpu_torch.models import layers
 from two_stage_object_detection_tpu_torch.models.layers import (
     BatchNorm, fold_route, init_weights)
 from two_stage_object_detection_tpu_torch.models.resnet import (
     BasicBlock, Bottleneck, ResNetFeatureExtraction)
 from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
+from two_stage_object_detection_tpu_torch.ops.depthwise_store import (
+    depthwise_conv_reference, depthwise_store)
 from two_stage_object_detection_tpu_torch.parallel import spatial
 from two_stage_object_detection_tpu_torch.utils.profiling import counters
 
@@ -301,3 +309,151 @@ def test_fold_cache_rebuilds_when_its_sources_change(event):
     assert counters["fold.rebuild"] == 2
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert not torch.allclose(got, before)
+
+
+# ------------------------------------------------------------ store route
+def test_depthwise_conv_reference_is_the_conv():
+    """The store route's plain depth-wise conv (its own order of taps, in
+    float32) equals ``F.conv2d`` in float64 within float32's rounding of
+    nine products and a bias, at both strides and on odd map sizes; and
+    :func:`depthwise_store` on CPU tensors writes it into each
+    destination's channel slice and nothing else."""
+    gen = torch.Generator().manual_seed(7)
+    for stride, h, w in ((1, 9, 7), (2, 9, 7), (2, 10, 12)):
+        x = torch.randn(2, 6, h, w, generator=gen)
+        wt = torch.randn(6, 1, 3, 3, generator=gen)
+        bias = torch.randn(6, generator=gen)
+        got = depthwise_conv_reference(x, wt, stride, bias)
+        want = torch.nn.functional.conv2d(x.double(), wt.double(),
+                                          bias.double(), stride, 1, 1, 6)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+        bufs = [torch.full((2, 10, *got.shape[2:]), float("nan"))
+                for _ in range(2)]
+        depthwise_store(x, wt, stride, bias, [(bufs[0], 0), (bufs[1], 4)])
+        assert torch.equal(bufs[0][:, :6], got)
+        assert torch.equal(bufs[1][:, 4:], got)
+        assert bufs[0][:, 6:].isnan().all() and bufs[1][:, :4].isnan().all()
+
+
+@pytest.mark.parametrize("args", [(48, 16, 1.6, 4, False),
+                                  (96, 20, 1.6, 16, False),
+                                  (640, 160, 1.6, 4, False),
+                                  (12, 6, 1.7, 8, True),
+                                  (24, 24, 1.7, 3, False)])
+def test_store_table_follows_torch_cat(args):
+    """Each buffer of a block's destination table, filled by storing every
+    output into its ``(buffer, channel offset)`` pairs, is ``torch.cat`` of
+    the outputs the block route concatenates there: a layer's ``links``
+    and the block's kept outputs, in that order; each buffer's first
+    source is its lowest, and an output is taken alone exactly where a
+    layer's links are that one output."""
+    in_ch, gr, grmul, n_layers, keep_base = args
+    blk = HarDBlock(in_ch, gr, grmul, n_layers, keep_base=keep_base)
+    buffers, dests, alone = blk.stores
+    outs = [torch.arange(c, dtype=torch.float32).add(1000 * j)[None, :,
+                                                                None, None]
+            for j, c in enumerate(blk.out_chs)]
+    got = {key: torch.full((1, c, 1, 1), -1.0)
+           for key, (c, _) in buffers.items()}
+    for j, places in enumerate(dests):
+        for key, off in places:
+            got[key][:, off:off + blk.out_chs[j]] = outs[j]
+    parts = {t: link for t, link in enumerate(blk.links) if len(link) > 1}
+    parts["out"] = blk._keep(len(outs))
+    assert set(got) == set(parts)
+    for key, idx in parts.items():
+        assert torch.equal(got[key], torch.cat([outs[j] for j in idx], 1))
+        assert buffers[key][1] == min(idx)
+    assert alone == [[j] in blk.links for j in range(len(outs))]
+    assert buffers["out"][0] == blk.out_channels
+
+
+def _same_depthwise():
+    """Every depth-wise 3x3 :class:`~.layers.Conv` computed as the store
+    route's plain version computes it (:func:`depthwise_conv_reference`,
+    channels-last like the card's), so that the two routes reach the 1x1
+    convs with the same depth-wise values; other convs as they are."""
+    conv_forward = layers.Conv.forward
+
+    def forward(conv, x, weight=None):
+        w = conv.weight if weight is None else weight
+        c = x.shape[1]
+        if w.shape[2:] != (3, 3) or conv.groups != c or w.shape[0] != c:
+            return conv_forward(conv, x, weight)
+        dt = conv.compute_dtype
+        bias = None if weight is not None or conv.bias is None else conv.bias
+        y = depthwise_conv_reference(x.to(dt), w.to(dt), conv.stride, bias)
+        return y.to(dt).contiguous(memory_format=torch.channels_last)
+
+    return mock.patch.object(layers.Conv, "forward", forward)
+
+
+def _cat_route():
+    """The trunk's folded route keeps ``torch.cat``, as under a row shard,
+    while every conv runs on the whole map: the trunk's check for a shard
+    sees one, :class:`~.layers.Conv`'s sees none."""
+    return mock.patch.object(hardnet, "spatial", types.SimpleNamespace(
+        current=lambda: object()))
+
+
+LAYOUTS = {"reference": {}, "strided": {"strided": True},
+           "pyramid": {"strided": True, "pyramid": True}}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("arch", [39, 68, 85])
+def test_store_route_equals_the_cat_route(arch, layout):
+    """HarDNet-39/68/85 in each layout, float32, channels-last: the store
+    route's features equal the ``torch.cat`` route's bit for bit when both
+    reach the 1x1 convs with the same depth-wise values (each conv's input
+    is then the same tensor); the store route stores every depth-wise
+    layer once and copies only block inputs that a transition made, into
+    each buffer that reads them (none in HarDNet-39); ``hardnet.cat``
+    counts the cat route's ``torch.cat``s (20 for HarDNet-39)."""
+    cl = torch.channels_last
+    m = _randomise(HarDNetFeatureExtraction(arch, **LAYOUTS[layout]))
+    m = m.to(memory_format=cl)
+    x = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(8)
+                    ).contiguous(memory_format=cl)
+    blocks = [getattr(m, f"block{i}") for i in range(m.n_blocks)]
+    cats = sum(1 + sum(len(link) > 1 for link in b.links) for b in blocks)
+    copies = sum(len(b.stores[1][0]) for i, b in enumerate(blocks)
+                 if i and not hasattr(m, f"down{i - 1}"))
+    n_dw = sum(isinstance(d, DWConvLayer) for d in m.modules())
+    with _route_passed(m), _same_depthwise(), torch.inference_mode(), \
+            mock.patch.object(hardnet, "depthwise_store",
+                              wraps=depthwise_store) as stored:
+        counters.clear()
+        got = m(x)
+        assert counters["hardnet.cat"] == copies
+        assert stored.call_count == n_dw
+        with _cat_route():
+            counters.clear()
+            want = m(x)
+        assert counters["hardnet.cat"] == cats
+        assert stored.call_count == n_dw
+    if arch == 39:
+        assert (copies, cats, n_dw) == (0, 20, 36 + (layout == "pyramid"))
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_row_shard_keeps_the_cat_route():
+    """On a row shard the folded trunk keeps ``torch.cat`` (its depth-wise
+    convs read a halo :class:`~.layers.Conv` exchanges) and stores
+    nothing: HarDNet-39 counts its 20 ``torch.cat``s."""
+    m = _randomise(HarDNetFeatureExtraction(39))
+    x = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(9))
+    shard = spatial.Shard(spatial.ThreadGroup(1).transport(0), 64, 64)
+    with _route_passed(m), torch.inference_mode(), spatial.sharded(shard), \
+            mock.patch.object(hardnet, "depthwise_store") as stored:
+        counters.clear()
+        m(x)
+    assert counters["hardnet.cat"] == 20 and stored.call_count == 0
+    assert counters["fold.folded"] == sum(
+        isinstance(b, BatchNorm) for b in m.modules())

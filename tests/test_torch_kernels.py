@@ -1,5 +1,6 @@
 """PyTorch port, the CUDA kernels (1, 2, 3/4, 5, 5's scatter backward, 6,
-and the conv epilogue) against their plain PyTorch versions.
+the conv epilogue and HarDNet's depth-wise store) against their plain
+PyTorch versions.
 
 These need an NVIDIA GPU and ``nvcc`` (the kernels build from
 ``two_stage_object_detection_tpu_torch/csrc`` at first use); without a GPU
@@ -14,15 +15,21 @@ need not have; this file imports nothing of JAX.)
 and train paths.
 """
 
+import types
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from two_stage_object_detection_tpu_torch.config import Config
+from two_stage_object_detection_tpu_torch.models import hardnet
 from two_stage_object_detection_tpu_torch.models.layers import BatchNorm
 from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
 from two_stage_object_detection_tpu_torch.ops.conv_epilogue import (
     conv_epilogue, conv_epilogue_reference)
+from two_stage_object_detection_tpu_torch.ops.depthwise_store import (
+    depthwise_store, depthwise_store_reference, out_size)
 from two_stage_object_detection_tpu_torch.ops.anchors import make_fpn_anchors
 from two_stage_object_detection_tpu_torch.ops.proposals import (
     MAX_KERNEL_ROWS, _decode_masked, fused_proposals, fused_proposals_batched,
@@ -955,3 +962,170 @@ def test_folded_features_match_unfolded(rng, dev, name, cfg):
         print(f"{name} {tuple(r.shape)}: folded {err_f:.3e}, unfolded "
               f"{err_u:.3e} of the f32 map's largest magnitude")
         assert err_f <= 1.5 * err_u + 1e-3
+
+
+def _store_case(dev, dtype, c, stride, n_dest, n=2, h=37, w=41, seed=0):
+    """x, weight, bias and ``n_dest`` destinations of a depth-wise store,
+    the buffers filled with NaN: one destination is a tensor of its own
+    (offset 0, pitch C); more are buffers wider than C at offsets that are
+    odd multiples of 2 (4-byte pairs in bf16)."""
+    cl = torch.channels_last
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(n, c, h, w, device=dev, generator=gen) * 3).to(
+        dtype).contiguous(memory_format=cl)
+    wt = torch.randn(c, 1, 3, 3, device=dev, generator=gen).to(dtype)
+    bias = torch.randn(c, device=dev, generator=gen)
+    ho, wo = out_size(h, w, stride)
+    places = ([(0, c)] if n_dest == 1 else
+              [(2 * (2 * k + 1), 2 * (2 * k + 1) + c + 2 * k)
+               for k in range(n_dest)])
+    dests = [(torch.full((n, pitch, ho, wo), float("nan"), device=dev,
+                         dtype=dtype).contiguous(memory_format=cl), off)
+             for off, pitch in places]
+    return x, wt, bias, dests
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_dest", [1, 2, 5])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("c", [26, 82, 102, 410, 1024])
+def test_depthwise_store_kernel_bitwise_equals_plain(dev, c, stride, n_dest,
+                                                     dtype):
+    """The depth-wise store at HarDNet-39's widths (26, 82, 102, 410 in
+    4-byte pairs in bf16; 1024 in 16-byte vectors into a tensor of its
+    own), both strides, one to five destinations at offsets that are odd
+    multiples of 2, on a 37 x 41 map (ragged tiles): each destination's
+    slice equals the plain version's bit for bit, with a bias on one and
+    five destinations and none on two; the channels outside the slices
+    are untouched; one launch counted."""
+    x, wt, bias, dests = _store_case(dev, dtype, c, stride, n_dest)
+    b = None if n_dest == 2 else bias
+    want = [(buf.clone(), off) for buf, off in dests]
+    depthwise_store_reference(x, wt, stride, b, want)
+    before = counters["launch.depthwise_store"]
+    depthwise_store(x, wt, stride, b, dests)
+    torch.cuda.synchronize()
+    assert counters["launch.depthwise_store"] == before + 1
+    for (got, off), (ref, _) in zip(dests, want):
+        assert torch.equal(got[:, off:off + c], ref[:, off:off + c])
+        assert torch.equal(got.isnan(), ref.isnan())
+
+
+@pytest.mark.parametrize("c,stride,places", [
+    (48, 2, [(0, 48), (16, 64), (42, 90)]),       # stem2 into block0
+    (26, 1, [(0, 26), (16, 82)]),                 # block0's output 2
+    (640, 1, [(0, 640), (160, 800), (416, 1056)]),  # down2 into block3
+    (132, 1, [(160, 292)])])                      # block1's last output
+def test_depthwise_store_kernel_at_hardnet39_bucket_shapes(dev, c, stride,
+                                                           places):
+    """HarDNet-39's depth-wise layers at a bucket's shape (B=16, 600x600
+    input: 150x150 maps, the stem's from 300x300), each into its real
+    destinations (offsets and buffer widths from the blocks' tables), bf16,
+    no bias (the route defers it): bit for bit the plain version, over
+    grids of thousands of blocks."""
+    cl = torch.channels_last
+    gen = torch.Generator(device=dev).manual_seed(c)
+    hw = 300 if stride == 2 else 150
+    x = (torch.randn(16, c, hw, hw, device=dev, generator=gen) * 2).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    wt = torch.randn(c, 1, 3, 3, device=dev, generator=gen).to(torch.bfloat16)
+    dests = [(torch.empty(16, pitch, 150, 150, device=dev,
+                          dtype=torch.bfloat16, memory_format=cl), off)
+             for off, pitch in places]
+    depthwise_store(x, wt, stride, None, dests)
+    y = torch.empty(16, c, 150, 150, device=dev, dtype=torch.bfloat16,
+                    memory_format=cl)
+    depthwise_store_reference(x, wt, stride, None, [(y, 0)])
+    for buf, off in dests:
+        assert torch.equal(buf[:, off:off + c], y)
+
+
+def test_depthwise_store_rejects_bad_input(dev):
+    """The wrapper raises on what the kernel does not take: stride 3,
+    no or nine destinations, float16, a weight of another dtype, a bias
+    not float32, a destination not channels-last, of the wrong map size,
+    too narrow at its offset, or overlapping ``x``."""
+    x, wt, bias, dests = _store_case(dev, torch.bfloat16, 26, 1, 2)
+    buf, off = dests[1]
+    bad = {
+        "stride 1 or 2": dict(stride=3),
+        "1 to 8 destinations": dict(dests=[]),
+        "1 to 8 destinations ": dict(dests=[dests[0]] * 9),
+        "f32 or bf16": dict(x=x.half(), wt=wt.half()),
+        "weight must be": dict(wt=wt.float()),
+        "bias must be": dict(bias=bias.to(torch.bfloat16)),
+        "channels-last": dict(dests=[(buf.contiguous(), off)]),
+        "cannot hold": dict(dests=[(torch.empty(
+            2, buf.shape[1], 36, 41, device=dev, dtype=torch.bfloat16,
+            memory_format=torch.channels_last), off)]),
+        "cannot hold ": dict(dests=[(buf, buf.shape[1] - 25)]),
+        "overlaps x": dict(dests=[(x, 0)]),
+    }
+    for match, kw in bad.items():
+        args = dict(x=x, wt=wt, stride=1, bias=bias, dests=dests)
+        args.update(kw)
+        with pytest.raises(ValueError, match=match.strip()):
+            depthwise_store(args["x"], args["wt"], args["stride"],
+                            args["bias"], args["dests"])
+
+
+def test_store_route_trunk_matches_the_cat_route(rng, dev):
+    """HarDNet-39's folded trunk at a bucket's shape (B=2, 600x600, bf16):
+    the store route launches the depth-wise store once a depth-wise layer
+    (36) and makes no ``torch.cat``; the cat route (as under a row shard:
+    cuDNN's depth-wise conv, then 20 ``torch.cat``s) none and 20.
+
+    Tolerance.  The two routes differ only in the depth-wise convs: the
+    kernel sums the nine products in float32 in its own order and rounds
+    once, cuDNN in its order.  So each depth-wise layer's output, on the
+    input the cat route gave it, is within one bf16 rounding of cuDNN's:
+    at most one bf16 step (2^-8 to 2^-7 of the value) apart.  Past the
+    first layer the routes' inputs differ by those roundings too, so the
+    trunk is held as :func:`test_folded_features_match_unfolded` holds
+    it: its features as near the float32 model's as the cat route's
+    (1.5 times the cat route's error, plus 1e-3 of the largest
+    magnitude)."""
+    cfg = Config()
+    model = FasterRCNN(cfg, seed=0)
+    _randomised_norms(model)
+    ref = FasterRCNN(cfg.replace(compute_dtype="float32"), seed=0)
+    ref.load_state_dict(model.state_dict())
+    h, w = cfg.input_size
+    x = torch.from_numpy(rng.rand(2, h, w, 3).astype(np.float32)).to(dev)
+    seen = []
+    run_folded = hardnet.DWConvLayer._run_folded
+
+    def keep(layer, inp, params, defer, into=None):
+        if into is None:
+            seen.append((layer, inp, params, defer))
+        return run_folded(layer, inp, params, defer, into)
+
+    counters.clear()
+    with torch.inference_mode():
+        stored = model.features(x)
+        assert counters["launch.depthwise_store"] == 36
+        assert counters["hardnet.cat"] == 0
+        counters.clear()
+        with mock.patch.object(hardnet, "spatial", types.SimpleNamespace(
+                current=lambda: object())), \
+                mock.patch.object(hardnet.DWConvLayer, "_run_folded", keep):
+            catted = model.features(x)
+        assert counters["launch.depthwise_store"] == 0
+        assert counters["hardnet.cat"] == 20
+        assert len(seen) == 36
+        for layer, inp, (wt, b), defer in seen:
+            cudnn = layer.dwconv.forward(inp, wt)
+            own = torch.empty_like(cudnn, memory_format=torch.channels_last)
+            depthwise_store(inp, wt, layer.dwconv.stride, None, [(own, 0)])
+            a, c = own.float(), cudnn.float()
+            _, e = torch.frexp(torch.maximum(a.abs(), c.abs()))
+            step = torch.ldexp(torch.ones_like(a), e - 8)
+            assert bool(((a - c).abs() <= step).all())
+    with torch.enable_grad():
+        want = ref.features(x)
+    scale = float(want.abs().max())
+    err_s = float((stored.float() - want).abs().max()) / scale
+    err_c = float((catted.float() - want).abs().max()) / scale
+    print(f"store route {err_s:.3e}, cat route {err_c:.3e} of the f32 "
+          "map's largest magnitude")
+    assert err_s <= 1.5 * err_c + 1e-3

@@ -30,6 +30,15 @@ layer's batch norm folded into its conv, one epilogue of bias and ReLU6 a
 ``ConvLayer``, and each depth-wise layer's bias deferred into the 1x1 convs
 that alone read its output (the layers' ``_folded`` methods, which
 :meth:`HarDNetFeatureExtraction.forward` calls in place of the layers).
+Outside a row shard the folded route is the store route: each depth-wise
+layer's conv stores its output into every buffer that reads it, a dense
+block's multi-link layer inputs and its output among them
+(``ops/depthwise_store.py``), so no concatenation is copied.  A row shard
+keeps ``torch.cat``: its depth-wise convs read a halo that
+:meth:`~.layers.Conv.forward` exchanges.  ``counters["hardnet.cat"]``
+counts the copies a block still makes to build a concatenation: each
+``torch.cat``, and on the store route each slice copy of a block input
+that a transition, not a depth-wise layer, made (none in HarDNet-39).
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from torch.utils.checkpoint import checkpoint
 from two_stage_object_detection_tpu_torch.models.layers import (
     BatchNorm, Conv, cached_fold, epilogue, fold_norm, fold_route,
     fold_sources, frozen_running_stats, through_1x1)
+from two_stage_object_detection_tpu_torch.ops.depthwise_store import (
+    depthwise_store, out_size)
 from two_stage_object_detection_tpu_torch.parallel import spatial
 from two_stage_object_detection_tpu_torch.utils.profiling import counters
 
@@ -107,21 +118,29 @@ class DWConvLayer(nn.Module):
         w, b = fold_norm(self.dwconv, self.norm)
         return w.to(self.dwconv.compute_dtype), b
 
-    def _run_folded(self, x, params, defer):
+    def _run_folded(self, x, params, defer, into=None):
         w, b = params
         counters["fold.folded"] += 1
+        if into is not None:
+            depthwise_store(x.to(self.dwconv.compute_dtype), w,
+                            self.dwconv.stride, None if defer else b, into)
+            return None, (b if defer else None)
         y = self.dwconv.forward(x, w)
         return (y, b) if defer else (epilogue(y, b), None)
 
-    def _folded(self, x, defer=False):
+    def _folded(self, x, defer=False, into=None):
         """The folded route -> ``(y, pending)``.  With ``defer`` the bias is
         not added but returned as ``pending`` (float32 ``[C]``), for the
         unpadded 1x1 convs that alone consume ``y`` to take in
         (:func:`~.layers.through_1x1`), and this layer makes no pass of its
-        own; else one epilogue adds it and ``pending`` is None."""
+        own; else one epilogue adds it and ``pending`` is None.  With
+        ``into``, a list of ``(channels-last buffer, channel offset)``, the
+        store route: the conv (and the bias, unless deferred) is stored into
+        each (:func:`~..ops.depthwise_store.depthwise_store`), one launch and
+        no epilogue, and ``y`` is None."""
         params = cached_fold(self, fold_sources(self.dwconv, self.norm),
                              self._fold)
-        return self._run_folded(x, params, defer)
+        return self._run_folded(x, params, defer, into)
 
 
 class CombConvLayer(nn.Module):
@@ -139,11 +158,13 @@ class CombConvLayer(nn.Module):
     def _fold(self, pending=None):
         return self.layer1._fold(pending), self.layer2._fold()
 
-    def _run_folded(self, x, params):
+    def _run_folded(self, x, params, into=None):
         """The folded route on :meth:`_fold`'s ``params`` -> ``(y,
-        pending)``, the depth-wise layer's bias deferred."""
+        pending)``, the depth-wise layer's bias deferred; ``into`` as
+        :meth:`DWConvLayer._folded`'s."""
         return self.layer2._run_folded(
-            self.layer1._run_folded(x, params[0]), params[1], defer=True)
+            self.layer1._run_folded(x, params[0]), params[1], defer=True,
+            into=into)
 
 
 def hard_block_links(n_layers: int, base_ch: int, growth_rate: int,
@@ -198,20 +219,42 @@ class HarDBlock(nn.Module):
         for t in range(1, n_layers + 1):
             self.add_module(f"layer{t - 1}", CombConvLayer(
                 in_chs[t - 1], self.out_chs[t], dtype=dtype))
+        self.stores = self._store_table()
 
     def _keep(self, n: int) -> List[int]:
         return [i for i in range(n)
                 if (i == 0 and self.keep_base) or i == n - 1 or i % 2 == 1]
+
+    def _store_table(self):
+        """The store route's static table of where each output goes, the
+        outputs numbered as ``links`` numbers them (0 the block's input):
+        ``(buffers, dests, alone)``.  ``buffers`` is ``{key: (channels,
+        first source)}``: the input of each layer of more than one link
+        (key ``t``, its index in ``links``) and the block's output (key
+        ``"out"``), each in the channel order ``torch.cat`` builds
+        (``links[t]``, then :meth:`_keep`); ``dests[j]`` is output ``j``'s
+        ``[(key, channel offset)]``; ``alone[j]`` whether a layer takes
+        output ``j`` alone, as a tensor of its own."""
+        n = len(self.links) + 1
+        parts = {t: link for t, link in enumerate(self.links) if len(link) > 1}
+        parts["out"] = self._keep(n)
+        buffers, dests = {}, [[] for _ in range(n)]
+        for key, idx in parts.items():
+            off = 0
+            for j in idx:
+                dests[j].append((key, off))
+                off += self.out_chs[j]
+            buffers[key] = (off, min(idx))
+        return buffers, dests, [[j] in self.links for j in range(n)]
 
     def _run(self, x: torch.Tensor, layer) -> torch.Tensor:
         """``layer(t, input)`` gives layer ``t``'s output."""
         outputs = [x]
         for t, link in enumerate(self.links):
             tin = [outputs[j] for j in link]
-            inp = torch.cat(tin, dim=1) if len(tin) > 1 else tin[0]
+            inp = _cat(tin) if len(tin) > 1 else tin[0]
             outputs.append(layer(t, inp))
-        return torch.cat([outputs[i] for i in self._keep(len(outputs))],
-                         dim=1)
+        return _cat([outputs[i] for i in self._keep(len(outputs))])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._run(x, lambda t, inp: getattr(self, f"layer{t}")(inp))
@@ -238,17 +281,86 @@ class HarDBlock(nn.Module):
             pend.append(params[1][1])
         return layers, self._pending(pend, self._keep(len(pend)))
 
+    def _folded_params(self, pending):
+        mods = [m for c in self.children() for m in (
+            c.layer1.conv, c.layer1.norm, c.layer2.dwconv, c.layer2.norm)]
+        return cached_fold(self, fold_sources(*mods, pending=pending),
+                           lambda: self._fold(pending))
+
     def _folded(self, x, pending=None):
         """The folded route -> ``(y, pending)``: one epilogue a layer (its
         1x1 conv's bias and ReLU6), none for the depth-wise convs, whose
         biases reach the output's ``pending``."""
-        mods = [m for c in self.children() for m in (
-            c.layer1.conv, c.layer1.norm, c.layer2.dwconv, c.layer2.norm)]
-        layers, out = cached_fold(self, fold_sources(*mods, pending=pending),
-                                  lambda: self._fold(pending))
+        layers, out = self._folded_params(pending)
         y = self._run(x, lambda t, inp: getattr(self, f"layer{t}")
                       ._run_folded(inp, layers[t])[0])
         return y, out
+
+    def _assembled(self, asm: "_Assembly", pending=None):
+        """The store route -> ``(y, pending)``: the folded route with each
+        layer's depth-wise conv storing its output into the buffers of
+        ``asm`` that read it, so that each layer's input and the block's
+        output are assembled with no copy; ``asm`` holds output 0."""
+        layers, out = self._folded_params(pending)
+        for t in range(len(self.links)):
+            getattr(self, f"layer{t}")._run_folded(asm.take(t), layers[t],
+                                                   into=asm.into(t + 1))
+        return asm.result(), out
+
+
+def _cat(parts: List[torch.Tensor]) -> torch.Tensor:
+    counters["hardnet.cat"] += 1
+    return torch.cat(parts, dim=1)
+
+
+class _Assembly:
+    """One call of a :class:`HarDBlock` on the store route: its buffers
+    (:meth:`HarDBlock._store_table`), each allocated channels-last before
+    its first producer runs and handed to its consumer once."""
+
+    def __init__(self, block: HarDBlock, n: int, h: int, w: int, dtype,
+                 device):
+        self.block, self.size, self.dtype, self.device = (
+            block, (n, h, w), dtype, device)
+        self.bufs = {}
+
+    def _empty(self, c: int) -> torch.Tensor:
+        n, h, w = self.size
+        return torch.empty((n, c, h, w), dtype=self.dtype, device=self.device,
+                           memory_format=torch.channels_last)
+
+    def into(self, j: int, alone: bool = True) -> list:
+        """Output ``j``'s destinations ``[(buffer, channel offset)]``: the
+        buffers whose first source it is are allocated now, and, with
+        ``alone``, the tensor of its own a layer takes."""
+        buffers, dests, takers = self.block.stores
+        for key, (c, first) in buffers.items():
+            if first == j:
+                self.bufs[key] = self._empty(c)
+        out = [(self.bufs[key], off) for key, off in dests[j]]
+        if alone and takers[j]:
+            own = self.bufs[("alone", j)] = self._empty(self.block.out_chs[j])
+            out.append((own, 0))
+        return out
+
+    def put(self, j: int, y: torch.Tensor) -> None:
+        """Output ``j`` as a tensor no depth-wise layer stored (a block's
+        input that a transition made): copied into the slice of each buffer
+        that reads it, each copy counted in ``hardnet.cat``, and taken alone
+        as it is."""
+        for buf, off in self.into(j, alone=False):
+            counters["hardnet.cat"] += 1
+            buf[:, off:off + y.shape[1]].copy_(y)
+        self.bufs[("alone", j)] = y
+
+    def take(self, t: int) -> torch.Tensor:
+        """Layer ``t``'s input (``links[t]``), handed over once."""
+        link = self.block.links[t]
+        return self.bufs.pop(t if len(link) > 1 else ("alone", link[0]))
+
+    def result(self) -> torch.Tensor:
+        """The block's output."""
+        return self.bufs.pop("out")
 
 
 _ARCH = {
@@ -365,22 +477,52 @@ class HarDNetFeatureExtraction(nn.Module):
                 u = shard.own_rows(u, x)
         return x * (u >= self.DROPOUT).to(x.dtype) / (1.0 - self.DROPOUT)
 
+    def _feed(self, layer: DWConvLayer, x: torch.Tensor, block, store):
+        """A depth-wise layer on the folded route -> ``(y, pending, asm)``.
+        If its output is ``block``'s input (None: no block's), it leaves its
+        bias ``pending`` for the block's 1x1 convs to take in; else it adds
+        it.  On the store route (``store``) it stores its output into
+        ``asm``, the block's buffers, and ``y`` is None; or, feeding no
+        block, into ``y``, a tensor of its own."""
+        if not store:
+            return (*layer._folded(x, defer=block is not None), None)
+        n, _, h, w = x.shape
+        conv = layer.dwconv
+        ho, wo = out_size(h, w, conv.stride)
+        if block is None:
+            y = torch.empty((n, conv.weight.shape[0], ho, wo),
+                            dtype=conv.compute_dtype, device=x.device,
+                            memory_format=torch.channels_last)
+            return y, layer._folded(x, into=[(y, 0)])[1], None
+        asm = _Assembly(block, n, ho, wo, conv.compute_dtype, x.device)
+        return None, layer._folded(x, defer=True, into=asm.into(0))[1], asm
+
     def forward(self, x: torch.Tensor, generator: torch.Generator = None):
         """On the folded route (``layers.fold_route``) each layer runs its
         ``_folded``: a depth-wise layer whose output feeds only 1x1 convs
         (the stem's, the blocks', and each down followed by a block) leaves
         its bias ``pending`` for them to take in; a down before the tail
-        and ``pyr_down`` add theirs."""
+        and ``pyr_down`` add theirs.  Outside a row shard it is the store
+        route (:meth:`_feed`, :meth:`HarDBlock._assembled`)."""
         fold = fold_route(self, x)
+        store = fold and spatial.current() is None
+        asm = None
         if fold:
             x = self.stem1._folded(self.stem0._folded(x))
-            x, pending = self.stem2._folded(x, defer=True)
+            x, pending, asm = self._feed(self.stem2, x, self.block0, store)
         else:
             x, pending = self.stem2(self.stem1(self.stem0(x))), None
         taps = []
         for i in range(self.n_blocks):
-            if fold:
-                x, pending = getattr(self, f"block{i}")._folded(x, pending)
+            blk = getattr(self, f"block{i}")
+            if store:
+                if asm is None:             # the block's input: a transition
+                    asm = _Assembly(blk, x.shape[0], x.shape[2], x.shape[3],
+                                    x.dtype, x.device)
+                    asm.put(0, x)
+                x, pending = blk._assembled(asm, pending)
+            elif fold:
+                x, pending = blk._folded(x, pending)
             else:
                 x = self._block(i, x)
             if i == self.n_blocks - 1 and self.arch == 85 and self.training:
@@ -390,13 +532,17 @@ class HarDNetFeatureExtraction(nn.Module):
             pending = None                      # the transition took it in
             if i in self.tap_after:
                 taps.append(x)
+            asm = None
             if hasattr(self, f"down{i}"):
                 down = getattr(self, f"down{i}")
-                x, pending = (down._folded(x, defer=i < self.n_blocks - 1)
-                              if fold else (down(x), None))
+                x, pending, asm = (
+                    self._feed(down, x, getattr(self, f"block{i + 1}", None),
+                               store)
+                    if fold else (down(x), None, None))
         x = self.tail2(self.tail1(F.relu(self.tail0(x))))
         if self.pyramid:
-            c5 = self.pyr_down._folded(x)[0] if fold else self.pyr_down(x)
+            c5 = (self._feed(self.pyr_down, x, None, store)[0] if fold
+                  else self.pyr_down(x))
             return (*taps, x, c5)
         return x
 

@@ -36,7 +36,7 @@ from two_stage_object_detection_tpu_torch.utils.profiling import counters
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("nms", "windowed_align", "proposals", "roi_pool", "roi_pool_bwd",
-           "conv_epilogue")
+           "conv_epilogue", "depthwise_store")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,6 +56,7 @@ ENTRIES = {
     "roi_pool_bwd_recompute_launch": ("roi_pool_bwd", "ppppiiiiiifiiiiip"),
     "roi_pool_bwd_scatter_launch": ("roi_pool_bwd", "pppiiiiiip"),
     "conv_epilogue_launch": ("conv_epilogue", "ppppliiiip"),
+    "depthwise_store_launch": ("depthwise_store", "ppppiiiiiiiip"),
 }
 _C_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int,
             "l": ctypes.c_longlong, "f": ctypes.c_float}

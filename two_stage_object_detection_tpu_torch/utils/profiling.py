@@ -47,9 +47,12 @@ _OFF = contextlib.nullcontext()
 #: ``Counter`` increment each).  The backbones' folded predict route
 #: (``models/layers.py:fold_route``) counts ``fold.folded``, the conv +
 #: batch-norm pairs it ran folded; ``fold.epilogue``, its epilogue calls;
-#: ``fold.rebuild``, rebuilds of a module's folded weights; and
-#: ``fold.fallback.<reason>``, trunk calls that took the unfolded route.
-#: Readers reset it with ``counters.clear()``.
+#: ``fold.rebuild``, rebuilds of a module's folded weights;
+#: ``fold.fallback.<reason>``, trunk calls that took the unfolded route;
+#: ``hardnet.cat``, the copies HarDNet's dense blocks still make to build a
+#: concatenation (``models/hardnet.py``); ``launch.<wrapper>``, the hand
+#: kernels' launches (``ops/_cuda.py:launch``).  Readers reset it with
+#: ``counters.clear()``.
 counters: collections.Counter = collections.Counter()
 
 
