@@ -142,6 +142,64 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class Linear(nn.Module):
+    """Affine layer on the last axis of tokens ``[..., in]`` (``weight
+    [out, in]``, float32; ``bias`` optional): the transformer trunk's
+    layers, drawn as the published Swin draws them (truncated normal of
+    std 0.02, bias zero).  Not a :class:`Dense`: the tensor-parallel rules
+    split dense heads, not a trunk."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        self.compute_dtype = compute_dtype
+
+    def reset_parameters(self, generator: torch.Generator):
+        trunc_normal_002_(self.weight, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the last axis of tokens, ``eps`` 1e-5 as
+    ``nn.LayerNorm``: the statistics in float32 (``F.layer_norm``
+    accumulates a bfloat16 input's in float32), the result in
+    ``compute_dtype``."""
+
+    EPS = 1e-5
+
+    def __init__(self, channels: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.compute_dtype = compute_dtype
+
+    def reset_parameters(self, generator: torch.Generator):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.layer_norm(x.to(dt), self.weight.shape, self.weight.to(dt),
+                            self.bias.to(dt), self.EPS)
+
+
+def trunc_normal_002_(w: torch.Tensor, generator: torch.Generator):
+    """The published transformer init: normal of std 0.02, truncated at
+    +-2 (absolute, so in effect untruncated), as timm's
+    ``trunc_normal_(w, std=.02)``."""
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, 0.02, -2.0, 2.0, generator=generator)
+
+
 class BatchNorm(nn.Module):
     """Batch norm over NCHW channels with flax's numerics:
     ``(x - mean) / sqrt(var + 1e-5) * weight + bias``, statistics in
@@ -302,11 +360,14 @@ def frozen_running_stats(module: nn.Module):
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Initialise every :class:`Conv` / :class:`ConvTranspose` /
-    :class:`Dense` below ``module`` from ``generator``, in module order
-    (deterministic for a seed)."""
+    """Initialise every layer below ``module`` from ``generator``, in
+    module order (deterministic for a seed): each module with a
+    ``reset_parameters(generator)``, which the port's layers have
+    (:class:`Conv`, :class:`ConvTranspose`, :class:`Dense`,
+    :class:`Linear`, :class:`LayerNorm`, the Swin attention's bias table)
+    and no other module of the port."""
     for m in module.modules():
-        if isinstance(m, (Conv, ConvTranspose, Dense)):
+        if hasattr(m, "reset_parameters"):
             m.reset_parameters(generator)
 
 

@@ -2,10 +2,10 @@
 
 The counterpart of the JAX package's ``nets/detector.py``, both branches:
 
-* ``Config(fpn=True)``: ResNet (or strided HarDNet) trunk -> FPN neck ->
-  shared RPN head over the anchor pyramid -> proposals (kernel 1, or
-  kernel 3 on small inputs) -> windowed RoIAlign (kernel 2) and the 2-FC
-  box head;
+* ``Config(fpn=True)``: ResNet (or strided HarDNet, or the Swin-T
+  transformer of ``models/swin.py``) trunk -> FPN neck -> shared RPN head
+  over the anchor pyramid -> proposals (kernel 1, or kernel 3 on small
+  inputs) -> windowed RoIAlign (kernel 2) and the 2-FC box head;
 * ``Config(fpn=False)`` (the default ``Config()``: HarDNet-39): stride-16
   map -> 1x1 RPN head over ``make_anchors`` -> whole-table proposals
   (kernel 3) -> RoIPool max (kernel 5), a global mean and two dense heads.

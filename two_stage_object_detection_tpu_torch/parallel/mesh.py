@@ -368,6 +368,8 @@ def place_train_state(state, mesh: Mesh, debug: bool = False,
     """
     from two_stage_object_detection_tpu_torch.models.layers import (
         set_data_group)
+    from two_stage_object_detection_tpu_torch.models.registry import (
+        check_route)
     from two_stage_object_detection_tpu_torch.parallel.sharding import (
         shard_train_state)
     from two_stage_object_detection_tpu_torch.parallel.spatial import (
@@ -382,6 +384,8 @@ def place_train_state(state, mesh: Mesh, debug: bool = False,
     if state.cfg.mask_head and mesh.model_group is not None:
         raise ValueError("mask_head=True trains over a data axis only: the "
                          "mask head has no tensor-parallel or spatial route")
+    if mesh.model_group is not None:
+        check_route(state.cfg.backbone, "model_axis")
     with torch.no_grad():
         _coalesced(state_tensors(state), lambda flat: broadcast_(flat, 0))
     state.group, state.model_group = mesh.group, mesh.model_group

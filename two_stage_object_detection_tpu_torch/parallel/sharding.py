@@ -119,9 +119,12 @@ def shard_train_state(state, mesh) -> None:
     new parameters with its state (and any open cycle's gradients) sliced
     the same way; AdamW is element-wise, so the slices of the whole state
     are the sliced state's."""
+    from two_stage_object_detection_tpu_torch.models.registry import (
+        check_route)
     model, opt = state.model, state.optimizer
     if state.cfg.mask_head:
         raise ValueError("mask_head=True has no tensor-parallel route")
+    check_route(state.cfg.backbone, "model_axis")
     split = {n: d for n, d in infer_param_sharding(model, mesh).items()
              if d is not None}
     size, index = mesh.shape["model"], mesh.model_index

@@ -43,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from two_stage_object_detection_tpu_torch.models.layers import Conv
+from two_stage_object_detection_tpu_torch.models.registry import check_route
 from two_stage_object_detection_tpu_torch.parallel import spatial
 from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
 
@@ -141,6 +142,12 @@ def int8_conv(conv: Conv, x: torch.Tensor, s_x: float) -> torch.Tensor:
     return y.to(conv.compute_dtype)
 
 
+def _check_trunk(model: nn.Module) -> None:
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None:
+        check_route(cfg.backbone, "int8")
+
+
 @torch.no_grad()
 def calibrate(model: nn.Module, batches: Iterable,
               method: str = "predict") -> Dict[str, float]:
@@ -149,8 +156,9 @@ def calibrate(model: nn.Module, batches: Iterable,
     Every batch goes through ``getattr(model, method)``; a forward
     pre-hook on each eligible conv keeps the running maximum on the device,
     read back once at the end.  Returns ``{conv_path: absmax}`` for
-    :func:`quantized`.
+    :func:`quantized`; a Swin trunk, which has no int8 route, raises.
     """
+    _check_trunk(model)
     records: Dict[str, torch.Tensor] = {}
 
     def hook(path):
@@ -183,9 +191,11 @@ def quantized(model: nn.Module, scales: Mapping[str, float]):
     positive absmax compute :func:`int8_conv` with ``s_x = absmax / 127``.
     Their ``forward`` is replaced on the instance and restored on exit; a
     model must not be used from another thread while it is quantized.
-    A Mask R-CNN (a model with a ``mask_head``) has no int8 route."""
+    A Mask R-CNN (a model with a ``mask_head``) and a Swin trunk have no
+    int8 route."""
     if getattr(model, "mask_head", None) is not None:
         raise ValueError("mask_head=True has no int8 route")
+    _check_trunk(model)
     swapped = []
     for path, m in eligible_convs(model).items():
         amax = float(scales.get(path, 0.0))

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from two_stage_object_detection_tpu_torch.config import Config
+from two_stage_object_detection_tpu_torch.models.registry import check_route
 from two_stage_object_detection_tpu_torch.nets.detector import FasterRCNN
 from two_stage_object_detection_tpu_torch.ops.geometry import div_exact
 from two_stage_object_detection_tpu_torch.utils.profiling import annotate
@@ -198,6 +199,10 @@ class Predictor:
         if cfg.mask_head and (spatial or int8_scales):
             raise ValueError("mask_head=True serves neither spatial=True nor "
                              "int8_scales: the mask head has no such route")
+        if spatial:
+            check_route(cfg.backbone, "spatial")
+        if int8_scales:
+            check_route(cfg.backbone, "int8")
         h, w = cfg.input_size
         if wire == "yuv420" and (h % 2 or w % 2):
             raise ValueError(f"wire='yuv420' needs even input_size, got "

@@ -51,8 +51,10 @@ _OFF = contextlib.nullcontext()
 #: ``fold.fallback.<reason>``, trunk calls that took the unfolded route;
 #: ``hardnet.cat``, the copies HarDNet's dense blocks still make to build a
 #: concatenation (``models/hardnet.py``); ``launch.<wrapper>``, the hand
-#: kernels' launches (``ops/_cuda.py:launch``).  Readers reset it with
-#: ``counters.clear()``.
+#: kernels' launches (``ops/_cuda.py:launch``); ``swin.windows``,
+#: ``swin.pad_tokens`` and ``swin.mask_build``, the Swin trunk's windows
+#: attended, tokens added by padding and attention masks built
+#: (``models/swin.py``).  Readers reset it with ``counters.clear()``.
 counters: collections.Counter = collections.Counter()
 
 

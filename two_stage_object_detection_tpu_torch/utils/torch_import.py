@@ -25,6 +25,17 @@ lacks, a key the model does not have, a shape that does not match, or a
 backbone parameter or statistic left unfilled raises, naming the key.
 Ignored, as in the JAX package: ``num_batches_tracked``, ``fc.*``, stages
 beyond ``blocks_num``, and every key the converter does not read.
+
+* Swin-T (the published detection backbone, Swin-Transformer-Object-
+  Detection's ``mmdet/models/backbones/swin_transformer.py``, with or
+  without the ``backbone.`` prefix of a detector's dict): the port's trunk
+  carries the published names (``patch_embed.{proj,norm}``,
+  ``layers.{i}.blocks.{j}.{norm1,attn.qkv,attn.proj,
+  attn.relative_position_bias_table,norm2,mlp.fc1,mlp.fc2}``,
+  ``layers.{i}.downsample.{norm,reduction}``, ``norm{i}``), so the map is
+  the identity on them; ``relative_position_index`` (recomputed) and the
+  classifier's ``norm`` and ``head`` are not read
+  (:func:`convert_swin_state_dict`).
 """
 
 from __future__ import annotations
@@ -290,3 +301,66 @@ def load_resnet_backbone(path_or_sd, state, block: str = "bottleneck",
     new = convert_resnet_state_dict(_read(path_or_sd), block, blocks_num)
     return _load(state, {f"extractor.{k}": v for k, v in new.items()})
 
+
+
+# --------------------------------------------------------- swin backbones
+_SWIN_BLOCK = ("norm1.weight", "norm1.bias", "attn.qkv.weight",
+               "attn.qkv.bias", "attn.proj.weight", "attn.proj.bias",
+               "attn.relative_position_bias_table", "norm2.weight",
+               "norm2.bias", "mlp.fc1.weight", "mlp.fc1.bias",
+               "mlp.fc2.weight", "mlp.fc2.bias")
+
+
+def _swin_keys(depths=(2, 2, 6, 2), output_norms: bool = True):
+    """The published Swin trunk's parameter names, in its order: the patch
+    embedding, each stage's blocks and patch merging (all but the last
+    stage), and with ``output_norms`` the detection backbone's ``norm{i}``
+    on each stage's output."""
+    keys = [f"patch_embed.{m}.{p}" for m in ("proj", "norm")
+            for p in ("weight", "bias")]
+    for i, depth in enumerate(depths):
+        keys += [f"layers.{i}.blocks.{j}.{k}" for j in range(depth)
+                 for k in _SWIN_BLOCK]
+        if i < len(depths) - 1:
+            keys += [f"layers.{i}.downsample.{k}" for k in
+                     ("norm.weight", "norm.bias", "reduction.weight")]
+    if output_norms:
+        keys += [f"norm{i}.{p}" for i in range(len(depths))
+                 for p in ("weight", "bias")]
+    return keys
+
+
+def convert_swin_state_dict(sd: Mapping, depths=(2, 2, 6, 2)
+                            ) -> Dict[str, torch.Tensor]:
+    """A published Swin state dict -> ``{key below the port's extractor:
+    float32 tensor}``.
+
+    Accepts a detector's dict (``backbone.`` keys: the neck and heads are
+    not read) or a bare backbone's.  The output norms ``norm0..norm3`` come
+    from the dict where it has them (a detection checkpoint); an ImageNet
+    classifier's dict has none (its single ``norm`` follows the last
+    stage), and they start at 1 and 0, as the detection backbone builds
+    them.  Every other trunk tensor must be in the dict."""
+    prefix = ("backbone." if any(k.startswith("backbone.") for k in sd)
+              else "")
+    norms = f"{prefix}norm0.weight" in sd
+    out = {k: _take(sd, prefix + k) for k in _swin_keys(depths, norms)}
+    if not norms:
+        width = out["patch_embed.norm.weight"].shape[0]
+        for i in range(len(depths)):
+            out[f"norm{i}.weight"] = torch.ones(width * 2 ** i)
+            out[f"norm{i}.bias"] = torch.zeros(width * 2 ** i)
+    return out
+
+
+def load_swin_backbone(path_or_sd, state, depths=(2, 2, 6, 2)):
+    """Initialise the Swin trunk of ``state`` (a ``TrainState`` or a
+    ``FasterRCNN`` with ``backbone="swin_t"``) from a published checkpoint
+    (a ``.pth`` path or a state dict; a trainer's ``state_dict`` entry is
+    read where the file holds one), in place.  The neck and heads keep
+    their values.  Returns ``state``."""
+    raw = _read(path_or_sd)
+    if isinstance(raw, dict) and "state_dict" in raw:
+        raw = raw["state_dict"]
+    new = convert_swin_state_dict(raw, depths)
+    return _load(state, {f"extractor.{k}": v for k, v in new.items()})
